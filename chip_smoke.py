@@ -29,10 +29,46 @@ Phases, each printing one line, any failure raising (exit code != 0):
    events, median of 20 after 3 warm-ups) at both shapes, the wrapper
    with its host-side preparation, rollout ticks/s of a warm 900-tick
    headline run, the peak device memory, and a profiled 300-tick run's
-   device busy time, idle share and kernel launches.
+   device busy time, idle share and kernel launches;
 
-The line before the last is the card's name and power limit; the last
-line is ``{"ok": true, "device": {...}}``.
+then BASELINE config 3 (1,024 particles x 50 x 50 m maps at 0.05 m, bf16:
+a 2.1 GB dense map set, or a 2.35 GB tile pool):
+
+7. K2 (copy on write) against its plain version on ``[1024, 1000, 1024]``
+   bf16 maps under bench.py's 50 %-duplicate plan, a systematic resample
+   of peaked weights, and the identity plan; gate: bitwise;
+8. K3 (tiled update) against its plain version on the config-3 pool
+   ``[20480, 56, 1024]``, 3 updates with lineage relabels, static and
+   traced spacing, 360 beams and a 90-beam sector, two poses pinned to
+   the y-edges; then the same at 4 x 4 m, 0.02 m (a 3-band span).  Gates:
+   flip fraction < 1e-4 on the materialized maps, likelihood rtol 1e-5 /
+   atol 1e-4, tables equal, padded column tail exactly 0;
+9. on one set of config-3 inputs, K1 in lineage mode and in place
+   against its plain version (flip and likelihood gates), then K3
+   against both K1 modes: maps and likelihood bitwise;
+10. config-3 rollouts of 300 ticks through ``make_fused``: auto (tiled,
+    K3 once per frame, K1 never), pinned deferred (``resample_cow=
+    "staged", fused_resident=True``: K1 lineage; best pose within 1e-5 m
+    of the tiled run) and copy on write (``resample_cow=True``: K1 in
+    place and K2 once per frame); finite outputs, weights summing to 1,
+    RMSE <= 0.08 m;
+11. the copy-on-write and tiled plans and one tiled config-3 update
+    under ``torch.cuda.set_sync_debug_mode("error")`` (no host sync);
+12. times: K2, its plain version and ``index_copy_`` on bench.py's plan;
+    K3 and its plain version after one resample; K1 in place; warm
+    900-tick tiled and copy-on-write rollouts with their peak memory; a
+    profiled 300-tick tiled run.
+
+Every kernel's bound is the larger of the bytes it must move at
+3.35 TB/s and its float32 operations at 67 TFLOP/s (the published H100
+SXM peaks), from this run's inputs.  No cell outside the scan disc
+changes, so an update must touch only the disc's cells: fresh output
+maps (K1 lineage mode) and privatized bands (K3) are moved whole, maps
+updated in place only on the disc, and operations count disc cells.  The
+full-width window the kernels compute is printed beside it as the cost
+of the current design, not as a bound.  The line before the last is the
+card's name and power limit; the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -48,6 +84,13 @@ from pathlib import Path
 FLIP_GATE = 1e-4
 LIK_RTOL, LIK_ATOL = 1e-5, 1e-4
 RMSE_GATE_M = 0.08
+DEFERRED_GATE_M = 1e-5
+PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+PEAK_F32_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+# float32 operations per window cell of the fused update: ~40 arithmetic
+# (offsets, r^2, sqrt, bin wrap, interval test, density) + ~20 for atan2
+CELL_OPS = 60
+CONFIG3 = (-25.0, -25.0, 50.0, 50.0, 0.05)
 YAML_SCRIPT = [[4.0, 0.05, 0.08], [8.0, 0.08, 0.05], [999.0, 0.06, 0.06]]
 YAML_RECTS = [(-1.0, -1.0, 2.0, 2.0), (-0.1, -0.4, 0.5, 0.1),
               (-0.6, 0.4, 0.2, 0.5)]
@@ -165,16 +208,40 @@ def headline_world(torch, resolution):
         grid_config=cfg, control_script=YAML_SCRIPT, device="cuda")
 
 
-def check_rollout(torch, fw, n_steps, label, rmse_gate=None):
-    from slamrs_tpu_torch.ops import fused
+def counters():
+    """The launch counters of every kernel wrapper, by name."""
+    from slamrs_tpu_torch.ops import cow, fused, tiles
 
-    fused.fused_update.launches = 0
+    return {"fused_update": (fused.fused_update, "launches"),
+            "fused_update_in_place": (fused.fused_update,
+                                      "in_place_launches"),
+            "cow_copy": (cow.cow_copy, "launches"),
+            "fused_update_tiled": (tiles.fused_update_tiled, "launches")}
+
+
+def reset_counts():
+    for fn, attr in counters().values():
+        setattr(fn, attr, 0)
+
+
+def read_counts():
+    return {name: getattr(fn, attr) for name, (fn, attr) in
+            counters().items()}
+
+
+def check_rollout(torch, fw, n_steps, label, rmse_gate=None, expect=None):
+    """Drive ``fw.rollout_cadence`` with every launch count set to 0 just
+    before and read just after.  ``expect`` maps counter names to
+    ``"frames"`` or a number (default: K1 once per frame)."""
+    expect = expect or {"fused_update": "frames"}
+    reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     state, outs = fw.rollout_cadence(fw.init(), n_steps, seed=0)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = fused.fused_update.launches
+    counts = read_counts()
+    launches = counts["fused_update"]
     frames = int(outs.fired.shape[0])
     err = outs.grid_pose[:, :2] - outs.pose[:, :2]
     rmse = float(torch.sqrt((err ** 2).mean()))
@@ -183,16 +250,522 @@ def check_rollout(torch, fw, n_steps, label, rmse_gate=None):
         outs.pose, outs.grid_pose, outs.n_eff, state.grid.weights,
         state.grid.poses, state.grid.grids))
     emit({"phase": f"rollout_{label}", "ticks": n_steps, "frames": frames,
-          "launches": launches, "grid_pose_rmse_xy_m": rmse,
+          "launches": launches, "launch_counts": counts,
+          "grid_pose_rmse_xy_m": rmse,
           "weights_sum": wsum, "finite": finite,
-          "grids": list(state.grid.grids.shape), "seconds": seconds})
-    if launches != frames:
-        raise AssertionError(f"{launches} kernel launches for {frames} frames")
+          "grids": list(state.grid.grids.shape),
+          "tile_table": (None if state.grid.tile_table is None
+                         else list(state.grid.tile_table.shape)),
+          "seconds": seconds})
+    for name, want in expect.items():
+        want = frames if want == "frames" else want
+        if counts[name] != want:
+            raise AssertionError(f"{label}: {counts[name]} {name} launches, "
+                                 f"expected {want} ({frames} frames)")
     if not finite or abs(wsum - 1.0) > 1e-5:
         raise AssertionError("non-finite outputs or weights not normalized")
     if rmse_gate is not None and not rmse <= rmse_gate:
         raise AssertionError(f"grid pose RMSE {rmse} m > {rmse_gate} m")
-    return launches, rmse
+    return counts, outs, state
+
+
+def fused_bound(nbytes, cells):
+    """(ms, bound_by) of a fused update moving ``nbytes`` and computing
+    ``cells`` cells: the larger of the two times at the card's peaks."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = cells * CELL_OPS / PEAK_F32_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def disc_extent(torch, spec, prep):
+    """Per particle, the scan disc's bounding square clipped to the
+    logical grid: first row, end row (exclusive) and column count.  No
+    cell outside it can change, so it is what an update must touch."""
+    from slamrs_tpu_torch.ops import fused
+
+    dh = fused.disc_half(spec, 1.0)
+    cx = torch.floor(prep.pp[:, 0]).long()
+    cy = torch.floor(prep.pp[:, 1]).long()
+    ncols = (torch.clamp(cx + dh + 1, max=spec.cols)
+             - torch.clamp(cx - dh, min=0)).clamp_min(0)
+    y0 = torch.clamp(cy - dh, min=0)
+    y1 = torch.maximum(torch.clamp(cy + dh + 1, max=spec.rows), y0)
+    return y0, y1, ncols
+
+
+def disc_cells(torch, spec, prep):
+    y0, y1, ncols = disc_extent(torch, spec, prep)
+    return int(((y1 - y0) * ncols).sum())
+
+
+def cow_bytes(torch, grids, src, n_copies):
+    """Bytes a copy plan must move: each unique source map read once,
+    each copy written once."""
+    n = int(n_copies)
+    map_bytes = grids[0].numel() * grids.element_size()
+    return (int(torch.unique(src[:n]).numel()) + n) * map_bytes
+
+
+def config3_maps(torch, seed):
+    """``[1024, 1000, 1024]`` bf16 maps of random log-odds, made on the
+    card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    grids = torch.empty(1024, 1000, 1024, dtype=torch.bfloat16,
+                        device="cuda")
+    for c in range(0, 1024, 128):  # bounded f32 temporaries
+        grids[c:c + 128] = torch.randn(grids[c:c + 128].shape, generator=g,
+                                       device="cuda") * 2.0
+    grids[:, :, 1000:] = 0.0
+    return grids
+
+
+def cow_plans(torch):
+    """bench.py's config-3 plan (512 copies of 256 unique maps), a
+    systematic resample of peaked weights, and the identity plan."""
+    from slamrs_tpu_torch.ops import resample
+
+    p, k = 1024, 512
+    uniq = k // 2
+    bench = torch.arange(p, device="cuda")
+    bench[p - k:] = torch.arange(k, device="cuda") % uniq
+    bench = torch.sort(bench)[0].to(torch.int32)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    w = torch.softmax(torch.randn(p, generator=g, device="cuda") * 4.0, 0)
+    peaked = resample.systematic_resample(
+        w, torch.rand(1, generator=g, device="cuda"))
+    return {"bench": bench, "systematic_peaked": peaked,
+            "identity": torch.arange(p, dtype=torch.int32, device="cuda")}
+
+
+def compare_dense(a, b, chunk=128):
+    """(flip fraction, max |diff|) of two dense map sets, compared
+    ``chunk`` particles at a time to bound the float32 temporaries."""
+    flips = cells = 0
+    worst = 0.0
+    for c in range(0, a.shape[0], chunk):
+        diff = (a[c:c + chunk].float() - b[c:c + chunk].float()).abs()
+        flips += int((diff > 0.01).sum())
+        cells += diff.numel()
+        worst = max(worst, float(diff.max()))
+    return flips / cells, worst
+
+
+def check_cow(torch):
+    """K2 against its plain version on the config-3 map set; bitwise.
+    Returns the largest absolute difference (0 when bitwise equal)."""
+    from slamrs_tpu_torch.ops import cow
+
+    grids = config3_maps(torch, 21)
+    worst = 0.0
+    for label, anc in cow_plans(torch).items():
+        src, dst, n = cow.cow_plan(anc)
+        g_k = grids.clone()
+        before = cow.cow_copy.launches
+        cow.cow_copy(g_k, src, dst, n)
+        torch.cuda.synchronize()
+        if cow.cow_copy.launches != before + 1:
+            raise AssertionError("the cow_copy launch counter did not count")
+        g_p = cow.cow_copy_reference(grids.clone(), src, dst, n)
+        equal = bool(torch.equal(g_k, g_p))
+        err = compare_dense(g_k, g_p)[1]
+        worst = max(worst, err)
+        moved = bool(not torch.equal(g_k, grids)) if int(n) else False
+        emit({"phase": "kernel_vs_plain_cow_config3", "plan": label,
+              "shape": list(grids.shape), "n_copies": int(n),
+              "bitwise_equal": equal, "max_abs_err": err,
+              "maps_changed": moved})
+        if not equal or (int(n) > 0) != moved:
+            raise AssertionError(f"cow_copy disagrees with its plain version "
+                                 f"({label})")
+        del g_k, g_p
+    return worst
+
+
+def tiled_pool(torch, tiles, spec, p, seed):
+    """A tiled state at ``spec`` with random log-odds (~30 % zeros, zero
+    column tail) and a random table that shares tiles."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    pool, table = tiles.init_tiled(p, spec, 1.0, device="cuda")
+    for c in range(0, pool.shape[0], 2048):
+        blk = torch.randn(pool[c:c + 2048].shape, generator=g,
+                          device="cuda") * 2.0
+        blk[torch.rand(blk.shape, generator=g, device="cuda") < 0.3] = 0.0
+        pool[c:c + 2048] = blk
+    pool[:, :, spec.cols:] = 0.0
+    table.copy_(torch.randint(0, table.numel(), table.shape, generator=g,
+                              device="cuda", dtype=torch.int32))
+    return pool, table
+
+
+def tiled_step_inputs(torch, spec, p, g, num_beams, static):
+    """Poses across the map (two pinned to the y-edges), a scan, and a
+    sorted pending lineage."""
+    lo = torch.tensor([spec.position_x + 0.3, spec.position_y + 0.3, -math.pi],
+                      device="cuda")
+    ext = torch.tensor([spec.width - 0.6, spec.height - 0.6, 2 * math.pi],
+                       device="cuda")
+    poses = lo + ext * torch.rand(p, 3, generator=g, device="cuda")
+    poses[0, 1] = spec.position_y + 0.01
+    poses[1, 1] = spec.position_y + spec.height - 0.01
+    dist = 0.1 + 0.9 * torch.rand(num_beams, generator=g, device="cuda")
+    valid = torch.rand(num_beams, generator=g, device="cuda") < 0.8
+    if num_beams == 360:
+        present = torch.ones(num_beams, dtype=torch.bool, device="cuda")
+        present[350:] = False
+    else:
+        present = torch.rand(num_beams, generator=g, device="cuda") < 0.85
+    dphi = math.radians(1.0) if static else \
+        torch.tensor(math.radians(1.0), dtype=torch.float32, device="cuda")
+    anc = torch.sort(torch.randint(0, p, (p,), generator=g, device="cuda",
+                                   dtype=torch.int32))[0]
+    a0 = torch.tensor(0.1, dtype=torch.float32, device="cuda")
+    return (poses, a0, dist, valid, present, spec, num_beams, 1.0), dphi, anc
+
+
+def compare_tiled(torch, tiles, pool_a, table_a, pool_b, table_b, spec):
+    """(flip fraction, max |diff|, tail is zero) of two tiled states'
+    materialized maps, compared 128 particles at a time."""
+    flips = cells = 0
+    worst = 0.0
+    tail_zero = True
+    for c in range(0, table_a.shape[0], 128):
+        a = tiles.materialize(pool_a, table_a[c:c + 128], spec).float()
+        b = tiles.materialize(pool_b, table_b[c:c + 128], spec).float()
+        diff = (a - b).abs()
+        flips += int((diff > 0.01).sum())
+        cells += diff.numel()
+        worst = max(worst, float(diff.max()))
+        tail_zero &= not bool(a[:, :, spec.cols:].any())
+    return flips / cells, worst, tail_zero
+
+
+def check_tiled(torch, spec, label, n_updates=3):
+    """K3 against its plain version over ``n_updates`` updates with
+    lineage relabels; returns the worst absolute error."""
+    from slamrs_tpu_torch.ops import tiles
+
+    worst = 0.0
+    for num_beams in (360, 90):
+        for static in (True, False):
+            g = torch.Generator(device="cuda").manual_seed(31 + num_beams)
+            pool_k, table_k = tiled_pool(torch, tiles, spec, 1024, 41)
+            pool_p, table_p = pool_k.clone(), table_k
+            kspan = tiles.span_of(spec, 1.0, pool_k.shape[1])
+            for step in range(n_updates):
+                args, dphi, anc = tiled_step_inputs(torch, spec, 1024, g,
+                                                    num_beams, static)
+                before = tiles.fused_update_tiled.launches
+                _, table_k, l_k = tiles.fused_update_tiled(
+                    pool_k, table_k, *args, dphi=dphi, ancestors=anc)
+                torch.cuda.synchronize()
+                if tiles.fused_update_tiled.launches != before + 1:
+                    raise AssertionError("the tiled launch counter did not "
+                                         "count")
+                st = tiles.plan_step(pool_p, table_p, *args, dphi=dphi,
+                                     ancestors=anc)
+                l_p = tiles.fused_update_tiled_reference(
+                    pool_p, st.src, st.dst, st.woff, st.prep, spec,
+                    num_beams)
+                table_p = st.new_table
+                flip, grid_err, tail_zero = compare_tiled(
+                    torch, tiles, pool_k, table_k, pool_p, table_p, spec)
+                lik_err = float((l_k - l_p).abs().max())
+                ok = (flip < FLIP_GATE and tail_zero
+                      and bool(torch.equal(table_k, table_p))
+                      and bool(torch.allclose(l_k, l_p, rtol=LIK_RTOL,
+                                              atol=LIK_ATOL)))
+                worst = max(worst, grid_err, lik_err)
+                emit({"phase": f"kernel_vs_plain_tiled_{label}",
+                      "pool": list(pool_k.shape),
+                      "table": list(table_k.shape), "kspan": kspan,
+                      "beams": num_beams,
+                      "dphi": "static" if static else "traced",
+                      "update": step, "flip_fraction": flip,
+                      "grid_max_abs_err": grid_err,
+                      "lik_max_abs_err": lik_err,
+                      "fresh_tiles": int((st.dst != st.src).sum()),
+                      "tail_zero": tail_zero})
+                if not ok:
+                    raise AssertionError(f"tiled kernel disagrees with its "
+                                         f"plain version ({label}, "
+                                         f"{num_beams} beams, "
+                                         f"static={static}, update {step})")
+            del pool_k, pool_p
+    return worst
+
+
+def check_k3_vs_k1(torch, spec):
+    """On the same config-3 inputs: K1 (lineage mode, and in place on the
+    relabelled maps) against its plain version under the flip and
+    likelihood gates, then K3 on the tiled state against both K1 modes on
+    the materialized maps, bitwise.  Returns K1's worst absolute error
+    against its plain version."""
+    from slamrs_tpu_torch.ops import fused, tiles
+
+    g = torch.Generator(device="cuda").manual_seed(51)
+    pool, table = tiled_pool(torch, tiles, spec, 1024, 52)
+    args, dphi, anc = tiled_step_inputs(torch, spec, 1024, g, 360, True)
+    dense = tiles.materialize(pool, table, spec).contiguous()
+    g_lin, l_lin = fused.fused_update(dense, *args, ancestors=anc, dphi=dphi)
+    p_lin, pl_lin = fused.fused_update_reference(dense, *args, dphi=dphi,
+                                                 ancestors=anc)
+    del dense
+    dense = tiles.materialize(pool, table[anc.long()], spec).contiguous()
+    p_in, pl_in = fused.fused_update_reference(dense.clone(), *args,
+                                               dphi=dphi, in_place=True)
+    g_in, l_in = fused.fused_update(dense, *args, dphi=dphi, in_place=True)
+    worst = 0.0
+    for mode, g_k, l_k, g_p, l_p in (("lineage", g_lin, l_lin, p_lin, pl_lin),
+                                     ("in_place", g_in, l_in, p_in, pl_in)):
+        flip, grid_err = compare_dense(g_k, g_p)
+        lik_err = float((l_k - l_p).abs().max())
+        ok_lik = bool(torch.allclose(l_k, l_p, rtol=LIK_RTOL, atol=LIK_ATOL))
+        worst = max(worst, grid_err, lik_err)
+        emit({"phase": "kernel_vs_plain_k1_config3", "mode": mode,
+              "shape": list(g_k.shape), "flip_fraction": flip,
+              "grid_max_abs_err": grid_err, "lik_max_abs_err": lik_err})
+        if not (flip < FLIP_GATE and ok_lik):
+            raise AssertionError(f"K1 ({mode}) disagrees with its plain "
+                                 f"version at config 3")
+    del p_lin, p_in
+    _, table_k, l_k = tiles.fused_update_tiled(pool, table, *args, dphi=dphi,
+                                               ancestors=anc)
+    torch.cuda.synchronize()
+    maps_equal = True
+    for c in range(0, 1024, 128):
+        m = tiles.materialize(pool, table_k[c:c + 128], spec)
+        maps_equal &= bool(torch.equal(m, g_lin[c:c + 128]))
+        maps_equal &= bool(torch.equal(m, g_in[c:c + 128]))
+    lik_equal = bool(torch.equal(l_k, l_lin) and torch.equal(l_k, l_in))
+    emit({"phase": "k3_vs_k1_config3", "maps_bitwise_equal": maps_equal,
+          "lik_equal": lik_equal, "maps": list(g_lin.shape),
+          "pool": list(pool.shape)})
+    if not (maps_equal and lik_equal):
+        raise AssertionError("K3 and K1 disagree on the same inputs")
+    return worst
+
+
+def config3_world(torch, **grid_kw):
+    from slamrs_tpu_torch.graph.compile import make_fused
+    from slamrs_tpu_torch.models.gridslam import GridSlamConfig
+    from slamrs_tpu_torch.models.simulator import Scene, SimParams
+
+    x, y, w, h, res = CONFIG3
+    cfg = GridSlamConfig(position_x=x, position_y=y, width=w, height=h,
+                         resolution=res, n_particles=1024,
+                         max_scan_range=1.0, integrate="fused",
+                         resample_neff_frac=0.5, grid_dtype="bfloat16",
+                         **grid_kw)
+    return make_fused(
+        scene=Scene.build(rects=YAML_RECTS, lines=YAML_LINES, device="cuda"),
+        params=SimParams.make(wheel_base=0.1, update_period=0.2,
+                              scanner_range=1.0),
+        grid_config=cfg, control_script=YAML_SCRIPT, device="cuda")
+
+
+def check_config3_rollouts(torch):
+    """Auto (tiled), pinned deferred, and copy on write, 300 ticks each;
+    returns the launch counts of the tiled and copy-on-write runs."""
+    tiled_counts, tiled_outs, state = check_rollout(
+        torch, config3_world(torch), 300, "config3_tiled_300", RMSE_GATE_M,
+        expect={"fused_update_tiled": "frames", "fused_update": 0,
+                "cow_copy": 0})
+    if state.grid.tile_table is None:
+        raise AssertionError("config 3 under auto did not store tiled maps")
+    del state
+    _, deferred_outs, state = check_rollout(
+        torch, config3_world(torch, resample_cow="staged",
+                             fused_resident=True),
+        300, "config3_deferred_300", RMSE_GATE_M,
+        expect={"fused_update": "frames", "fused_update_in_place": 0,
+                "fused_update_tiled": 0, "cow_copy": 0})
+    del state
+    gap = float((tiled_outs.grid_pose - deferred_outs.grid_pose).abs().max())
+    emit({"phase": "config3_tiled_vs_deferred", "max_best_pose_diff_m": gap})
+    if not gap <= DEFERRED_GATE_M:
+        raise AssertionError(f"tiled and deferred config-3 runs differ by "
+                             f"{gap} m")
+    cow_counts, _, state = check_rollout(
+        torch, config3_world(torch, resample_cow=True), 300,
+        "config3_cow_300", RMSE_GATE_M,
+        expect={"fused_update_in_place": "frames", "fused_update": "frames",
+                "cow_copy": "frames", "fused_update_tiled": 0})
+    del state
+    return tiled_counts, cow_counts
+
+
+def check_no_host_sync(torch):
+    """The plans and one tiled config-3 update never wait for the card."""
+    from slamrs_tpu_torch.core.types import OdometryReading
+    from slamrs_tpu_torch.models import gridslam as gs
+    from slamrs_tpu_torch.models.simulator import lidar_scan
+    from slamrs_tpu_torch.ops import cow, tiles
+
+    fw = config3_world(torch)
+    st = fw.init().grid
+    pose = torch.tensor([0.1, -0.2, 0.3], device="cuda")
+    scan = lidar_scan(pose, fw.scene, 1.0, 360)
+    odo = OdometryReading(torch.full((), 0.01, device="cuda"),
+                          torch.full((), 0.012, device="cuda"),
+                          fw.params.wheel_base)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    anc = cow_plans(torch)["bench"]
+    t0 = torch.zeros(1024, dtype=torch.int32, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        cow.cow_plan(anc)
+        tiles.tiled_plan(st.tile_table, t0, st.grids.shape[0])
+        st, out = gs.update(st, scan, odo, fw.grid_config, generator=gen)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    emit({"phase": "no_host_sync_plans", "ok": True,
+          "pose_finite": bool(torch.isfinite(out.pose).all())})
+
+
+def time_config3(torch):
+    """Device times at config 3: K2, its plain version and the library
+    yardstick on bench.py's plan; K3 and its plain version after one
+    resample; K1 in place.  Returns the kernels-line numbers."""
+    from slamrs_tpu_torch.ops import cow, fused, tiles
+
+    spec = _spec(CONFIG3)
+    out = {}
+    grids = config3_maps(torch, 61)
+    src, dst, n = cow.cow_plan(cow_plans(torch)["bench"])
+    n_host = n.cpu()
+    nbytes = cow_bytes(torch, grids, src, n)
+    ms = time_call(torch, lambda: cow.launch_kernel(grids, src, dst, n))
+    plain_ms = time_call(torch, lambda: cow.cow_copy_reference(
+        grids, src, dst, n_host))
+    s_l, d_l = src.long(), dst.long()
+    lib_ms = time_call(torch, lambda: grids.index_copy_(
+        0, d_l, grids.index_select(0, s_l)))
+    bound = nbytes / PEAK_BYTES_PER_S * 1e3
+    out["cow_copy"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                           bound_ms=bound, bound_by="bytes")
+    emit({"phase": "kernel_time_cow_config3", "n_copies": int(n),
+          "bytes": nbytes, "kernel_ms": ms, "plain_ms": plain_ms,
+          "index_copy_ms": lib_ms, "bound_ms": bound,
+          "kernel_tb_per_s": nbytes / ms / 1e9, "peak_tb_per_s": 3.35})
+
+    # K1 in place on the dense config-3 maps
+    g = torch.Generator(device="cuda").manual_seed(62)
+    args, dphi, _ = tiled_step_inputs(torch, spec, 1024, g, 360, True)
+    prep = fused.prepare(1000, 1024, *args[:5], spec, 360, 1.0, dphi)
+    k1_ms = time_call(torch, lambda: fused.launch_kernel(grids, None, prep,
+                                                          spec, 360))
+    k1_plain = time_call(torch, lambda: fused.plain_update(grids, prep, spec,
+                                                           360))
+    # in place only the disc's cells change: read and write them once
+    el = grids.element_size()
+    cells = disc_cells(torch, spec, prep)
+    k1_bound, k1_by = fused_bound(2 * cells * el, cells)
+    window = 1024 * prep.wr * grids.shape[2]
+    emit({"phase": "kernel_time_k1_in_place_config3",
+          "shape": list(grids.shape), "kernel_ms": k1_ms,
+          "plain_ms": k1_plain, "disc_cells": cells, "bound_ms": k1_bound,
+          "bound_by": k1_by, "window_cells": window,
+          "full_window_design_cost_ms": fused_bound(2 * window * el,
+                                                    window)[0]})
+    del grids
+
+    # K3 after one resample: a real update from the zero pool privatizes
+    # every touched band, a bench-like relabel shares half the rows again
+    # (the poses follow the lineage: a particle with one child writes in
+    # place, one with several gets fresh tiles)
+    pool, table = tiles.init_tiled(1024, spec, 1.0, device="cuda")
+    args, dphi, _ = tiled_step_inputs(torch, spec, 1024, g, 360, True)
+    _, table, _ = tiles.fused_update_tiled(pool, table, *args, dphi=dphi)
+    anc = cow_plans(torch)["bench"]
+    st = tiles.plan_step(pool, table, args[0][anc.long()], *args[1:],
+                         dphi=dphi, ancestors=anc)
+    ms = time_call(torch, lambda: tiles.launch_kernel(pool, st, spec, 360))
+    pool_p = pool.clone()
+    plain_ms = time_call(torch, lambda: tiles.fused_update_tiled_reference(
+        pool_p, st.src, st.dst, st.woff, st.prep, spec, 360))
+    # what the function must move: a privatized band is read and written
+    # whole; an owned band only where the scan disc overlaps it
+    hb, cols, wr = pool.shape[1], pool.shape[2], st.prep.wr
+    el = pool.element_size()
+    fresh = st.dst != st.src
+    y0, y1, ncols = disc_extent(torch, spec, st.prep)
+    band0 = ((st.prep.r0 - st.woff).long()[:, None]
+             + torch.arange(st.src.shape[1], device="cuda")[None, :] * hb)
+    overlap = (torch.minimum(y1[:, None], band0 + hb)
+               - torch.maximum(y0[:, None], band0)).clamp_min(0)
+    nbytes = int(torch.where(fresh, hb * cols, overlap * ncols[:, None])
+                 .sum()) * el * 2
+    cells = int(((y1 - y0) * ncols).sum())
+    bound, by = fused_bound(nbytes, cells)
+    # the current design reads and writes the full-width window, and
+    # copies the privatized bands' rows outside it
+    b = torch.arange(st.src.shape[1], device="cuda")[None, :] * hb
+    inside = (torch.clamp(st.woff[:, None] + wr - b, 0, hb)
+              - torch.clamp(st.woff[:, None] - b, 0, hb))
+    copy_rows = int(((hb - inside) * fresh).sum())
+    window = 1024 * wr * cols
+    design_bytes = (window + copy_rows * cols) * el * 2
+    out["fused_update_tiled"] = dict(ms=ms, plain_ms=plain_ms,
+                                     library_ms=None, bound_ms=bound,
+                                     bound_by=by)
+    emit({"phase": "kernel_time_tiled_config3", "pool": list(pool.shape),
+          "fresh_tiles": int(fresh.sum()), "bytes": nbytes,
+          "disc_cells": cells, "kernel_ms": ms, "plain_ms": plain_ms,
+          "bound_ms": bound, "bound_by": by,
+          "design_bytes": design_bytes, "window_cells": window,
+          "full_window_design_cost_ms": fused_bound(design_bytes,
+                                                    window)[0],
+          "kernel_tb_per_s_of_design_bytes": design_bytes / ms / 1e9,
+          "peak_tb_per_s": 3.35, "g_window_cells_per_s": window / ms / 1e6})
+    return out
+
+
+def time_config3_rollouts(torch):
+    """Warm 900-tick config-3 runs, tiled and copy on write."""
+    for label, kw in (("tiled", {}), ("cow", {"resample_cow": True})):
+        fw = config3_world(torch, **kw)
+        fw.rollout_cadence(fw.init(), 30, seed=2)  # warm
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, outs = fw.rollout_cadence(fw.init(), 900, seed=0)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        err = outs.grid_pose[:, :2] - outs.pose[:, :2]
+        emit({"phase": f"rollout_time_config3_{label}_900", "ticks": 900,
+              "frames": int(outs.fired.shape[0]), "seconds": seconds,
+              "ticks_per_s": 900 / seconds,
+              "grid_pose_rmse_xy_m": float(torch.sqrt((err ** 2).mean())),
+              "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()})
+        del state, outs
+
+
+def profile_rollout(torch, fw, label, n_steps=300):
+    """Device busy time, idle share and launches of a profiled run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fw.rollout_cadence(fw.init(), n_steps, seed=1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    device = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    device_s = sum(e.self_device_time_total for e in device) / 1e6
+    top = max(device, key=lambda e: e.self_device_time_total)
+    emit({"phase": f"profile_{label}", "wall_s_profiled": wall,
+          "device_busy_s": device_s, "idle_share": 1 - device_s / wall,
+          "kernel_launches": sum(e.count for e in device),
+          "top_kernel": top.key[:60], "top_kernel_s":
+          top.self_device_time_total / 1e6, "top_kernel_count": top.count})
+
+
+def _spec(geom):
+    from slamrs_tpu_torch.ops.grid import GridSpec2D
+
+    return GridSpec2D(*geom)
 
 
 def main() -> int:
@@ -203,7 +776,7 @@ def main() -> int:
                          "runs only on a GPU")
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     from slamrs_tpu_torch import kernels
-    from slamrs_tpu_torch.ops import fused
+    from slamrs_tpu_torch.ops import fused, tiles
     from slamrs_tpu_torch.ops.grid import GridSpec2D
 
     card = gpu_info()
@@ -215,6 +788,7 @@ def main() -> int:
     kernels.build(force=True)
     kernels.library()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "sources": [src.name for src in kernels.sources()],
           "flags": " ".join(kernels.NVCC_FLAGS)})
 
     spec05 = GridSpec2D(-2.0, -2.0, 4.0, 4.0, 0.05)
@@ -223,7 +797,8 @@ def main() -> int:
     worst = max(worst, check_kernel(torch, fused, spec02, "0.02m"))
 
     fw05 = headline_world(torch, 0.05)
-    launches, _ = check_rollout(torch, fw05, 300, "0.05m_300", RMSE_GATE_M)
+    counts, _, _ = check_rollout(torch, fw05, 300, "0.05m_300", RMSE_GATE_M)
+    launches = counts["fused_update"]
     check_rollout(torch, headline_world(torch, 0.02), 150, "0.02m_150")
 
     times = {}
@@ -242,10 +817,19 @@ def main() -> int:
             grids[anc.long()], prep, spec, nb))
         wrapper_ms = time_call(torch, lambda: fused.fused_update(*args, **kw),
                                hide_host=False)
-        times[label] = (ms, plain_ms)
+        # lineage mode: each ancestor map read once, every map written;
+        # operations on the scan disc's cells only
+        map_bytes = grids[0].numel() * grids.element_size()
+        nbytes = (int(torch.unique(anc).numel()) + 1024) * map_bytes
+        bound, by = fused_bound(nbytes, disc_cells(torch, spec, prep))
+        window = 1024 * prep.wr * grids.shape[2]
+        times[label] = (ms, plain_ms, bound, by)
         emit({"phase": f"kernel_time_{label}", "shape": list(grids.shape),
               "kernel_us": ms * 1e3, "plain_us": plain_ms * 1e3,
-              "wrapper_with_host_us": wrapper_ms * 1e3})
+              "wrapper_with_host_us": wrapper_ms * 1e3,
+              "bound_us": bound * 1e3, "bound_by": by,
+              "full_window_design_cost_us":
+              fused_bound(nbytes, window)[0] * 1e3})
 
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
@@ -259,31 +843,48 @@ def main() -> int:
           "ticks_per_s": 900 / seconds,
           "grid_pose_rmse_xy_m": float(torch.sqrt((err ** 2).mean())),
           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()})
+    del state, outs
 
     # where the time goes: device busy time and launches per tick
-    from torch.profiler import ProfilerActivity, profile
+    profile_rollout(torch, fw05, "0.05m_300")
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fw05.rollout_cadence(fw05.init(), 300, seed=1)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    device = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
-    device_s = sum(e.self_device_time_total for e in device) / 1e6
-    top = max(device, key=lambda e: e.self_device_time_total)
-    emit({"phase": "profile_0.05m_300", "wall_s_profiled": wall,
-          "device_busy_s": device_s, "idle_share": 1 - device_s / wall,
-          "kernel_launches": sum(e.count for e in device),
-          "top_kernel": top.key[:60], "top_kernel_s":
-          top.self_device_time_total / 1e6, "top_kernel_count": top.count})
+    # BASELINE config 3: K2, K3 and K1 in place on the card
+    spec3 = _spec(CONFIG3)
+    torch.cuda.reset_peak_memory_stats()
+    cow_err = check_cow(torch)
+    tiled_err = check_tiled(torch, spec3, "config3")
+    spec_k = _spec((-2.0, -2.0, 4.0, 4.0, 0.02))
+    hb = tiles.auto_band_rows(spec_k, 1.0)
+    if hb is None or tiles.span_of(spec_k, 1.0, hb) < 3:
+        raise AssertionError("0.02 m tiled maps did not pick a k-band span")
+    tiled_err = max(tiled_err, check_tiled(torch, spec_k, "kspan"))
+    worst = max(worst, check_k3_vs_k1(torch, spec3))
+    emit({"phase": "config3_checks_memory",
+          "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()})
+    tiled_counts, cow_counts = check_config3_rollouts(torch)
+    check_no_host_sync(torch)
+    t3 = time_config3(torch)
+    time_config3_rollouts(torch)
+    profile_rollout(torch, config3_world(torch), "config3_tiled_300")
 
-    emit({"kernels": [{
-        "name": "fused_update", "route": "cuda",
-        "source": "slamrs_tpu_torch/csrc/fused_update.cu",
-        "replaces": "slamrs_tpu/ops/fused.py:1619",
-        "launches": launches, "max_abs_err": worst,
-        "ms": times["0.05m"][0], "plain_ms": times["0.05m"][1]}]})
+    k1_ms, k1_plain, k1_bound, k1_by = times["0.05m"]
+    emit({"kernels": [
+        {"name": "fused_update", "route": "cuda",
+         "source": "slamrs_tpu_torch/csrc/fused_update.cu",
+         "replaces": "slamrs_tpu/ops/fused.py:1619",
+         "launches": launches, "max_abs_err": worst,
+         "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bound,
+         "bound_by": k1_by, "library_ms": None},
+        {"name": "cow_copy", "route": "cuda",
+         "source": "slamrs_tpu_torch/csrc/cow_copy.cu",
+         "replaces": "slamrs_tpu/ops/cow.py:187",
+         "launches": cow_counts["cow_copy"], "max_abs_err": cow_err,
+         **t3["cow_copy"]},
+        {"name": "fused_update_tiled", "route": "cuda",
+         "source": "slamrs_tpu_torch/csrc/fused_update_tiled.cu",
+         "replaces": "slamrs_tpu/ops/tiles.py:533",
+         "launches": tiled_counts["fused_update_tiled"],
+         "max_abs_err": tiled_err, **t3["fused_update_tiled"]}]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,14 @@
 """Carry state from the JAX package into the port.
 
 The system has no trained weights: its state (particle poses, log-odds
-maps, weights, lineage, the world's ground truth and scene) is what
-carries over.  Each function takes numpy arrays, for example
+maps or a tile pool with its band table, weights, lineage, the world's
+ground truth and scene) is what carries over.  The pending lineage
+means what it means in the JAX package: under the deferred and tiled
+resample mechanisms the next update applies it, under copy on write and
+the whole-set gather it is the identity (see
+``models/gridslam.resample_mechanism``, which picks the mechanism as the
+JAX package does, so a carried-over state goes on in the same slot
+order).  Each function takes numpy arrays, for example
 ``np.asarray`` of the JAX package's state, and returns the port's tuple
 on ``device``.  A bf16 map arrives as an ``ml_dtypes.bfloat16`` array and
 goes through float32 to ``torch.bfloat16``, which is lossless.
@@ -22,10 +28,17 @@ def _f32(a, device) -> torch.Tensor:
     return torch.from_numpy(np.asarray(a, np.float32).copy()).to(device)
 
 
+def _i32(a, device) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(a, np.int32).copy()).to(device)
+
+
 def grid_state_from_numpy(poses, grids, weights, best_pose, best_idx,
-                          ancestors, device) -> GridSlamState:
+                          ancestors, device, tile_table=None
+                          ) -> GridSlamState:
     """A :class:`GridSlamState` from numpy arrays.  ``grids`` keeps its
-    storage type: bf16 (``ml_dtypes.bfloat16``) stays bf16, else f32."""
+    storage type: bf16 (``ml_dtypes.bfloat16``) stays bf16, else f32.
+    For tiled maps ``grids`` is the tile pool ``[n_phys, hb, Wp]`` and
+    ``tile_table`` its ``i32[P, nb]`` band table."""
     grids = np.asarray(grids)
     dtype = torch.bfloat16 if grids.dtype.name == "bfloat16" \
         else torch.float32
@@ -36,8 +49,8 @@ def grid_state_from_numpy(poses, grids, weights, best_pose, best_idx,
         best_pose=_f32(best_pose, device),
         best_idx=torch.tensor(int(np.asarray(best_idx)), dtype=torch.int64,
                               device=device),
-        ancestors=torch.from_numpy(
-            np.asarray(ancestors, np.int32).copy()).to(device))
+        ancestors=_i32(ancestors, device),
+        tile_table=None if tile_table is None else _i32(tile_table, device))
 
 
 def world_state_from_numpy(pose, accum_left, accum_right, scan_timer,

@@ -15,182 +15,99 @@
 // and each of the 1024 x 56 x 128 window cells costs about 40 flops plus an
 // atan2.  Both are small next to the launch and host overheads of the
 // rollout around the kernel.  The design does nothing about that yet:
-// one CTA per particle, 256 threads, ping-pong map buffers (read
-// grids_in[anc[i]], write grids_out[i]), so the likelihood read of the
-// pre-update ancestor map can never race a write.
+// one CTA per particle, 256 threads, in one of two modes:
+//   - lineage (ping-pong): read grids_in[anc[i]], write grids_out[i], so
+//     the likelihood read of the pre-update ancestor map can never race a
+//     write (the deferred-lineage resample);
+//   - in place (grids_out == grids_in, anc == nullptr: identity): each CTA
+//     touches only its own map, its likelihood reads finish before the
+//     __syncthreads() that precedes the cell pass's writes, and the rows
+//     outside the window are not copied (the counterpart of the aliased
+//     _kernel_hbm; used by the copy-on-write and whole-set-gather resample).
 //
 // Per CTA (particle i):
 //   1. likelihood: threads stride over the 512 beam lanes, compute each
 //      valid beam's endpoint cell, and sum log(Z_HIT mixture) over the
 //      beams whose endpoint lies inside the logical grid and the window
 //      (an out-of-window endpoint adds nothing, as on the TPU);
-//   2. copy: rows outside [r0, r0 + wr) go from the ancestor map to the
-//      output map with 16-byte vector loads;
+//   2. copy (lineage mode only): rows outside [r0, r0 + wr) go from the
+//      ancestor map to the output map with 16-byte vector loads;
 //   3. cell pass: every window cell finds its beam by atan2 (static
 //      bin-units or traced pipeline), decodes the quantized d_enc staged
 //      in shared memory, applies the squared-space inverse sensor model
 //      times the beam density, and stores f32(cell) + inc, rounded to
 //      bf16 for bf16 maps.
+// The likelihood and the cell pass are the shared device code of
+// fused_common.cuh, which K3 (fused_update_tiled.cu) runs too.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
-//        --fmad=false -shared -Xcompiler -fPIC (slamrs_tpu_torch/kernels).
+//        --fmad=false -Xcompiler -fPIC -c, then linked -shared with the
+//        other sources (slamrs_tpu_torch/kernels).
 // --fmad=false keeps products and sums separately rounded, as the plain
 // PyTorch version rounds them.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "fused_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kBeamPad = 512;
-// float32 roundings of the Python constants of slamrs_tpu_torch/ops/grid.py
-// and ops/fused.py (checked by tests/test_torch_fused.py)
-constexpr float kTwoPi = 6.2831854820251465f;
-constexpr float kInvTwoPi = 0.15915493667125702f;
-constexpr float kLFree = -0.8472978472709656f;     // L_FREE
-constexpr float kLOccupied = 2.1972246170043945f;  // L_OCCUPIED
-constexpr float kZHit = 0.9f;                      // Z_HIT
-constexpr float kMissMix = 0.10000000149011612f;   // (1 - Z_HIT) / SENSOR_MAXDIST
-constexpr float kInvMaxDist = 1.0f;                // 1 / SENSOR_MAXDIST
-constexpr float kHalfTol = 1.0f;                   // TOLERANCE_CELLS / 2
+using namespace slamrs;
 
 struct Args {
   const void* grids_in;  // [P, rows, cols] T, read through anc
-  void* grids_out;       // [P, rows, cols] T
-  const int* anc;        // [P] pending lineage
+  void* grids_out;       // [P, rows, cols] T; == grids_in in place
+  const int* anc;        // [P] pending lineage, or nullptr (identity)
   const float* pp;       // [P, 8] cx, cy, theta, ta-or-T, cos, sin, dphi, 1/dphi
   const int* r0;         // [P] window row offsets
-  const float* table;    // [8, 512] beam table, row 0 quantized d_enc
   float* lik;            // [P]
-  int rows, cols, wr, logical_rows, logical_cols, num_beams, static_bins;
-  float inv_s, nbf, inv_nbf;  // static bin-units constants
+  int rows;
+  ScanConsts c;
 };
-
-__device__ __forceinline__ float load_cell(const float* p) { return *p; }
-__device__ __forceinline__ float load_cell(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store_cell(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_cell(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads) fused_update_kernel(Args a) {
   const int i = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int cols = a.cols;
-  const int wr = a.wr;
+  const int cols = a.c.cols;
+  const int wr = a.c.wr;
   const size_t map = static_cast<size_t>(a.rows) * cols;
-  const T* __restrict__ src = static_cast<const T*>(a.grids_in) +
-                              static_cast<size_t>(a.anc[i]) * map;
-  T* __restrict__ dst = static_cast<T*>(a.grids_out) + static_cast<size_t>(i) * map;
-  const float* pp = a.pp + 8 * i;
-  const float cx = pp[0], cy = pp[1], ta = pp[3], ct = pp[4], st = pp[5];
-  const float dphi = pp[6], inv_dphi = pp[7];
-  const int r0 = a.r0[i];
+  const int from = a.anc ? a.anc[i] : i;
+  // not __restrict__: in place, src and dst are the same map
+  const T* src = static_cast<const T*>(a.grids_in) + static_cast<size_t>(from) * map;
+  T* dst = static_cast<T*>(a.grids_out) + static_cast<size_t>(i) * map;
+  const Particle q = load_particle(a.pp + 8 * i, a.r0[i]);
 
   __shared__ float s_denc[kBeamPad];
   __shared__ float s_warp[kThreads / 32];
-  for (int b = tid; b < kBeamPad; b += kThreads) s_denc[b] = a.table[b];
+  stage_denc(a.c, s_denc);
 
-  // 1. endpoint likelihood on the pre-update ancestor map
-  float acc = 0.f;
-  for (int b = tid; b < kBeamPad; b += kThreads) {
-    if (!(a.table[4 * kBeamPad + b] > 0.5f)) continue;
-    const float d = a.table[kBeamPad + b];
-    const float ca = a.table[2 * kBeamPad + b];
-    const float sa = a.table[3 * kBeamPad + b];
-    const float ex = cx + (ct * ca - st * sa) * d;
-    const float ey = cy + (st * ca + ct * sa) * d;
-    if (!(ex >= 0.f && ey >= 0.f && ex < static_cast<float>(a.logical_cols) &&
-          ey < static_cast<float>(a.logical_rows)))
-      continue;
-    const int xi = static_cast<int>(floorf(ex));
-    const int yi = static_cast<int>(floorf(ey)) - r0;
-    if (yi < 0 || yi >= wr || xi < 0 || xi >= cols) continue;
-    const float odds = load_cell(src + static_cast<size_t>(r0 + yi) * cols + xi);
-    float factor = kInvMaxDist;
-    if (odds != 0.f) {
-      const float p_end = 1.f - 1.f / (1.f + expf(odds));
-      factor = kZHit * p_end + kMissMix;
-    }
-    acc += logf(factor);
-  }
-  for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
-  if ((tid & 31) == 0) s_warp[tid >> 5] = acc;
-  __syncthreads();  // also publishes s_denc
-  if (tid == 0) {
-    float s = 0.f;
-    for (int w = 0; w < kThreads / 32; ++w) s += s_warp[w];
-    a.lik[i] = s;
-  }
+  // 1. endpoint likelihood on the pre-update map (its barrier also
+  //    publishes s_denc)
+  const T* win = src + static_cast<size_t>(q.r0) * cols;
+  block_likelihood(
+      a.c, q,
+      [&](int wy, int wx) {
+        return load_cell(win + static_cast<size_t>(wy) * cols + wx);
+      },
+      s_warp, a.lik + i);
 
-  // 2. rows outside the window: 16-byte copies (cols % 128 == 0, so every
-  //    row is a whole number of uint4)
-  {
+  // 2. rows outside the window, lineage mode only: 16-byte copies
+  //    (cols % 128 == 0, so every row is a whole number of uint4)
+  if (src != dst) {
     const size_t per_row = static_cast<size_t>(cols) * sizeof(T) / 16;
-    const uint4* __restrict__ s4 = reinterpret_cast<const uint4*>(src);
-    uint4* __restrict__ d4 = reinterpret_cast<uint4*>(dst);
-    const size_t top = static_cast<size_t>(r0) * per_row;
-    for (size_t k = tid; k < top; k += kThreads) d4[k] = s4[k];
-    const size_t end = static_cast<size_t>(a.rows) * per_row;
-    for (size_t k = static_cast<size_t>(r0 + wr) * per_row + tid; k < end;
-         k += kThreads)
-      d4[k] = s4[k];
+    const uint4* s4 = reinterpret_cast<const uint4*>(src);
+    uint4* d4 = reinterpret_cast<uint4*>(dst);
+    block_copy16(s4, d4, static_cast<size_t>(q.r0) * per_row);
+    const size_t tail = static_cast<size_t>(q.r0 + wr) * per_row;
+    block_copy16(s4 + tail, d4 + tail, static_cast<size_t>(a.rows) * per_row - tail);
   }
 
   // 3. dense inverse-sensor-model pass over the [wr, cols] window
-  const float r0f = static_cast<float>(r0);
-  const float ox = 0.5f - cx;
-  const float oy = r0f + (0.5f - cy);
-  const float ta_inv = ta * inv_dphi;
-  const float nb_f = kTwoPi * inv_dphi;
-  const float wrap_k = dphi * kInvTwoPi;
-  const float beams_m1 = static_cast<float>(a.num_beams - 1);
-  const float rows_lim = static_cast<float>(a.logical_rows) - r0f;
-  const float cols_lim = static_cast<float>(a.logical_cols);
+  const CellPass k = make_cell_pass(a.c, q);
   const int n = wr * cols;
-  for (int idx = tid; idx < n; idx += kThreads) {
+  for (int idx = threadIdx.x; idx < n; idx += kThreads) {
     const int wy = idx / cols;
     const int wx = idx - wy * cols;
-    const float dx = static_cast<float>(wx) + ox;
-    const float dy = static_cast<float>(wy) + oy;
-    const float r2 = dx * dx + dy * dy;
-    const float r = sqrtf(r2);
-    const float phi = atan2f(dy, dx);
-    float bf;
-    if (a.static_bins) {
-      // bin units: ta holds T = (theta + angles0)/dphi - 0.5
-      float b0 = phi * a.inv_s - ta;
-      b0 = b0 - a.nbf * floorf(b0 * a.inv_nbf);
-      bf = floorf(b0);
-    } else {
-      float b0 = phi * inv_dphi - ta_inv;
-      b0 = b0 - nb_f * floorf(b0 * wrap_k);
-      bf = rintf(b0);  // half to even, as torch.round / jnp.round
-      const bool wrap = bf >= nb_f - 0.5f;
-      const bool absent = bf > beams_m1 && !wrap;
-      bf = wrap ? 0.f : bf;
-      bf = absent ? static_cast<float>(a.num_beams) : bf;
-    }
-    const int bin = min(max(static_cast<int>(bf), 0), kBeamPad - 1);
-    const float d_enc = s_denc[bin];
-    const bool was_hit = d_enc > 0.f;
-    const bool present = d_enc != 0.f;  // -0.0 is absent too
-    const float d = fabsf(d_enc);
-    const float dm = fmaxf(d - kHalfTol, 0.f);
-    const float a_sq = was_hit ? dm * dm : d * d;
-    const float dp = d + kHalfTol;
-    const float b_sq = was_hit ? dp * dp : -1.f;
-    float inc = r2 < a_sq ? kLFree : (r2 <= b_sq ? kLOccupied : 0.f);
-    const float dens = fmaxf(1.f / (fmaxf(r, 0.5f) * dphi), 1.f);
-    const bool in_b = static_cast<float>(wy) < rows_lim &&
-                      static_cast<float>(wx) < cols_lim;
-    inc = (present && in_b) ? inc * dens : 0.f;
-    const size_t off = static_cast<size_t>(r0 + wy) * cols + wx;
+    const float inc = cell_increment(a.c, k, s_denc, wy, wx);
+    const size_t off = static_cast<size_t>(q.r0 + wy) * cols + wx;
     store_cell(dst + off, load_cell(src + off) + inc);
   }
 }
@@ -199,7 +116,8 @@ __global__ void __launch_bounds__(kThreads) fused_update_kernel(Args a) {
 
 // Launches the kernel on `stream` and returns cudaGetLastError() (0 when
 // the launch was accepted).  Pointers are device pointers of contiguous
-// tensors; the caller has validated shapes and dtypes.
+// tensors; the caller has validated shapes and dtypes.  In place:
+// grids_out == grids_in and anc == nullptr.
 extern "C" int slamrs_fused_update(const void* grids_in, void* grids_out,
                                    const void* anc, const void* pp,
                                    const void* r0, const void* table, void* lik,
@@ -210,9 +128,9 @@ extern "C" int slamrs_fused_update(const void* grids_in, void* grids_out,
                                    void* stream) {
   Args a{grids_in, grids_out, static_cast<const int*>(anc),
          static_cast<const float*>(pp), static_cast<const int*>(r0),
-         static_cast<const float*>(table), static_cast<float*>(lik),
-         rows, cols, wr, logical_rows, logical_cols, num_beams, static_bins,
-         inv_s, nbf, inv_nbf};
+         static_cast<float*>(lik), rows,
+         ScanConsts{static_cast<const float*>(table), wr, cols, logical_rows,
+                    logical_cols, num_beams, static_bins, inv_s, nbf, inv_nbf}};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
     fused_update_kernel<__nv_bfloat16><<<p, kThreads, 0, s>>>(a);

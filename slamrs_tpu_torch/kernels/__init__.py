@@ -1,10 +1,11 @@
 """Build and load the hand-written CUDA kernels of ``csrc/``.
 
-The sources compile at first use with ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, under ``build/slamrs_tpu_torch/``
-beside the package, and load with ``ctypes``.  The library is rebuilt
-when a source is newer.  Importing this module builds nothing, so it
-imports on machines without ``nvcc``.
+The sources compile at first use with ``nvcc`` for ``sm_90a``, one
+``nvcc`` process per source, all started together, and link into one
+shared library with a plain C interface under ``build/slamrs_tpu_torch/``
+beside the package; it loads with ``ctypes``.  The library is rebuilt
+when a source or header is newer.  Importing this module builds nothing,
+so it imports on machines without ``nvcc``.
 
 ``--fmad=false`` keeps every multiply and add separately rounded, as
 PyTorch's elementwise ops round them, so a kernel agrees with its plain
@@ -24,8 +25,9 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "slamrs_tpu_torch"
 LIB = BUILD_DIR / "libslamrs_tpu_torch_kernels.so"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler",
+              "-fPIC")
 
 
 def sources() -> list[Path]:
@@ -44,20 +46,37 @@ def nvcc() -> str:
                        "the CUDA kernels build only where the CUDA toolkit is")
 
 
+def _run_together(cmds: list[list[str]]) -> None:
+    """Start every command at once, wait for all; raise on any failure."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.DEVNULL,
+                              stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    errs = [proc.communicate()[1] for proc in procs]
+    for cmd, proc, err in zip(cmds, procs, errs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed with {proc.returncode}:\n"
+                               f"{' '.join(cmd)}\n{err}")
+
+
 def build(force: bool = False) -> Path:
     """Compile ``csrc/*.cu`` into :data:`LIB` unless it is up to date."""
-    srcs = sources() + sorted(CSRC.glob("*.cuh"))
-    if (not force and LIB.exists()
-            and LIB.stat().st_mtime >= max(s.stat().st_mtime for s in srcs)):
+    srcs = sources()
+    newest = max(s.stat().st_mtime for s in srcs + sorted(CSRC.glob("*.cuh")))
+    if not force and LIB.exists() and LIB.stat().st_mtime >= newest:
         return LIB
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = LIB.with_name(f"{LIB.name}.{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed with {res.returncode}:\n"
-                           f"{' '.join(cmd)}\n{res.stderr}")
-    os.replace(tmp, LIB)  # atomic: a concurrent loader never sees half a file
+    tag = os.getpid()
+    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in srcs]
+    tmp = LIB.with_name(f"{LIB.name}.{tag}.tmp")
+    try:
+        _run_together([[nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                       for src, obj in zip(srcs, objs)])
+        _run_together([[nvcc(), *ARCH, "-shared", "-o", str(tmp),
+                        *map(str, objs)]])
+        os.replace(tmp, LIB)  # atomic: a loader never sees half a file
+    finally:
+        for path in (*objs, tmp):
+            path.unlink(missing_ok=True)
     return LIB
 
 
@@ -70,6 +89,17 @@ def library() -> ctypes.CDLL:
     fn.argtypes = [vp, vp, vp, vp, vp, vp, vp,  # buffers
                    ci, ci, ci, ci, ci, ci, ci, ci, ci,  # shapes and flags
                    cf, cf, cf,  # static bin-units constants
+                   vp]  # stream
+    fn.restype = ci
+    fn = lib.slamrs_fused_update_tiled
+    fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp,  # buffers
+                   ci, ci, ci, ci, ci, ci, ci, ci, ci, ci,  # shapes, flags
+                   cf, cf, cf,  # static bin-units constants
+                   vp]  # stream
+    fn.restype = ci
+    fn = lib.slamrs_cow_copy
+    fn.argtypes = [vp, vp, vp, vp,  # grids, src, dst, n_copies
+                   ci, ctypes.c_longlong,  # maps, bytes per map
                    vp]  # stream
     fn.restype = ci
     return lib

@@ -7,9 +7,27 @@ add the motion log-probability, then normalize, take the argmax pose and
 N_eff, and resample systematically when N_eff falls to
 ``resample_neff_frac * P``.
 
-Lineage is always deferred: the returned state carries the resample
-``ancestors`` pending, and the next update's kernel reads particle ``i``'s
-map from ``grids[ancestors[i]]``, so no separate map gather runs.
+The resample is applied by one of four mechanisms, picked exactly as the
+JAX package picks them (:func:`resample_mechanism`):
+
+- ``tiled``: the maps are a tile pool (``resample_cow="tiled"``, or a map
+  set over ``_AUTO_TILED_BYTES``); the tiled kernel relabels the band table
+  by the pending ``ancestors`` and privatizes touched bands copy on write;
+- ``deferred``: the state carries ``ancestors`` pending and the next
+  update's kernel reads particle ``i``'s map from ``grids[ancestors[i]]``
+  into a fresh buffer;
+- ``cow``: the kernel updates the maps in place, then only duplicated
+  maps are copied into freed slots (``ops/cow.py``);
+- ``gather``: the kernel updates the maps in place, then the whole set is
+  gathered by ``ancestors`` (``resample_cow=False``).
+
+The mechanism decides the slot order after a resample (copy on write puts
+duplicated maps into freed slots), and the injected draws are indexed by
+slot, so the port copies the JAX package's choice even where its reasons
+(TPU VMEM residency, the TPU's column-cropped windows) mean nothing on the
+H100.  In the ``tiled``, ``cow`` and ``gather`` mechanisms the update
+writes the input state's map storage in place: the old state must not be
+used again.
 """
 
 from __future__ import annotations
@@ -22,8 +40,12 @@ import torch
 from slamrs_tpu_torch.core import motion
 from slamrs_tpu_torch.core.types import OdometryReading, Scan
 from slamrs_tpu_torch.ops import resample as _resample
-from slamrs_tpu_torch.ops.fused import fused_update
+from slamrs_tpu_torch.ops.cow import cow_resample
+from slamrs_tpu_torch.ops.fused import (fits_vmem_resident, fused_update,
+                                        supports_deferred_hbm)
 from slamrs_tpu_torch.ops.grid import GridSpec2D
+from slamrs_tpu_torch.ops.tiles import (fused_update_tiled, init_tiled,
+                                        materialize_one)
 
 Tensor = torch.Tensor
 
@@ -32,11 +54,15 @@ Tensor = torch.Tensor
 class GridSlamConfig:
     """Same fields and defaults as the JAX package's ``GridSlamConfig``.
 
-    Only ``integrate="fused"`` with ``resample_cow=None`` is ported; the
-    other values raise ``NotImplementedError`` naming the ROADMAP item.
-    ``fused_resident`` is accepted and ignored: it picks TPU VMEM
-    residency, which has no counterpart here.  ``fleet_resample`` applies
-    to batched worlds, which are not ported either.
+    Only ``integrate="fused"`` is ported; the other values raise
+    ``NotImplementedError`` naming the ROADMAP item.  ``resample_cow``
+    takes ``None`` (auto), ``True``, ``False``, ``"staged"`` and
+    ``"tiled"``; ``"deferred"`` (the JAX package's non-aliased band
+    kernel, a recorded dead end) raises ``ValueError``.
+    ``fused_resident`` picks TPU VMEM residency, which has no counterpart
+    here, but it still selects the resample mechanism and so the slot
+    order (:func:`resample_mechanism`).  ``fleet_resample`` applies to
+    batched worlds, which are not ported yet.
     """
 
     position_x: float = -2.0
@@ -73,18 +99,39 @@ class GridSlamConfig:
 
 
 def check_supported(config: GridSlamConfig) -> None:
-    """Raise for configuration values whose path is not ported yet."""
+    """Raise for configuration values whose path is not ported."""
     if config.integrate != "fused":
         raise NotImplementedError(
             f"integrate={config.integrate!r} is not ported yet (ROADMAP "
             "Queue 1 item 9: dda; item 3: dense); use integrate='fused'")
-    if config.resample_cow is not None:
-        raise NotImplementedError(
-            f"resample_cow={config.resample_cow!r} is not ported yet "
-            "(ROADMAP Queue 1 item 11, kernels K2/K3); use None")
+    if config.resample_cow == "deferred":
+        raise ValueError(
+            "resample_cow='deferred' (the JAX package's non-aliased band "
+            "kernel, a recorded dead end) is not ported (ROADMAP Queue 1 "
+            "item 11); use None or 'staged'")
+    if config.resample_cow not in (None, True, False, "staged", "tiled"):
+        raise ValueError(f"resample_cow must be None, True, False, 'staged' "
+                         f"or 'tiled', got {config.resample_cow!r} "
+                         "(ROADMAP Queue 1 item 11)")
     if config.grid_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"grid_dtype must be float32 or bfloat16, got "
                          f"{config.grid_dtype!r}")
+
+
+_AUTO_TILED_BYTES = 1 << 30  # see auto_tiled (module-level for tests)
+
+
+def auto_tiled(config: GridSlamConfig) -> bool:
+    """The JAX package's storage rule (``gridslam.py:134-153``): tile-pool
+    maps when the map set is over ``_AUTO_TILED_BYTES`` and
+    ``resample_cow`` is left to auto."""
+    if config.integrate != "fused" or config.resample_cow is not None:
+        return False
+    spec = config.grid_spec
+    itemsize = 2 if config.grid_dtype == "bfloat16" else 4
+    set_bytes = config.n_particles * spec.rows * config.padded_cols \
+        * itemsize
+    return set_bytes > _AUTO_TILED_BYTES
 
 
 class GridSlamState(NamedTuple):
@@ -94,7 +141,11 @@ class GridSlamState(NamedTuple):
     best_pose: Tensor  # f32[3] argmax-weight particle pose
     best_idx: Tensor  # i64[] (0-dim)
     # pending resample lineage: particle i's map is grids[ancestors[i]]
+    # (tiled: tile_table[ancestors[i]]); identity after cow and gather
     ancestors: Tensor  # i32[P]
+    # tiled maps only: logical band b of particle i lives in pool tile
+    # tile_table[i, b], and ``grids`` is the tile pool [n_phys, hb, Wp]
+    tile_table: Tensor | None = None  # i32[P, nb]
 
     @staticmethod
     def init(config: GridSlamConfig, device) -> "GridSlamState":
@@ -102,14 +153,21 @@ class GridSlamState(NamedTuple):
         p = config.n_particles
         spec = config.grid_spec
         f32 = torch.float32
+        tile_table = None
+        if config.resample_cow == "tiled" or auto_tiled(config):
+            grids, tile_table = init_tiled(p, spec, config.max_scan_range,
+                                           config.torch_dtype, device=device)
+        else:
+            grids = torch.zeros((p, spec.rows, config.padded_cols),
+                                dtype=config.torch_dtype, device=device)
         return GridSlamState(
             poses=torch.zeros((p, 3), dtype=f32, device=device),
-            grids=torch.zeros((p, spec.rows, config.padded_cols),
-                              dtype=config.torch_dtype, device=device),
+            grids=grids,
             weights=torch.full((p,), 1.0 / p, dtype=f32, device=device),
             best_pose=torch.zeros(3, dtype=f32, device=device),
             best_idx=torch.zeros((), dtype=torch.int64, device=device),
-            ancestors=torch.arange(p, dtype=torch.int32, device=device))
+            ancestors=torch.arange(p, dtype=torch.int32, device=device),
+            tile_table=tile_table)
 
 
 class GridSlamOutputs(NamedTuple):
@@ -152,13 +210,44 @@ def _weigh_and_select(log_lik: Tensor, log_motion: Tensor,
     return weights, ancestors, best_idx, n_eff, do_resample
 
 
+def resample_mechanism(config: GridSlamConfig, state: GridSlamState) -> str:
+    """``"tiled"``, ``"deferred"``, ``"cow"`` or ``"gather"``: the JAX
+    package's choice for this config and state (``gridslam.py:320-385``,
+    ``:439-441``), line for line, with its errors."""
+    if state.tile_table is not None and config.resample_cow not in (
+            None, "tiled"):
+        raise ValueError("state has a tile_table but the config does not "
+                         "accept tiled maps (resample_cow None or 'tiled')")
+    if config.resample_cow == "tiled" and state.tile_table is None:
+        raise ValueError("config pins resample_cow='tiled' but the state has "
+                         "no tile pool: init with the same config")
+    if state.tile_table is not None:
+        return "tiled"
+    rows, cols = state.grids.shape[-2:]
+    grid_bytes = state.grids.numel() * state.grids.element_size()
+    resident = (config.fused_resident if config.fused_resident is not None
+                else fits_vmem_resident(grid_bytes))
+    hbm_ok = supports_deferred_hbm(config.grid_spec, config.max_scan_range,
+                                   rows, cols)
+    if config.resample_cow == "staged" and not resident and not hbm_ok:
+        raise ValueError("resample_cow='staged' pinned but the geometry does "
+                         "not support the lineage kernel (needs full-width "
+                         "windows and wr >= rows - wr)")
+    if resident or (config.resample_cow in (None, "staged") and hbm_ok):
+        return "deferred"
+    return "gather" if config.resample_cow is False else "cow"
+
+
 def update(state: GridSlamState, scan: Scan, odometry: OdometryReading,
            config: GridSlamConfig, generator: torch.Generator | None = None,
            noise: UpdateNoise | None = None
            ) -> tuple[GridSlamState, GridSlamOutputs]:
     """One SLAM update.  Randomness comes from ``noise`` (tests inject the
-    JAX package's draws) or else from ``generator``."""
+    JAX package's draws) or else from ``generator``.  The ``tiled``,
+    ``cow`` and ``gather`` mechanisms update ``state``'s map storage in
+    place (see the module docstring)."""
     check_supported(config)
+    mechanism = resample_mechanism(config, state)
     p = config.n_particles
     dev = state.poses.device
     if noise is None:
@@ -176,10 +265,19 @@ def update(state: GridSlamState, scan: Scan, odometry: OdometryReading,
         dphi = scan.angles[1] - scan.angles[0]
     else:
         dphi = torch.tensor(2.0 * torch.pi, dtype=torch.float32, device=dev)
-    grids, log_lik = fused_update(
-        state.grids, new_poses, scan.angles[0], scan.distances, scan.valid,
-        scan.present, config.grid_spec, nb, config.max_scan_range,
-        ancestors=state.ancestors, dphi=dphi)
+    args = (new_poses, scan.angles[0], scan.distances, scan.valid,
+            scan.present, config.grid_spec, nb, config.max_scan_range)
+    tile_table = None
+    if mechanism == "tiled":
+        grids, tile_table, log_lik = fused_update_tiled(
+            state.grids, state.tile_table, *args, dphi=dphi,
+            ancestors=state.ancestors)
+    elif mechanism == "deferred":
+        grids, log_lik = fused_update(state.grids, *args,
+                                      ancestors=state.ancestors, dphi=dphi)
+    else:
+        grids, log_lik = fused_update(state.grids, *args, dphi=dphi,
+                                      in_place=True)
     log_motion = motion.log_prob(state.poses, new_poses,
                                  odometry.distance_left,
                                  odometry.distance_right, odometry.wheel_base)
@@ -187,9 +285,42 @@ def update(state: GridSlamState, scan: Scan, odometry: OdometryReading,
     weights, ancestors, best_idx, n_eff, do_resample = _weigh_and_select(
         log_lik, log_motion, state.weights, config.resample_neff_frac, p,
         torch.as_tensor(noise.u01, device=dev))
-    best_pose = new_poses[best_idx]
+    # index_select: indexing by a 0-dim tensor would read it on the host
+    best_pose = new_poses.index_select(0, best_idx.reshape(1))[0]
+    pending = ancestors
+    if mechanism == "cow":
+        # slot-preserving copy on write: only duplicated maps move
+        new_poses, grids = cow_resample(grids, new_poses, ancestors)
+        pending = torch.arange(p, dtype=torch.int32, device=dev)
+    elif mechanism == "gather":
+        # always gathered: identity ancestors give the same values, and a
+        # host branch on do_resample would wait for the device
+        new_poses = new_poses[ancestors.long()]
+        grids = grids.index_select(0, ancestors.long())
+        pending = torch.arange(p, dtype=torch.int32, device=dev)
+    else:  # tiled, deferred: applied by the next update's kernel
+        new_poses = new_poses[ancestors.long()]
     new_state = GridSlamState(
-        poses=new_poses[ancestors.long()], grids=grids, weights=weights,
-        best_pose=best_pose, best_idx=best_idx, ancestors=ancestors)
+        poses=new_poses, grids=grids, weights=weights, best_pose=best_pose,
+        best_idx=best_idx, ancestors=pending, tile_table=tile_table)
     return new_state, GridSlamOutputs(pose=best_pose, n_eff=n_eff,
                                       resampled=do_resample)
+
+
+def estimated_probability_grid(state: GridSlamState,
+                               config: GridSlamConfig | None = None
+                               ) -> Tensor:
+    """Occupancy probabilities of the best particle's map
+    (``gridslam.py:697-727``).  A tiled state gathers one map's tiles
+    through the pending lineage, ``tile_table[ancestors[best_idx]]``.
+    With ``config`` the padded rows and columns are sliced off."""
+    best = state.best_idx.reshape(1)
+    if state.tile_table is not None:
+        slot = state.ancestors.index_select(0, best).long()
+        grid = materialize_one(state.grids,
+                               state.tile_table.index_select(0, slot)[0])
+    else:
+        grid = state.grids.index_select(0, best)[0]
+    if config is not None:
+        grid = grid[:config.grid_spec.rows, :config.grid_spec.cols]
+    return 1.0 - 1.0 / (1.0 + torch.exp(grid.float()))

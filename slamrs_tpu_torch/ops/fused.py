@@ -14,14 +14,20 @@ map ``grids[ancestors[i]]`` (the pending resample lineage):
 (``csrc/fused_update.cu``, which replaces the Pallas kernel
 ``slamrs_tpu/ops/fused.py::fused_update``).  On a CPU tensor it runs
 :func:`fused_update_reference`, the plain PyTorch version of the same
-math; on a CUDA tensor it launches the kernel or raises.
+math; on a CUDA tensor it launches the kernel or raises.  It has two
+modes: lineage (reads ``grids[ancestors[i]]``, writes a fresh buffer:
+the deferred-lineage resample) and in place (identity lineage, the
+window rows of ``grids`` updated where they lie: the copy-on-write and
+whole-set-gather resamples).  :func:`update_window` is the window-level
+plain update that the tiled plain version (``ops/tiles.py``) reuses.
 
 What bounds it on the H100: at the headline shape (1,024 particles of
 ``[80, 128]`` bf16) one update reads and writes the 21 MB map set once
 (about 13 us at 3.35 TB/s), and each of the 1024 x 56 x 128 window cells
 costs about 40 flops plus an atan2, so the kernel is small next to the
 launch and host overheads of the rollout around it.  The design does
-nothing about that yet: one CTA per particle, ping-pong map buffers.
+nothing about that yet: one CTA per particle, ping-pong map buffers in
+lineage mode.
 
 Documented deviations kept from the JAX package: beam distances snap to
 the static quantum of :func:`pack3_quantum` in the cell pass, and a valid
@@ -48,12 +54,54 @@ BEAM_PAD = 512  # beam-table lanes
 _TWO_PI = 2.0 * pymath.pi
 
 
+def fits_vmem_resident(grid_bytes: int) -> bool:
+    """The JAX package's residency predicate (``fused.py:137-143``): a
+    map set of ``grid_bytes`` counts as "resident" when twice it plus
+    8 MiB fits in 120 MiB.
+
+    The port keeps it only because it fixes the resample mechanism, and
+    with it the slot order after a resample (see
+    ``models/gridslam.resample_mechanism``): it says nothing about memory
+    on the H100, where no map set is held on chip.
+    """
+    return 2 * grid_bytes + 8 * 2**20 <= 120 * 1024 * 1024
+
+
+def supports_deferred_hbm(spec: GridSpec2D, max_range_m: float,
+                          rows: int, cols: int) -> bool:
+    """The JAX package's geometry predicate for its deferred-lineage HBM
+    kernel (``fused.py:154-166``): full-width windows (padded ``cols``
+    at most 256, or a disc wider than 128 lanes) and a window tall
+    enough that the two out-of-window row bands are disjoint.
+
+    Like :func:`fits_vmem_resident` the port keeps it only because it
+    fixes the resample mechanism and so the slot order; it says nothing
+    about the H100, whose kernel always computes full-width windows.
+    """
+    wr = window_rows(spec, max_range_m)
+    wr = min(wr, rows - rows % 8 if rows % 8 else rows)
+    return window_cols(spec, max_range_m, cols) == cols and rows - wr <= wr
+
+
+def disc_half(spec: GridSpec2D, max_range_m: float) -> int:
+    """Half-width in cells of the scan disc: range + overshoot + 1."""
+    return (int(pymath.ceil(max_range_m / spec.resolution))
+            + ADDITIONAL_STEPS + 1)
+
+
 def window_rows(spec: GridSpec2D, max_range_m: float) -> int:
     """Static window row count: scan disc + 8-row alignment slack."""
-    disc = 2 * (int(pymath.ceil(max_range_m / spec.resolution))
-                + ADDITIONAL_STEPS + 1) + 1
+    disc = 2 * disc_half(spec, max_range_m) + 1
     wr = ((disc + 8) + 7) // 8 * 8
     return min(wr, (spec.rows + 7) // 8 * 8)
+
+
+def window_cols(spec: GridSpec2D, max_range_m: float, cols: int) -> int:
+    """The JAX package's window column count for padded ``cols``: all of
+    them up to 256 or for a disc wider than 128 lanes, else a 256-column
+    crop.  The port always computes all ``cols``; this only feeds the
+    JAX package's geometry predicates."""
+    return cols if (cols <= 256 or disc_half(spec, max_range_m) > 64) else 256
 
 
 def pack3_quantum(max_range_cells: float) -> float:
@@ -178,18 +226,19 @@ def prepare(rows: int, cols: int, poses: Tensor, angles0, distances: Tensor,
                      table.contiguous(), wr, binu)
 
 
-def plain_update(maps: Tensor, prep: Prepared, spec: GridSpec2D,
-                 num_beams: int) -> tuple[Tensor, Tensor]:
-    """The fused update on maps already gathered by lineage; writes the
-    window rows of ``maps`` in place and returns ``(maps, lik)``."""
-    p, rows, cols = maps.shape
-    dev = maps.device
+def update_window(win: Tensor, prep: Prepared, spec: GridSpec2D,
+                  num_beams: int) -> tuple[Tensor, Tensor]:
+    """The plain fused update of one ``[P, wr, cols]`` window per
+    particle, whose first row is grid row ``prep.r0``.  Returns
+    ``(window', lik)``: the updated window in ``win``'s dtype and the
+    endpoint log-likelihood on the pre-update window."""
+    p, wr, cols = win.shape
+    dev = win.device
     f32 = torch.float32
-    pp, r0, table, wr, binu = prep
+    pp, r0, table, _, binu = prep
     cx, cy, theta, ta, ct, st, dphi, inv_dphi = pp.unbind(-1)
     pidx = torch.arange(p, device=dev)[:, None]
-    row_idx = r0.long()[:, None] + torch.arange(wr, device=dev)[None, :]
-    win = maps[pidx, row_idx].to(f32)  # [P, wr, cols]
+    w32 = win.to(f32)
 
     # 1) exact endpoint likelihood on the pre-update window
     d_b, ca, sa = table[1], table[2], table[3]
@@ -203,7 +252,7 @@ def plain_update(maps: Tensor, prep: Prepared, spec: GridSpec2D,
     use = use & (yi >= 0) & (yi < wr) & (xi >= 0) & (xi < cols)
     xi = torch.where(use, xi, 0).long()
     yi = torch.where(use, yi, 0).long()
-    odds = win[pidx, yi, xi]
+    odds = w32[pidx, yi, xi]
     p_end = 1.0 - 1.0 / (1.0 + torch.exp(odds))
     mix = Z_HIT * p_end + (1.0 - Z_HIT) / SENSOR_MAXDIST
     factor = torch.where(odds == 0.0,
@@ -256,7 +305,20 @@ def plain_update(maps: Tensor, prep: Prepared, spec: GridSpec2D,
     dens = torch.clamp_min(1.0 / (torch.clamp_min(r, 0.5) * per_p(dphi)), 1.0)
     in_b = (wyl < float(spec.rows) - r0f) & (wxl < float(spec.cols))
     inc = torch.where(pres & in_b, inc * dens, 0.0)
-    maps[pidx, row_idx] = (win + inc).to(maps.dtype)
+    return (w32 + inc).to(win.dtype), lik
+
+
+def plain_update(maps: Tensor, prep: Prepared, spec: GridSpec2D,
+                 num_beams: int) -> tuple[Tensor, Tensor]:
+    """The fused update on maps already gathered by lineage; writes the
+    window rows of ``maps`` in place and returns ``(maps, lik)``."""
+    p = maps.shape[0]
+    dev = maps.device
+    pidx = torch.arange(p, device=dev)[:, None]
+    row_idx = (prep.r0.long()[:, None]
+               + torch.arange(prep.wr, device=dev)[None, :])
+    win, lik = update_window(maps[pidx, row_idx], prep, spec, num_beams)
+    maps[pidx, row_idx] = win
     return maps, lik
 
 
@@ -264,17 +326,30 @@ def fused_update_reference(grids: Tensor, poses: Tensor, angles0,
                            distances: Tensor, valid: Tensor, present: Tensor,
                            spec: GridSpec2D, num_beams: int,
                            max_range_m: float, dphi=None,
-                           ancestors: Tensor | None = None
+                           ancestors: Tensor | None = None,
+                           in_place: bool = False
                            ) -> tuple[Tensor, Tensor]:
     """Plain PyTorch version of the fused update (counterpart of the JAX
     ``fused_update_reference``, ``fused.py:1915``, with lineage: the maps
-    are gathered by ``ancestors`` first).  Returns ``(grids', lik [P])``
-    and leaves ``grids`` untouched."""
+    are gathered by ``ancestors`` first).  Returns ``(grids', lik [P])``;
+    leaves ``grids`` untouched unless ``in_place``, where ``grids'`` is
+    ``grids`` with its window rows updated."""
+    _check_in_place(in_place, ancestors)
     p, rows, cols = grids.shape
     prep = prepare(rows, cols, poses, angles0, distances, valid, present,
                    spec, num_beams, max_range_m, dphi)
-    maps = grids[ancestors.long()] if ancestors is not None else grids.clone()
+    if in_place:
+        maps = grids
+    else:
+        maps = grids[ancestors.long()] if ancestors is not None \
+            else grids.clone()
     return plain_update(maps, prep, spec, num_beams)
+
+
+def _check_in_place(in_place: bool, ancestors) -> None:
+    if in_place and ancestors is not None:
+        raise ValueError("in_place=True takes no ancestors: the in-place "
+                         "update keeps every particle's map in its slot")
 
 
 def _ptr(t: Tensor) -> ctypes.c_void_p:
@@ -284,8 +359,8 @@ def _ptr(t: Tensor) -> ctypes.c_void_p:
 def fused_update(grids: Tensor, poses: Tensor, angles0, distances: Tensor,
                  valid: Tensor, present: Tensor, spec: GridSpec2D,
                  num_beams: int, max_range_m: float,
-                 ancestors: Tensor | None = None, dphi=None
-                 ) -> tuple[Tensor, Tensor]:
+                 ancestors: Tensor | None = None, dphi=None,
+                 in_place: bool = False) -> tuple[Tensor, Tensor]:
     """One RBPF grid update for all particles.
 
     grids: [P, H, Wp] f32 or bf16 log-odds, ``Wp % 128 == 0``; poses:
@@ -294,14 +369,18 @@ def fused_update(grids: Tensor, poses: Tensor, angles0, distances: Tensor,
     (particle ``i`` reads ``grids[ancestors[i]]``; values are not checked
     on the device, the resample clamps them); dphi: beam spacing, a
     Python float (static pipeline) or a tensor (traced pipeline), default
-    2*pi/B.
-    Returns ``(grids' [P, H, Wp], log_lik f32[P])``; ``grids`` is not
-    modified (the kernel writes a fresh buffer).
+    2*pi/B; in_place: update the window rows of ``grids`` where they lie
+    (identity lineage: ``ancestors`` must be None).
+    Returns ``(grids' [P, H, Wp], log_lik f32[P])``.  Without
+    ``in_place`` ``grids`` is not modified (the kernel writes a fresh
+    buffer); with it ``grids'`` is ``grids``.
     """
+    _check_in_place(in_place, ancestors)
     if grids.device.type == "cpu":
         return fused_update_reference(grids, poses, angles0, distances, valid,
                                       present, spec, num_beams, max_range_m,
-                                      dphi=dphi, ancestors=ancestors)
+                                      dphi=dphi, ancestors=ancestors,
+                                      in_place=in_place)
     if grids.device.type != "cuda":
         raise ValueError(
             f"fused_update runs on cuda or cpu, not {grids.device}")
@@ -316,28 +395,32 @@ def fused_update(grids: Tensor, poses: Tensor, angles0, distances: Tensor,
     if poses.shape != (p, 3) or poses.dtype != torch.float32:
         raise ValueError(f"poses must be f32[{p}, 3], got "
                          f"{poses.dtype}{list(poses.shape)}")
-    if ancestors is None:
+    if ancestors is None and not in_place:
         ancestors = torch.arange(p, dtype=torch.int32, device=dev)
-    if (ancestors.shape != (p,) or ancestors.dtype != torch.int32
+    if ancestors is not None and (
+            ancestors.shape != (p,) or ancestors.dtype != torch.int32
             or not ancestors.is_contiguous()):
         raise ValueError(f"ancestors must be contiguous i32[{p}]")
     for name, t in (("poses", poses), ("ancestors", ancestors),
                     ("distances", distances), ("valid", valid),
                     ("present", present)):
-        if t.device != dev:
+        if t is not None and t.device != dev:
             raise ValueError(f"{name} is on {t.device}, grids on {dev}")
     prep = prepare(rows, cols, poses, angles0, distances, valid, present,
                    spec, num_beams, max_range_m, dphi)
     return launch_kernel(grids, ancestors, prep, spec, num_beams)
 
 
-def launch_kernel(grids: Tensor, ancestors: Tensor, prep: Prepared,
+def launch_kernel(grids: Tensor, ancestors: Tensor | None, prep: Prepared,
                   spec: GridSpec2D, num_beams: int) -> tuple[Tensor, Tensor]:
     """Launch the CUDA kernel on validated inputs (see :func:`fused_update`)
-    on the current stream; counts the launch in ``fused_update.launches``."""
+    on the current stream; counts the launch in ``fused_update.launches``
+    (and an in-place one also in ``fused_update.in_place_launches``).
+    ``ancestors=None`` is the in-place mode: the output is ``grids``."""
     p, rows, cols = grids.shape
     dev = grids.device
-    out = torch.empty_like(grids)
+    in_place = ancestors is None
+    out = grids if in_place else torch.empty_like(grids)
     lik = torch.empty(p, dtype=torch.float32, device=dev)
     binu = prep.binu
     nbf = _TWO_PI / binu if binu is not None else 0.0
@@ -348,7 +431,8 @@ def launch_kernel(grids: Tensor, ancestors: Tensor, prep: Prepared,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.slamrs_fused_update(
-            _ptr(grids), _ptr(out), _ptr(ancestors), _ptr(prep.pp),
+            _ptr(grids), _ptr(out),
+            None if in_place else _ptr(ancestors), _ptr(prep.pp),
             _ptr(prep.r0), _ptr(prep.table), _ptr(lik),
             p, rows, cols, prep.wr, spec.rows, spec.cols, num_beams,
             int(grids.dtype == torch.bfloat16), int(binu is not None),
@@ -359,7 +443,9 @@ def launch_kernel(grids: Tensor, ancestors: Tensor, prep: Prepared,
         raise RuntimeError(
             f"fused_update kernel launch failed: CUDA error {rc}")
     fused_update.launches += 1
+    fused_update.in_place_launches += int(in_place)
     return out, lik
 
 
 fused_update.launches = 0
+fused_update.in_place_launches = 0

@@ -1,14 +1,16 @@
-"""The CUDA kernel of slamrs_tpu_torch against its plain PyTorch version.
+"""The CUDA kernels of slamrs_tpu_torch against their plain PyTorch versions.
 
 These tests need an NVIDIA GPU with the CUDA toolkit (the kernel is built
 with nvcc at first use); without one they skip.  Run them on the card:
 
     python -m pytest tests/test_torch_cuda.py -q
 
-Both versions run on the card on the same inputs.  Gates as for the
-kernel in chip_smoke.py: fraction of cells with |diff| > 0.01 below 1e-4,
-likelihood within rtol 1e-5 / atol 1e-4 (the block reduction sums in
-another order than torch.sum).
+Both versions run on the card on the same inputs.  Gates as in
+chip_smoke.py: for the fused updates (K1, K3) the fraction of cells with
+|diff| > 0.01 below 1e-4 and the likelihood within rtol 1e-5 / atol 1e-4
+(the block reduction sums in another order than torch.sum); the copy
+(K2) bitwise; K3 bitwise against K1 on the materialized maps (they run
+the same device code).
 """
 
 import math
@@ -17,7 +19,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from slamrs_tpu_torch.ops import fused  # noqa: E402
+from slamrs_tpu_torch.ops import cow, fused, tiles  # noqa: E402
 from slamrs_tpu_torch.ops.grid import GridSpec2D  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -82,3 +84,132 @@ def test_wrapper_checks_inputs(dev):
                            dphi=kw["dphi"])
     with pytest.raises(ValueError, match="on cpu"):
         fused.fused_update(args[0], args[1].cpu(), *args[2:], **kw)
+
+
+def _flip(a, b):
+    return float(((a.float() - b.float()).abs() > 0.01).float().mean())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_in_place_matches_plain_and_lineage_mode(dev, dtype):
+    spec = GridSpec2D(-2.0, -2.0, 4.0, 3.9, 0.05)
+    args, kw = _case(dev, spec, 64, 360, True, dtype)
+    g_lin, l_lin = fused.fused_update(*args, dphi=kw["dphi"])
+    g_plain, l_plain = fused.fused_update_reference(
+        args[0].clone(), *args[1:], dphi=kw["dphi"], in_place=True)
+    grids = args[0].clone()
+    before = fused.fused_update.in_place_launches
+    g_in, l_in = fused.fused_update(grids, *args[1:], dphi=kw["dphi"],
+                                    in_place=True)
+    torch.cuda.synchronize()
+    assert fused.fused_update.in_place_launches == before + 1
+    assert g_in.data_ptr() == grids.data_ptr()
+    assert torch.equal(g_in, g_lin) and torch.equal(l_in, l_lin)
+    assert _flip(g_in, g_plain) < 1e-4
+    torch.testing.assert_close(l_in, l_plain, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("plan", ["random", "peaked", "identity"])
+def test_cow_copy_matches_plain(dev, plan):
+    p = 64
+    g = torch.Generator(device=dev).manual_seed(1)
+    grids = torch.randn(p, 80, 128, generator=g, device=dev).to(torch.bfloat16)
+    if plan == "random":
+        anc = torch.sort(torch.randint(0, p, (p,), generator=g, device=dev))[0]
+    elif plan == "peaked":
+        anc = torch.full((p,), 5, device=dev)
+        anc[p // 2:] = 40
+    else:
+        anc = torch.arange(p, device=dev)
+    src, dst, n = cow.cow_plan(anc.to(torch.int32))
+    want = cow.cow_copy_reference(grids.clone(), src, dst, n)
+    before = cow.cow_copy.launches
+    got = cow.cow_copy(grids, src, dst, n)
+    torch.cuda.synchronize()
+    assert cow.cow_copy.launches == before + 1
+    assert torch.equal(got, want)
+
+
+# 256 x 128 (2-band span), 256 x 512 (wide), 96 x 256 (3-band span)
+TILED_SPECS = {"2band": GridSpec2D(-3.2, -6.4, 6.4, 12.8, 0.05),
+               "wide": GridSpec2D(-12.8, -6.4, 25.6, 12.8, 0.05),
+               "kspan": GridSpec2D(-6.4, -2.4, 12.8, 4.8, 0.05)}
+
+
+def _random_pool(dev, spec, p, g):
+    """A tiled state with random log-odds (~30 % zeros, zero column tail)
+    and a random table that shares tiles."""
+    pool, table = tiles.init_tiled(p, spec, 1.0, device=dev)
+    pool.copy_(torch.randn(pool.shape, generator=g, device=dev) * 1.5)
+    pool[torch.rand(pool.shape, generator=g, device=dev) < 0.3] = 0.0
+    pool[:, :, spec.cols:] = 0.0
+    table.copy_(torch.randint(0, table.numel(), table.shape, generator=g,
+                              device=dev, dtype=torch.int32))
+    return pool, table
+
+
+@pytest.mark.parametrize("geom", list(TILED_SPECS))
+@pytest.mark.parametrize("static", [True, False], ids=["static", "traced"])
+def test_tiled_matches_plain_and_dense(dev, geom, static):
+    spec = TILED_SPECS[geom]
+    p = 64
+    g = torch.Generator(device=dev).manual_seed(2)
+    pool_k, table = _random_pool(dev, spec, p, g)
+    pool_p = pool_k.clone()
+    table_k = table_p = table
+    for step in range(3):
+        args, kw = _case(dev, spec, p, 360, static, torch.bfloat16,
+                         seed=10 + step)
+        _, poses, a0, dist, valid, present = args[:6]
+        lo = torch.tensor([spec.position_x, spec.position_y], device=dev)
+        span = torch.tensor([spec.width, spec.height], device=dev)
+        poses[:, :2] = lo + span * torch.rand(p, 2, generator=g, device=dev)
+        poses[0, 1] = spec.position_y + 0.01
+        poses[1, 1] = spec.position_y + spec.height - 0.01
+        anc = torch.sort(torch.randint(0, p, (p,), generator=g, device=dev,
+                                       dtype=torch.int32))[0]
+        rest = (poses, a0, dist, valid, present, spec, 360, 1.0)
+        dense = tiles.materialize(pool_k, table_k, spec).contiguous()
+        g_d, l_d = fused.fused_update(dense, *rest, ancestors=anc,
+                                      dphi=kw["dphi"])
+        before = tiles.fused_update_tiled.launches
+        _, table_k, l_k = tiles.fused_update_tiled(
+            pool_k, table_k, *rest, dphi=kw["dphi"], ancestors=anc)
+        torch.cuda.synchronize()
+        assert tiles.fused_update_tiled.launches == before + 1
+        step_p = tiles.plan_step(pool_p, table_p, *rest, dphi=kw["dphi"],
+                                 ancestors=anc)
+        l_p = tiles.fused_update_tiled_reference(
+            pool_p, step_p.src, step_p.dst, step_p.woff, step_p.prep, spec,
+            360)
+        table_p = step_p.new_table
+        assert torch.equal(table_k, table_p)
+        m_k = tiles.materialize(pool_k, table_k, spec)
+        assert _flip(m_k, tiles.materialize(pool_p, table_p, spec)) < 1e-4
+        torch.testing.assert_close(l_k, l_p, rtol=1e-5, atol=1e-4)
+        assert torch.equal(m_k, g_d) and torch.equal(l_k, l_d)
+        assert not m_k[:, :, spec.cols:].any()
+
+
+def test_new_wrappers_check_inputs(dev):
+    spec = TILED_SPECS["2band"]
+    pool, table = tiles.init_tiled(8, spec, 1.0, device=dev)
+    poses = torch.zeros(8, 3, device=dev)
+    scan = (0.0, torch.ones(360, device=dev),
+            torch.ones(360, dtype=torch.bool, device=dev),
+            torch.ones(360, dtype=torch.bool, device=dev), spec, 360, 1.0)
+    with pytest.raises(TypeError):
+        tiles.fused_update_tiled(pool.half(), table, poses, *scan)
+    with pytest.raises(ValueError, match="table"):
+        tiles.fused_update_tiled(pool, table.long(), poses, *scan)
+    with pytest.raises(ValueError, match="poses"):
+        tiles.fused_update_tiled(pool, table, poses[:4], *scan)
+    grids = torch.zeros(8, 80, 128, device=dev)
+    src, dst, n = cow.cow_plan(torch.arange(8, dtype=torch.int32, device=dev))
+    with pytest.raises(ValueError, match="src"):
+        cow.cow_copy(grids, src.long(), dst, n)
+    with pytest.raises(ValueError, match="n_copies"):
+        cow.cow_copy(grids, src, dst, n.long())
+    with pytest.raises(ValueError, match="on cpu"):
+        cow.cow_copy(grids, src.cpu(), dst, n)

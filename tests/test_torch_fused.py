@@ -146,10 +146,11 @@ def test_encode_beam_table(with_angles):
 
 
 def test_kernel_constants_match_python():
-    """The float32 constants written into the CUDA source equal the
-    float32 roundings of the Python constants they stand for."""
+    """The float32 constants written into the CUDA source (the device code
+    K1 and K3 share) equal the float32 roundings of the Python constants
+    they stand for."""
     src = (Path(tf.__file__).parents[1] / "csrc"
-           / "fused_update.cu").read_text()
+           / "fused_common.cuh").read_text()
     consts = dict(re.findall(r"constexpr float (k\w+) = ([-0-9.e]+)f;", src))
     want = {"kTwoPi": 2 * math.pi, "kInvTwoPi": 1 / (2 * math.pi),
             "kLFree": tgrid.L_FREE, "kLOccupied": tgrid.L_OCCUPIED,

@@ -106,18 +106,229 @@ def test_config_fields_and_defaults_match():
 
 @pytest.mark.parametrize("change", [
     dict(integrate="dda"), dict(integrate="dense"),
-    dict(resample_cow=True), dict(resample_cow="staged"),
-    dict(resample_cow="tiled")])
+    dict(resample_cow="deferred"),
+    dict(resample_cow="deferred", fused_resident=True),
+    dict(resample_cow="copy")])
 def test_unported_paths_raise(change):
+    """Unported integrators raise NotImplementedError; the dead-end
+    ``resample_cow="deferred"`` and unknown values raise ValueError."""
     cfg = dataclasses.replace(_config(tgs.GridSlamConfig, 0.5, "float32"),
                               **change)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    err = NotImplementedError if "integrate" in change else ValueError
+    with pytest.raises(err, match="ROADMAP"):
         tgs.GridSlamState.init(cfg, "cpu")
 
 
 def test_fused_resident_is_accepted_and_ignored():
+    """``fused_resident`` changes the resample mechanism, never the
+    storage."""
     cfg = _config(tgs.GridSlamConfig, 0.5, "float32")
     a = tgs.GridSlamState.init(cfg, "cpu")
     b = tgs.GridSlamState.init(dataclasses.replace(cfg, fused_resident=False),
                                "cpu")
     assert a.grids.shape == b.grids.shape and a.grids.dtype == b.grids.dtype
+
+
+# ---------------------------------------------------------------------------
+# Resample mechanisms.  The JAX package picks one of four per update
+# (tiled / deferred lineage / copy-on-write / whole-set gather,
+# slamrs_tpu/models/gridslam.py:320-385,439-478); the mechanism fixes the
+# slot order after a resample, and the injected draws are indexed by slot,
+# so port and JAX package agree slot by slot only if they pick the same one.
+
+WIDE = dict(position_x=-12.8, position_y=-6.4, width=25.6, height=12.8)
+B = 360
+P8 = 8
+
+
+def _mech_config(cls, frac, geom=WIDE, **kw):
+    return cls(**geom, resolution=0.05, n_particles=P8, max_scan_range=1.0,
+               integrate="fused", grid_dtype="bfloat16",
+               resample_neff_frac=frac, **kw)
+
+
+def _random_scan(seed):
+    """A 360-beam scan inside the range clamp (distances <= 1 m)."""
+    rng = np.random.default_rng(seed)
+    dist = rng.uniform(0.1, 1.0, B).astype(np.float32)
+    valid = rng.uniform(size=B) < 0.8
+    present = np.ones(B, bool)
+    present[350:] = False
+    angles = (np.arange(B) * (2 * np.pi / B)).astype(np.float32)
+    return angles, dist, np.ones(B, np.float32), valid, present
+
+
+ODO = (np.float32(0.02), np.float32(0.03), np.float32(0.2))
+
+
+def _step_both(jst, tst, jcfg, tcfg, step, seed=0):
+    scan = _random_scan(400 + 17 * seed + step)
+    noise = jgs.derive_noise(jax.random.key(500 + 17 * seed + step), P8)
+    jst, jout = jgs.update(jst, JScan(*scan), JOdo(*ODO), None, jcfg,
+                           noise=noise)
+    tst, tout = tgs.update(
+        tst, Scan(*(_t(x) for x in scan)),
+        OdometryReading(*(torch.tensor(v) for v in ODO)), tcfg,
+        noise=tgs.UpdateNoise(*(_t(x) for x in noise)))
+    return jst, jout, tst, tout
+
+
+def _assert_slots_equal(jst, jout, tst, tout):
+    """Poses slot by slot, then weights, then the output pose."""
+    np.testing.assert_allclose(tst.poses.numpy(), np.asarray(jst.poses),
+                               rtol=0, atol=1e-6)
+    np.testing.assert_allclose(tst.weights.numpy(), np.asarray(jst.weights),
+                               rtol=1e-4, atol=1e-7)
+    np.testing.assert_allclose(tout.pose.numpy(), np.asarray(jout.pose),
+                               rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(tst.ancestors.numpy(),
+                                  np.asarray(jst.ancestors))
+
+
+def test_mechanism_fault_wide_not_resident_matches_jax():
+    """``fused_resident=False`` on a map wider than 256 padded columns:
+    the JAX package resamples by copy-on-write there, so the port must
+    too; a port that always defers the lineage diverges after the first
+    resample."""
+    jcfg = _mech_config(jgs.GridSlamConfig, 1.0, fused_resident=False)
+    tcfg = _mech_config(tgs.GridSlamConfig, 1.0, fused_resident=False)
+    jst = jgs.GridSlamState.init(jcfg)
+    tst = tgs.GridSlamState.init(tcfg, "cpu")
+    for step in range(3):
+        jst, jout, tst, tout = _step_both(jst, tst, jcfg, tcfg, step)
+        _assert_slots_equal(jst, jout, tst, tout)
+
+
+SPEC = dict(position_x=-3.2, position_y=-6.4, width=6.4, height=12.8)
+
+
+def _maps_flip(tst, jst, tcfg):
+    from slamrs_tpu.ops import tiles as jtiles
+    from slamrs_tpu_torch.ops import tiles as ttiles
+
+    tm = ttiles.materialize(tst.grids, tst.tile_table[tst.ancestors.long()],
+                            tcfg.grid_spec).float().numpy()
+    jm = np.asarray(jtiles.materialize(
+        jst.grids, jst.tile_table[jst.ancestors], jcfg_spec(tcfg))
+        .astype(jnp.float32))
+    assert (tm[:, :, tcfg.grid_spec.cols:] == 0).all()
+    return float((np.abs(tm - jm) > 0.01).mean())
+
+
+def jcfg_spec(tcfg):
+    from slamrs_tpu.ops.grid import GridSpec2D as JSpec
+
+    s = tcfg.grid_spec
+    return JSpec(s.position_x, s.position_y, s.width, s.height, s.resolution)
+
+
+@pytest.mark.parametrize("frac", [1.0, 0.0])
+def test_gridslam_tiled_matches_jax(frac):
+    """``resample_cow="tiled"``: the band-table relabel with pending
+    lineage in both packages; poses, weights and tables slot by slot,
+    materialized maps within the flip gate."""
+    jcfg = _mech_config(jgs.GridSlamConfig, frac, SPEC, resample_cow="tiled")
+    tcfg = _mech_config(tgs.GridSlamConfig, frac, SPEC, resample_cow="tiled")
+    jst = jgs.GridSlamState.init(jcfg)
+    tst = tgs.GridSlamState.init(tcfg, "cpu")
+    assert tst.grids.shape == jst.grids.shape
+    assert tgs.resample_mechanism(tcfg, tst) == "tiled"
+    for step in range(3):
+        jst, jout, tst, tout = _step_both(jst, tst, jcfg, tcfg, step, seed=1)
+        _assert_slots_equal(jst, jout, tst, tout)
+        np.testing.assert_array_equal(tst.tile_table.numpy(),
+                                      np.asarray(jst.tile_table))
+        assert _maps_flip(tst, jst, tcfg) < 1e-4
+    # the estimated map goes through one particle's tiles
+    tp = tgs.estimated_probability_grid(tst, tcfg).numpy()
+    jp = np.asarray(jgs.estimated_probability_grid(jst, jcfg))
+    assert tp.shape == jp.shape == tcfg.grid_spec.shape
+    assert float((np.abs(tp - jp) > 2e-3).mean()) < 1e-4
+
+
+def test_auto_tiled_selection_matches_jax(monkeypatch):
+    """With the auto threshold lowered on both sides, ``resample_cow=None``
+    stores tile pools in both packages and updates them alike."""
+    monkeypatch.setattr(jgs, "_AUTO_TILED_BYTES", 1 << 16)
+    monkeypatch.setattr(tgs, "_AUTO_TILED_BYTES", 1 << 16)
+    jcfg = _mech_config(jgs.GridSlamConfig, 1.0, SPEC)
+    tcfg = _mech_config(tgs.GridSlamConfig, 1.0, SPEC)
+    assert tgs.auto_tiled(tcfg) and jgs.auto_tiled(jcfg)
+    assert not tgs.auto_tiled(dataclasses.replace(tcfg, resample_cow=True))
+    jst = jgs.GridSlamState.init(jcfg)
+    tst = tgs.GridSlamState.init(tcfg, "cpu")
+    assert tst.tile_table is not None and jst.tile_table is not None
+    assert tst.grids.shape == jst.grids.shape
+    for step in range(2):
+        jst, jout, tst, tout = _step_both(jst, tst, jcfg, tcfg, step, seed=2)
+        _assert_slots_equal(jst, jout, tst, tout)
+        assert _maps_flip(tst, jst, tcfg) < 1e-4
+
+
+@pytest.mark.parametrize("geom,change,want", [
+    (WIDE, dict(fused_resident=False), "cow"),
+    (WIDE, dict(), "deferred"),
+    (WIDE, dict(fused_resident=False, resample_cow=True), "cow"),
+    (WIDE, dict(fused_resident=False, resample_cow=False), "gather"),
+    (WIDE, dict(fused_resident=True, resample_cow=False), "deferred"),
+    (WIDE, dict(fused_resident=True, resample_cow="staged"), "deferred"),
+    (SPEC, dict(fused_resident=False), "cow"),
+    (SPEC, dict(resample_cow="tiled"), "tiled")])
+def test_resample_mechanism_table(geom, change, want):
+    cfg = _mech_config(tgs.GridSlamConfig, 1.0, geom, **change)
+    assert tgs.resample_mechanism(cfg, tgs.GridSlamState.init(cfg, "cpu")) \
+        == want
+
+
+def test_resample_mechanism_errors_match_jax():
+    pinned = _mech_config(tgs.GridSlamConfig, 1.0, WIDE,
+                          fused_resident=False, resample_cow="staged")
+    with pytest.raises(ValueError, match="staged"):
+        tgs.resample_mechanism(pinned, tgs.GridSlamState.init(pinned, "cpu"))
+    tiled = _mech_config(tgs.GridSlamConfig, 1.0, SPEC, resample_cow="tiled")
+    dense = _mech_config(tgs.GridSlamConfig, 1.0, SPEC)
+    with pytest.raises(ValueError, match="tile_table"):
+        tgs.resample_mechanism(
+            dataclasses.replace(tiled, resample_cow=True),
+            tgs.GridSlamState.init(tiled, "cpu"))
+    with pytest.raises(ValueError, match="no tile pool"):
+        tgs.resample_mechanism(tiled, tgs.GridSlamState.init(dense, "cpu"))
+
+
+def test_estimated_probability_grid_dense_matches_jax():
+    jcfg = _mech_config(jgs.GridSlamConfig, 1.0, SPEC)
+    tcfg = _mech_config(tgs.GridSlamConfig, 1.0, SPEC)
+    jst = jgs.GridSlamState.init(jcfg)
+    tst = tgs.GridSlamState.init(tcfg, "cpu")
+    for step in range(2):
+        jst, jout, tst, tout = _step_both(jst, tst, jcfg, tcfg, step, seed=3)
+    tp = tgs.estimated_probability_grid(tst, tcfg).numpy()
+    jp = np.asarray(jgs.estimated_probability_grid(jst, jcfg))
+    assert tp.shape == jp.shape == tcfg.grid_spec.shape
+    assert float((np.abs(tp - jp) > 2e-3).mean()) < 1e-4
+
+
+def test_tiled_state_carried_over_from_jax():
+    """A JAX tiled state (pool, table, pending lineage) through
+    ``convert.grid_state_from_numpy``; one port update from it equals one
+    JAX update."""
+    from slamrs_tpu_torch import convert
+
+    jcfg = _mech_config(jgs.GridSlamConfig, 1.0, SPEC, resample_cow="tiled")
+    tcfg = _mech_config(tgs.GridSlamConfig, 1.0, SPEC, resample_cow="tiled")
+    jst = jgs.GridSlamState.init(jcfg)
+    scan = _random_scan(90)
+    noise = jgs.derive_noise(jax.random.key(91), P8)
+    jst, _ = jgs.update(jst, JScan(*scan), JOdo(*ODO), None, jcfg,
+                        noise=noise)
+    tst = convert.grid_state_from_numpy(
+        *(np.asarray(x) for x in jst[:6]), device="cpu",
+        tile_table=np.asarray(jst.tile_table))
+    assert tst.grids.dtype == torch.bfloat16
+    assert tst.tile_table.dtype == torch.int32
+    assert not np.array_equal(tst.ancestors.numpy(), np.arange(P8))
+    jst, jout, tst, tout = _step_both(jst, tst, jcfg, tcfg, 1, seed=4)
+    _assert_slots_equal(jst, jout, tst, tout)
+    np.testing.assert_array_equal(tst.tile_table.numpy(),
+                                  np.asarray(jst.tile_table))
+    assert _maps_flip(tst, jst, tcfg) < 1e-4

@@ -153,6 +153,32 @@ def test_yaml_parse_matches_jax():
                                   np.asarray(cmd_j.speed_right))
 
 
+def test_compile_world_carries_resample_cow_tiled():
+    """``resample_cow: tiled`` in the YAML reaches the grid config through
+    the loader, the world's state holds a tile pool shaped as the JAX
+    package's, and the world steps it."""
+    from slamrs_tpu.graph.config import parse_config as jparse
+    from slamrs_tpu_torch.graph.config import parse_config
+
+    text = Path(YAML).read_text().replace(
+        "n_particles: 1024", "n_particles: 8").replace(
+        'grid_dtype: "bfloat16"', 'grid_dtype: "bfloat16"\n'
+        '    resample_cow: "tiled"')
+    jw = jcompile.compile_world(jparse(text))
+    tw = tcompile.compile_world(parse_config(text), device="cpu")
+    assert tw.grid_config.resample_cow == "tiled"
+    assert dataclasses.asdict(tw.grid_config) == \
+        dataclasses.asdict(jw.grid_config)
+    st = tw.init()
+    jst = jw.init()
+    assert st.grid.tile_table is not None
+    assert tuple(st.grid.grids.shape) == jst.grid.grids.shape
+    assert tuple(st.grid.tile_table.shape) == jst.grid.tile_table.shape
+    st, outs = tw.rollout_cadence(st, 14, seed=0)
+    assert outs.fired.shape[0] == 2 and st.grid.tile_table is not None
+    assert bool(torch.isfinite(outs.grid_pose).all())
+
+
 def test_unported_nodes_raise():
     from slamrs_tpu_torch.graph.config import parse_config
 
