@@ -57,7 +57,31 @@ a 2.1 GB dense map set, or a 2.35 GB tile pool):
 12. times: K2, its plain version and ``index_copy_`` on bench.py's plan;
     K3 and its plain version after one resample; K1 in place; warm
     900-tick tiled and copy-on-write rollouts with their peak memory; a
-    profiled 300-tick tiled run.
+    profiled 300-tick tiled run;
+
+then ICP odometry (BASELINE config 1) and EKF landmark SLAM:
+
+13. K4 (nearest neighbours) against its plain version, indices bitwise,
+    on bench.py's ICP batch (2,048 problems of 360 x 360), at the ICP
+    mapper's shape ``[1, 360] x [1, 16384]`` with ``q_count`` in {0, 1,
+    360, 10000, 16384}, on a cloud of duplicated points (ties go to the
+    first index) and far from the origin (negative distances, many exact
+    ties);
+14. the ICP world: ``compile_world(configs/icp_test.yaml)`` for 900 ticks;
+    K4 launches 10 times per frame, the map fills its 16,384 points,
+    outputs are finite and the ICP pose RMSE is <= 0.04 m (the JAX package
+    gives 0.0205 m on the CPU); the first 300 ticks run again on the CPU
+    (plain versions) and must agree frame by frame within 2e-3 m;
+15. the EKF world: ``compile_world(configs/landmarks.yaml)`` for 300
+    ticks; finite outputs and EKF pose RMSE <= 0.03 m (the JAX package
+    gives 0.0091 m on the CPU with its own draws);
+16. one ICP mapper update at the full map and one EKF update under
+    ``torch.cuda.set_sync_debug_mode("error")``;
+17. times: K4, its plain version and the XLA form in torch (``baddbmm``,
+    mask, ``argmin``) at bench.py's batch and the mapper's shape; batched
+    ICP iterations per second at bench.py's batch; warm 900-tick ICP and
+    300-tick EKF rollouts with their peak memory; a profiled 300-tick ICP
+    run.
 
 Every kernel's bound is the larger of the bytes it must move at
 3.35 TB/s and its float32 operations at 67 TFLOP/s (the published H100
@@ -91,6 +115,12 @@ PEAK_F32_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 # (offsets, r^2, sqrt, bin wrap, interval test, density) + ~20 for atan2
 CELL_OPS = 60
 CONFIG3 = (-25.0, -25.0, 50.0, 50.0, 0.05)
+ICP_RMSE_GATE_M = 0.04
+ICP_CPU_GATE_M = 2e-3
+EKF_RMSE_GATE_M = 0.03
+# float32 operations per (p, q) pair of K4: px*qx, py*qy, their sum, the
+# doubling, the subtraction and the compare
+NN_PAIR_OPS = 6
 YAML_SCRIPT = [[4.0, 0.05, 0.08], [8.0, 0.08, 0.05], [999.0, 0.06, 0.06]]
 YAML_RECTS = [(-1.0, -1.0, 2.0, 2.0), (-0.1, -0.4, 0.5, 0.1),
               (-0.6, 0.4, 0.2, 0.5)]
@@ -210,13 +240,14 @@ def headline_world(torch, resolution):
 
 def counters():
     """The launch counters of every kernel wrapper, by name."""
-    from slamrs_tpu_torch.ops import cow, fused, tiles
+    from slamrs_tpu_torch.ops import cow, fused, icp, tiles
 
     return {"fused_update": (fused.fused_update, "launches"),
             "fused_update_in_place": (fused.fused_update,
                                       "in_place_launches"),
             "cow_copy": (cow.cow_copy, "launches"),
-            "fused_update_tiled": (tiles.fused_update_tiled, "launches")}
+            "fused_update_tiled": (tiles.fused_update_tiled, "launches"),
+            "nn_argmin": (icp.nearest_neighbors_fused, "launches")}
 
 
 def reset_counts():
@@ -762,6 +793,286 @@ def profile_rollout(torch, fw, label, n_steps=300):
           top.self_device_time_total / 1e6, "top_kernel_count": top.count})
 
 
+def bench_icp_inputs(torch, batch=2048, beams=360):
+    """bench.py's ICP problems (bench.py:122-132) on the card: a ring of
+    360 points with radii U(0.5, 1.0) per problem, p = q + U(+-0.05)."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    ang = np.linspace(0, 2 * np.pi, beams, endpoint=False)
+    q = np.stack([np.cos(ang), np.sin(ang)], -1).astype(np.float32)
+    q = q * rng.uniform(0.5, 1.0, (beams, 1)).astype(np.float32)
+    qb = np.tile(q[None], (batch, 1, 1))
+    dx = rng.uniform(-0.05, 0.05, (batch, 1, 2)).astype(np.float32)
+    pb = (q[None] + dx).astype(np.float32)
+    return (torch.from_numpy(pb).cuda(), torch.from_numpy(qb).cuda(),
+            torch.full((batch,), beams, dtype=torch.int32, device="cuda"))
+
+
+def nn_cases(torch):
+    """K4's input sets: label -> (p [B, Np, 2], q [B, Nq, 2], q_count)."""
+    g = torch.Generator(device="cuda").manual_seed(71)
+    cases = {"bench_2048x360x360": bench_icp_inputs(torch)}
+    p = torch.rand(1, 360, 2, generator=g, device="cuda") * 2 - 1
+    q = torch.rand(1, 16384, 2, generator=g, device="cuda") * 2 - 1
+    for qc in (0, 1, 360, 10000, 16384):
+        cases[f"mapper_1x360x16384_qc{qc}"] = (
+            p, q, torch.full((1,), qc, dtype=torch.int32, device="cuda"))
+    base = torch.rand(4, 96, 2, generator=g, device="cuda") * 2 - 1
+    dup = base.repeat_interleave(4, dim=1)  # each point four times
+    cases["duplicates_4x360x384"] = (
+        torch.rand(4, 360, 2, generator=g, device="cuda") * 2 - 1, dup,
+        torch.full((4,), 384, dtype=torch.int32, device="cuda"))
+    far = torch.tensor([1000.0, -2000.0], device="cuda")
+    cases["far_8x360x4096"] = (
+        far + torch.rand(8, 360, 2, generator=g, device="cuda"),
+        far + torch.rand(8, 4096, 2, generator=g, device="cuda"),
+        torch.tensor([4096, 4000, 3000, 2048, 1000, 100, 7, 4096],
+                     dtype=torch.int32, device="cuda"))
+    return cases
+
+
+def check_nn(torch):
+    """K4 against its plain version on every input set: indices bitwise.
+    Returns the largest index difference (0 when all are equal)."""
+    from slamrs_tpu_torch.ops import icp
+
+    worst = 0
+    for label, (p, q, qc) in nn_cases(torch).items():
+        before = icp.nearest_neighbors_fused.launches
+        got = icp.nearest_neighbors_fused(p, q, qc)
+        torch.cuda.synchronize()
+        if icp.nearest_neighbors_fused.launches != before + 1:
+            raise AssertionError("the nn_argmin launch counter did not count")
+        want = icp.nearest_neighbors_reference(p, q, qc)
+        diff = int((got.long() - want.long()).abs().max())
+        worst = max(worst, diff)
+        q2 = (q * q).sum(-1)
+        d2_min = float((q2[:, None, :] - 2 * p @ q.transpose(1, 2)).min())
+        extra = {}
+        if label.startswith("duplicates"):  # the first copy always wins
+            extra["first_copy_wins"] = bool((got % 4 == 0).all())
+        emit({"phase": "kernel_vs_plain_nn", "case": label,
+              "p": list(p.shape), "q": list(q.shape),
+              "q_count": qc.tolist()[:8], "bitwise_equal": diff == 0,
+              "mismatches": int((got != want).sum()),
+              "min_d2": d2_min, **extra})
+        if diff != 0 or not extra.get("first_copy_wins", True):
+            raise AssertionError(f"nn_argmin disagrees with its plain "
+                                 f"version ({label})")
+    return worst
+
+
+def preset_world(torch, name, device="cuda"):
+    from slamrs_tpu_torch.graph.compile import compile_world
+    from slamrs_tpu_torch.graph.config import load_config
+
+    root = Path(__file__).resolve().parent
+    return compile_world(load_config(root / "configs" / name), device=device)
+
+
+def pose_rmse(torch, est, truth):
+    err = est[:, :2].float() - truth[:, :2].float()
+    return float(torch.sqrt((err ** 2).mean()))
+
+
+def check_icp_world(torch):
+    """The ICP preset for 900 ticks on the card with the counts set to 0
+    just before and read just after, then its first 300 ticks on the
+    CPU.  Returns (counts, outs, state)."""
+    fw = preset_world(torch, "icp_test.yaml")
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, outs = fw.rollout_cadence(fw.init(), 900, seed=0)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    frames = int(outs.fired.shape[0])
+    rmse = pose_rmse(torch, outs.icp_pose, outs.pose)
+    finite = all(bool(torch.isfinite(t).all()) for t in (
+        outs.pose, outs.icp_pose, state.icp.points, state.icp.pose))
+    count = int(state.icp.count)
+    emit({"phase": "rollout_icp_900", "ticks": 900, "frames": frames,
+          "launch_counts": counts, "map_count": count,
+          "map_capacity": fw.icp_config.capacity,
+          "icp_pose_rmse_xy_m": rmse, "finite": finite, "seconds": seconds})
+    iters = fw.icp_config.iterations
+    if counts["nn_argmin"] != iters * frames:
+        raise AssertionError(f"{counts['nn_argmin']} nn_argmin launches, "
+                             f"expected {iters} x {frames} frames")
+    if count != fw.icp_config.capacity or not finite:
+        raise AssertionError(f"ICP map holds {count} points (finite: "
+                             f"{finite})")
+    if not rmse <= ICP_RMSE_GATE_M:
+        raise AssertionError(f"ICP pose RMSE {rmse} m > {ICP_RMSE_GATE_M} m")
+
+    cpu = preset_world(torch, "icp_test.yaml", device="cpu")
+    t0 = time.perf_counter()
+    _, cpu_outs = cpu.rollout_cadence(cpu.init(), 300, seed=0)
+    cpu_s = time.perf_counter() - t0
+    n = int(cpu_outs.fired.shape[0])
+    gap = (outs.icp_pose[:n].cpu() - cpu_outs.icp_pose).abs().amax(dim=1)
+    over = torch.nonzero(gap > ICP_CPU_GATE_M)
+    first = int(over[0]) if over.numel() else None
+    emit({"phase": "icp_card_vs_cpu_300", "frames": n,
+          "max_pose_diff_m": float(gap.max()),
+          "first_frame_over_gate": first,
+          "per_frame_max_diff_m": [float(x) for x in gap[::8]],
+          "cpu_seconds": cpu_s,
+          "cpu_icp_pose_rmse_xy_m": pose_rmse(torch, cpu_outs.icp_pose,
+                                              cpu_outs.pose)})
+    if first is not None:
+        raise AssertionError(f"card and CPU ICP poses differ by "
+                             f"{float(gap[first])} m at frame {first}")
+    return counts, outs, state
+
+
+def check_ekf_world(torch):
+    """The landmark preset for 300 ticks on the card; returns the world
+    and its final state."""
+    fw = preset_world(torch, "landmarks.yaml")
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, outs = fw.rollout_cadence(fw.init(), 300, seed=0)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    rmse = pose_rmse(torch, outs.ekf_pose, outs.pose)
+    finite = all(bool(torch.isfinite(t).all()) for t in (
+        outs.pose, outs.ekf_pose, state.ekf.mean, state.ekf.cov))
+    emit({"phase": "rollout_ekf_300", "ticks": 300,
+          "frames": int(outs.fired.shape[0]), "launch_counts": read_counts(),
+          "ekf_pose_rmse_xy_m": rmse, "finite": finite,
+          "landmarks_seen": int(state.ekf.seen.sum()), "seconds": seconds})
+    if not finite or not rmse <= EKF_RMSE_GATE_M:
+        raise AssertionError(f"EKF pose RMSE {rmse} m > {EKF_RMSE_GATE_M} m "
+                             f"(finite: {finite})")
+    return fw, state
+
+
+def check_icp_ekf_no_host_sync(torch, icp_state, ekf_world, ekf_state):
+    """One ICP mapper update at the full map and one EKF update never
+    wait for the card."""
+    from slamrs_tpu_torch.core.types import OdometryReading
+    from slamrs_tpu_torch.models import ekf, icp_mapper
+    from slamrs_tpu_torch.models.simulator import landmark_scan, lidar_scan
+
+    icp_world = preset_world(torch, "icp_test.yaml")
+    pose = torch.tensor([0.1, -0.2, 0.3], device="cuda")
+    scan = lidar_scan(pose, icp_world.scene, 1.0, 360)
+    lm = landmark_scan(pose, ekf_world.scene, ekf_world.params,
+                       generator=torch.Generator(device="cuda").manual_seed(4))
+    odo = OdometryReading(torch.full((), 0.01, device="cuda"),
+                          torch.full((), 0.012, device="cuda"),
+                          ekf_world.params.wheel_base)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        st, out = icp_mapper.update(icp_state, scan, icp_world.icp_config)
+        est, eout = ekf.update(ekf_state, lm, odo, ekf_world.ekf_config)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    emit({"phase": "no_host_sync_icp_ekf", "ok": True,
+          "map_count": int(st.count),
+          "poses_finite": bool(torch.isfinite(out.pose).all()
+                               and torch.isfinite(eout.pose).all())})
+
+
+def xla_form_nn(torch, p, q, q_count):
+    """The JAX package's XLA form in torch, the library yardstick for K4:
+    ``q2 - 2 p q^T`` by ``baddbmm``, invalid lanes masked, ``argmin``.
+    Timed here only; the port never calls it."""
+    q2 = (q * q).sum(-1)
+    d2 = torch.baddbmm(q2[:, None, :], p, q.transpose(1, 2), alpha=-2.0)
+    valid = torch.arange(q.shape[1], device=q.device) < q_count[:, None]
+    d2 = torch.where(valid[:, None, :], d2, 1e30)
+    return torch.argmin(d2, dim=-1).to(torch.int32)
+
+
+def time_nn(torch):
+    """Device times of K4, its plain version and the XLA form at bench.py's
+    batch and the mapper's shape, with K4's bound; returns the kernels-line
+    numbers of the mapper shape (the main path's) and bench's."""
+    from slamrs_tpu_torch.ops import icp
+
+    cases = nn_cases(torch)
+    out = {}
+    for label in ("bench_2048x360x360", "mapper_1x360x16384_qc10000"):
+        p, q, qc = cases[label]
+        b, n_p, nq = p.shape[0], p.shape[1], q.shape[1]
+        ms = time_call(torch, lambda: icp.launch_kernel(p, q, qc))
+        plain_ms = time_call(torch, lambda: icp.nearest_neighbors_reference(
+            p, q, qc))
+        lib_ms = time_call(torch, lambda: xla_form_nn(torch, p, q, qc))
+        lib_diff = int((xla_form_nn(torch, p, q, qc)
+                        != icp.launch_kernel(p, q, qc)).sum())
+        nbytes = (b * n_p * 2 + b * nq * 2 + b + b * n_p) * 4
+        pairs = b * n_p * nq
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        t_ops = pairs * NN_PAIR_OPS / PEAK_F32_PER_S * 1e3
+        bound, by = (t_bytes, "bytes") if t_bytes >= t_ops else \
+            (t_ops, "operations")
+        out[label] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                          bound_ms=bound, bound_by=by)
+        emit({"phase": "kernel_time_nn", "case": label, "pairs": pairs,
+              "bytes": nbytes, "kernel_us": ms * 1e3,
+              "plain_us": plain_ms * 1e3, "xla_form_us": lib_ms * 1e3,
+              "xla_form_index_mismatches": lib_diff,
+              "bound_us": bound * 1e3,
+              "bound_by": by, "g_pairs_per_s": pairs / ms / 1e6})
+    return out
+
+
+def time_icp_batch(torch, reps=5):
+    """Batched ICP at bench.py's shape: 2,048 problems x 10 iterations,
+    K4 on every iteration; host clock around synchronized solves."""
+    from slamrs_tpu_torch.ops import icp
+
+    p, q, qc = bench_icp_inputs(torch)
+    mask = torch.ones(p.shape[:2], dtype=torch.bool, device="cuda")
+    x0 = torch.zeros(p.shape[0], 3, device="cuda")
+    icp.icp_point_to_normal(p, mask, q, qc, x0, iterations=10)  # warm
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        before = icp.nearest_neighbors_fused.launches
+        t0 = time.perf_counter()
+        res = icp.icp_point_to_normal(p, mask, q, qc, x0, iterations=10)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if icp.nearest_neighbors_fused.launches != before + 10:
+            raise AssertionError("batched ICP did not launch K4 per iteration")
+    sec = statistics.median(times)
+    emit({"phase": "icp_batch_2048x10", "problems": p.shape[0],
+          "iterations": 10, "median_s": sec, "all_s": times,
+          "icp_iterations_per_s": p.shape[0] * 10 / sec,
+          "finite": bool(torch.isfinite(res.transformation).all())})
+
+
+def time_icp_ekf_rollouts(torch):
+    """Warm 900-tick ICP and 300-tick EKF runs, then a profiled 300-tick
+    ICP run."""
+    for name, ticks, est in (("icp_test.yaml", 900, "icp_pose"),
+                             ("landmarks.yaml", 300, "ekf_pose")):
+        fw = preset_world(torch, name)
+        fw.rollout_cadence(fw.init(), 30, seed=2)  # warm
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, outs = fw.rollout_cadence(fw.init(), ticks, seed=0)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        emit({"phase": f"rollout_time_{name.split('.')[0]}_{ticks}",
+              "ticks": ticks, "frames": int(outs.fired.shape[0]),
+              "seconds": seconds, "ticks_per_s": ticks / seconds,
+              f"{est}_rmse_xy_m": pose_rmse(torch, getattr(outs, est),
+                                            outs.pose),
+              "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()})
+    profile_rollout(torch, preset_world(torch, "icp_test.yaml"), "icp_300")
+
+
 def _spec(geom):
     from slamrs_tpu_torch.ops.grid import GridSpec2D
 
@@ -867,6 +1178,16 @@ def main() -> int:
     time_config3_rollouts(torch)
     profile_rollout(torch, config3_world(torch), "config3_tiled_300")
 
+    # ICP odometry and EKF landmark SLAM: K4 on the card
+    nn_err = check_nn(torch)
+    icp_counts, _, icp_state = check_icp_world(torch)
+    ekf_world, ekf_state = check_ekf_world(torch)
+    check_icp_ekf_no_host_sync(torch, icp_state.icp, ekf_world,
+                               ekf_state.ekf)
+    t4 = time_nn(torch)
+    time_icp_batch(torch)
+    time_icp_ekf_rollouts(torch)
+
     k1_ms, k1_plain, k1_bound, k1_by = times["0.05m"]
     emit({"kernels": [
         {"name": "fused_update", "route": "cuda",
@@ -884,7 +1205,12 @@ def main() -> int:
          "source": "slamrs_tpu_torch/csrc/fused_update_tiled.cu",
          "replaces": "slamrs_tpu/ops/tiles.py:533",
          "launches": tiled_counts["fused_update_tiled"],
-         "max_abs_err": tiled_err, **t3["fused_update_tiled"]}]})
+         "max_abs_err": tiled_err, **t3["fused_update_tiled"]},
+        {"name": "nn_argmin", "route": "cuda",
+         "source": "slamrs_tpu_torch/csrc/nn_argmin.cu",
+         "replaces": "slamrs_tpu/ops/icp.py:111",
+         "launches": icp_counts["nn_argmin"], "max_abs_err": nn_err,
+         **t4["mapper_1x360x16384_qc10000"]}]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

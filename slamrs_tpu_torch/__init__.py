@@ -1,11 +1,15 @@
-"""slamrs_tpu_torch: the RBPF grid-SLAM rollout in PyTorch for one NVIDIA H100.
+"""slamrs_tpu_torch: the simulator and its SLAM filters in PyTorch, on one
+NVIDIA H100.
 
-A port of :mod:`slamrs_tpu` (JAX on a TPU), which stays the reference.
-The layout mirrors it so each module has an obvious counterpart:
+A port of :mod:`slamrs_tpu` (JAX on a TPU), which stays the reference:
+the RBPF grid-SLAM rollout, ICP scan-to-map odometry and EKF landmark
+SLAM.  The layout mirrors it so each module has an obvious counterpart:
 
 * ``core/``    pose/scan tuples, angle math, the odometry motion model;
-* ``ops/``     raycast, grid geometry, resampling, the fused update;
-* ``models/``  the lidar simulator and the particle-filter SLAM update;
+* ``ops/``     raycast, grid geometry, resampling, the fused update, the
+  copy-on-write and tile-pool resamples, ICP;
+* ``models/``  the simulator, the particle-filter SLAM update, the ICP
+  point mapper and the EKF;
 * ``graph/``   the YAML loader and the fused world (rollouts);
 * ``kernels/`` build and load of the hand-written CUDA kernels in ``csrc/``.
 

@@ -2,8 +2,10 @@
 [--seed S] [--device cuda]``.
 
 Runs the fused world of a YAML node graph through ``rollout_cadence`` and
-prints one JSON report: steps, scans, final ground-truth pose, and the
-RMSE of the best-particle pose against ground truth over the scan frames.
+prints one JSON report: steps, scans, final ground-truth pose, and, for
+each filter the world runs (grid SLAM's best particle, the ICP mapper,
+the EKF), the RMSE of its pose against ground truth over the scan
+frames.
 The device defaults to ``cuda`` and nothing falls back: without CUDA it
 stops with an error, and ``--device cpu`` must be asked for.
 """
@@ -34,9 +36,11 @@ def cmd_rollout(args) -> dict:
         "final_pose": state.pose.cpu().tolist(),
         "device": str(device),
     }
-    if outs.grid_pose is not None:
-        err = outs.grid_pose.cpu()[:, :2] - pose[:, :2]
-        report["grid_pose_rmse_xy"] = float(torch.sqrt((err ** 2).mean()))
+    for name in ("grid_pose", "icp_pose", "ekf_pose"):
+        est = getattr(outs, name)
+        if est is not None:
+            err = est.cpu()[:, :2] - pose[:, :2]
+            report[f"{name}_rmse_xy"] = float(torch.sqrt((err ** 2).mean()))
     return report
 
 

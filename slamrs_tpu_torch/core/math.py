@@ -1,8 +1,9 @@
 """Angle math and the Gaussian log-density.
 
 Counterpart of ``slamrs_tpu/core/math.py`` (``angle_diff``,
-``normal_logpdf``).  Python-float constants meet float32 tensors, so
-they round to float32 exactly as JAX's weakly typed constants do.
+``wrap_angle``, ``normal_logpdf``).  Python-float constants meet float32
+tensors, so they round to float32 exactly as JAX's weakly typed
+constants do.
 """
 
 from __future__ import annotations
@@ -25,6 +26,11 @@ def angle_diff(alpha: Tensor, beta: Tensor) -> Tensor:
     two_pi = 2.0 * _pymath.pi
     diff = torch.remainder(beta - alpha + _pymath.pi, two_pi) - _pymath.pi
     return torch.where(diff < -_pymath.pi, diff + two_pi, diff)
+
+
+def wrap_angle(theta: Tensor) -> Tensor:
+    """``theta`` wrapped to [-pi, pi)."""
+    return angle_diff(0.0, theta)
 
 
 def normal_logpdf(x: Tensor, mean: Tensor, std: Tensor) -> Tensor:

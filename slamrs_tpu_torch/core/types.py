@@ -2,8 +2,9 @@
 
 Counterpart of ``slamrs_tpu/core/types.py``.  A scan carries a fixed
 number of beam lanes plus two masks (``present``: the sensor emitted the
-lane at all; ``valid``: it is a true hit), and a pose is a plain
-``f32[..., 3]`` tensor ``(x, y, theta)``.
+lane at all; ``valid``: it is a true hit), a landmark scan a fixed number
+of observation lanes, and a pose is a plain ``f32[..., 3]`` tensor
+``(x, y, theta)``.
 """
 
 from __future__ import annotations
@@ -59,6 +60,15 @@ class Scan(NamedTuple):
     def num_beams(self) -> int:
         return self.angles.shape[-1]
 
+    def to_points(self, origin: Tensor) -> tuple[Tensor, Tensor]:
+        """Every lane projected to a world-frame point from ``origin``
+        (f32[..., 3]), with the mask of valid, present lanes.  Returns
+        ``(points f32[..., B, 2], mask bool[..., B])``."""
+        a = origin[..., 2:3] + self.angles
+        px = origin[..., 0:1] + torch.cos(a) * self.distances
+        py = origin[..., 1:2] + torch.sin(a) * self.distances
+        return torch.stack([px, py], dim=-1), self.valid & self.present
+
 
 class OdometryReading(NamedTuple):
     """Measured wheel travel since the previous reading (meters)."""
@@ -67,9 +77,30 @@ class OdometryReading(NamedTuple):
     distance_right: Tensor
     wheel_base: Tensor | float
 
+    @staticmethod
+    def make(left=0.0, right=0.0, wheel_base=0.1,
+             device=None) -> "OdometryReading":
+        """Three f32 0-dim tensors on ``device``."""
+        f = lambda v: torch.tensor(v, dtype=torch.float32, device=device)
+        return OdometryReading(f(left), f(right), f(wheel_base))
+
 
 class Command(NamedTuple):
     """Target wheel speeds, m/s."""
 
     speed_left: Tensor
     speed_right: Tensor
+
+
+class LandmarkScan(NamedTuple):
+    """Landmark observations with fixed lanes: ``association`` is the
+    landmark id (the simulator knows it), ``valid`` masks unused lanes."""
+
+    angles: Tensor  # f32[..., L] radians, robot-relative
+    distances: Tensor  # f32[..., L] meters
+    association: Tensor  # i32[..., L]
+    valid: Tensor  # bool[..., L]
+
+    @property
+    def num_lanes(self) -> int:
+        return self.angles.shape[-1]

@@ -1,16 +1,22 @@
-"""The fused world: simulator + grid SLAM stepped tick by tick.
+"""The fused world: simulator + SLAM filters stepped tick by tick.
 
 Counterpart of ``slamrs_tpu/graph/compile.py`` (``FusedWorld``,
-``make_fused``, ``compile_world``) for a single world with grid SLAM.
-The simulator's scan topic feeds the SLAM node directly (``!Splitter``
-outputs are aliases of it).  The scan timer is a host float32 scalar,
-so the tick loop knows on the host which ticks fire and never waits for
-the device.
+``make_fused``, ``compile_world``) for a single world with any
+combination of grid SLAM, the ICP point mapper and EKF landmark SLAM.
+The simulator's scan and landmark topics feed the filters directly
+(``!Splitter`` outputs are aliases of them).  The scan timer is a host
+float32 scalar, so the tick loop knows on the host which ticks fire and
+never waits for the device.  On a scan tick the lidar scan feeds grid
+SLAM and then the ICP mapper, and the landmark scan feeds the EKF; on
+the other ticks each filter's previous estimate is carried.
 
 Randomness: one ``torch.Generator`` on the world's device, seeded from
-``seed``, gives each scan tick its motion and resample draws in order,
-so :meth:`FusedWorld.rollout` and :meth:`FusedWorld.rollout_cadence`
-draw the same numbers for the same seed.
+``seed``, gives each scan tick its draws in this order: grid SLAM's
+motion and resample draws (``models/gridslam.update``), then the
+landmark sensor's bearing noise, then its range noise
+(``models/simulator.landmark_scan``).  ICP draws nothing.  So
+:meth:`FusedWorld.rollout` and :meth:`FusedWorld.rollout_cadence` draw
+the same numbers for the same seed.
 """
 
 from __future__ import annotations
@@ -25,10 +31,14 @@ import torch
 from slamrs_tpu_torch.core import motion
 from slamrs_tpu_torch.core.types import Command, OdometryReading
 from slamrs_tpu_torch.graph.config import (Config, ControlsNodeConfig,
+                                           EKFLandmarkSlamNodeConfig,
                                            GridMapSlamNodeConfig,
+                                           IcpPointMapperNodeConfig,
                                            SimulatorNodeConfig,
                                            SplitterNodeConfig)
+from slamrs_tpu_torch.models import ekf as ekf_model
 from slamrs_tpu_torch.models import gridslam as gs_model
+from slamrs_tpu_torch.models import icp_mapper as icp_model
 from slamrs_tpu_torch.models import simulator as sim_model
 
 Tensor = torch.Tensor
@@ -41,30 +51,49 @@ class WorldState(NamedTuple):
     scan_timer: float  # float32-exact host timer
     scan_counter: int
     grid: Optional[gs_model.GridSlamState]
+    icp: Optional[icp_model.IcpMapState] = None
+    ekf: Optional[ekf_model.EkfState] = None
 
 
 class WorldOutputs(NamedTuple):
     """Per-tick (:meth:`FusedWorld.rollout`) or per-scan-frame
-    (:meth:`FusedWorld.rollout_cadence`) outputs, stacked on dim 0."""
+    (:meth:`FusedWorld.rollout_cadence`) outputs, stacked on dim 0; a
+    filter's field is None when the world does not run it."""
 
     fired: Tensor  # bool[T]
     pose: Tensor  # f32[T, 3] ground truth
     grid_pose: Optional[Tensor]  # f32[T, 3] best-particle pose
+    icp_pose: Optional[Tensor]  # f32[T, 3] ICP mapper estimate
+    ekf_pose: Optional[Tensor]  # f32[T, 3] EKF mean pose
     n_eff: Optional[Tensor]  # f32[T] (0 on ticks without a scan)
 
 
-def _stack_outputs(rows: list, device, has_grid: bool) -> WorldOutputs:
-    fired, pose, gpose, neff = zip(*rows)
+class _Row(NamedTuple):
+    fired: bool
+    pose: Tensor
+    grid_pose: Optional[Tensor]
+    icp_pose: Optional[Tensor]
+    ekf_pose: Optional[Tensor]
+    n_eff: Tensor
+
+
+def _stack_outputs(rows: list, device) -> WorldOutputs:
+    def stacked(name):
+        vals = [getattr(r, name) for r in rows]
+        return None if vals[0] is None else torch.stack(vals)
+
+    has_grid = rows[0].grid_pose is not None
     return WorldOutputs(
-        fired=torch.tensor(fired, dtype=torch.bool, device=device),
-        pose=torch.stack(pose),
-        grid_pose=torch.stack(gpose) if has_grid else None,
-        n_eff=torch.stack(neff) if has_grid else None)
+        fired=torch.tensor([r.fired for r in rows], dtype=torch.bool,
+                           device=device),
+        pose=stacked("pose"), grid_pose=stacked("grid_pose"),
+        icp_pose=stacked("icp_pose"), ekf_pose=stacked("ekf_pose"),
+        n_eff=stacked("n_eff") if has_grid else None)
 
 
 @dataclasses.dataclass
 class FusedWorld:
-    """A simulator(+grid SLAM) pipeline on one device.  Build with
+    """A simulator(+SLAM filters) pipeline on one device.  Build with
     :func:`make_fused` or :func:`compile_world`."""
 
     scene: sim_model.Scene
@@ -74,6 +103,8 @@ class FusedWorld:
     control_script: list  # [[until_t, left, right], ...]
     device: torch.device
     num_beams: int = 360
+    icp_config: Optional[icp_model.IcpMapConfig] = None
+    ekf_config: Optional[ekf_model.EkfConfig] = None
 
     def init(self) -> WorldState:
         z = torch.zeros((), dtype=torch.float32, device=self.device)
@@ -82,25 +113,55 @@ class FusedWorld:
             accum_left=z, accum_right=z.clone(), scan_timer=0.0,
             scan_counter=0,
             grid=(gs_model.GridSlamState.init(self.grid_config, self.device)
-                  if self.grid_config else None))
+                  if self.grid_config else None),
+            icp=(icp_model.IcpMapState.init(self.icp_config, self.device)
+                 if self.icp_config else None),
+            ekf=(ekf_model.EkfState.init(self.ekf_config, self.device)
+                 if self.ekf_config else None))
 
-    def _scan_update(self, pose, accum_l, accum_r, grid, generator, noise):
-        """The scan tick: lidar, then the SLAM update on the odometry
-        accumulated since the last scan."""
-        scan = sim_model.lidar_scan(pose, self.scene,
-                                    self.params.scanner_range, self.num_beams)
-        odometry = OdometryReading(accum_l, accum_r, self.params.wheel_base)
-        grid, gout = gs_model.update(grid, scan, odometry, self.grid_config,
-                                     generator=generator, noise=noise)
-        return grid, gout.pose, gout.n_eff
+    def _scan_update(self, state: WorldState, generator, noise,
+                     landmark_noise):
+        """The scan tick on ``state`` (pose and odometry already
+        advanced): the lidar feeds grid SLAM, then the ICP mapper; the
+        landmark sensor feeds the EKF.  Returns the filters' new states
+        and ``(grid_pose, icp_pose, ekf_pose, n_eff)``."""
+        odometry = OdometryReading(state.accum_left, state.accum_right,
+                                   self.params.wheel_base)
+        grid, icp, ekf = state.grid, state.icp, state.ekf
+        grid_pose = icp_pose = ekf_pose = n_eff = None
+        if grid is not None or icp is not None:
+            scan = sim_model.lidar_scan(state.pose, self.scene,
+                                        self.params.scanner_range,
+                                        self.num_beams)
+        if grid is not None:
+            grid, gout = gs_model.update(grid, scan, odometry,
+                                         self.grid_config,
+                                         generator=generator, noise=noise)
+            grid_pose, n_eff = gout.pose, gout.n_eff
+        if icp is not None:
+            icp, iout = icp_model.update(icp, scan, self.icp_config)
+            icp_pose = iout.pose
+        if ekf is not None:
+            noise_a, noise_d = landmark_noise or (None, None)
+            landmarks = sim_model.landmark_scan(
+                state.pose, self.scene, self.params, generator=generator,
+                noise_a=noise_a, noise_d=noise_d)
+            ekf, eout = ekf_model.update(ekf, landmarks, odometry,
+                                         self.ekf_config)
+            ekf_pose = eout.pose
+        return grid, icp, ekf, (grid_pose, icp_pose, ekf_pose, n_eff)
 
     def step(self, state: WorldState, cmd: Command,
              generator: torch.Generator | None = None,
              force_fire: bool = False,
-             noise: gs_model.UpdateNoise | None = None):
-        """One dt tick: motion always; lidar + SLAM when the timer fires
-        (or ``force_fire``).  ``cmd`` holds 0-dim speed tensors.  Returns
-        ``(state, (fired, pose, grid_pose, n_eff))``."""
+             noise: gs_model.UpdateNoise | None = None,
+             landmark_noise: tuple[Tensor, Tensor] | None = None):
+        """One dt tick: motion always; the scan tick's filter updates when
+        the timer fires (or ``force_fire``).  ``cmd`` holds 0-dim speed
+        tensors; ``noise`` and ``landmark_noise`` (``(noise_a,
+        noise_d)``) replace the generator's draws for grid SLAM and the
+        landmark sensor.  Returns ``(state, row)`` with ``row`` the
+        tick's ``(fired, pose, grid_pose, icp_pose, ekf_pose, n_eff)``."""
         dt = np.float32(self.dt)
         sl = cmd.speed_left * float(dt)
         sr = cmd.speed_right * float(dt)
@@ -115,22 +176,27 @@ class FusedWorld:
             timer = np.float32(timer - period)
         fired = fired or force_fire or float(period) == 0.0
 
-        grid = state.grid
-        grid_pose = grid.best_pose if grid is not None else None
-        n_eff = None
+        state = state._replace(pose=pose, accum_left=accum_l,
+                               accum_right=accum_r)
+        grid, icp, ekf = state.grid, state.icp, state.ekf
         if fired:
-            if grid is not None:
-                grid, grid_pose, n_eff = self._scan_update(
-                    pose, accum_l, accum_r, grid, generator, noise)
+            grid, icp, ekf, (grid_pose, icp_pose, ekf_pose, n_eff) = \
+                self._scan_update(state, generator, noise, landmark_noise)
             accum_l = torch.zeros_like(accum_l)
             accum_r = torch.zeros_like(accum_r)
+        else:  # carry each filter's previous estimate
+            grid_pose = grid.best_pose if grid is not None else None
+            icp_pose = icp.pose if icp is not None else None
+            ekf_pose = ekf.mean[0:3] if ekf is not None else None
+            n_eff = None
         if n_eff is None:
             n_eff = torch.zeros((), dtype=torch.float32, device=self.device)
         new_state = WorldState(pose=pose, accum_left=accum_l,
                                accum_right=accum_r, scan_timer=float(timer),
                                scan_counter=state.scan_counter + int(fired),
-                               grid=grid)
-        return new_state, (fired, pose, grid_pose, n_eff)
+                               grid=grid, icp=icp, ekf=ekf)
+        return new_state, _Row(fired, pose, grid_pose, icp_pose, ekf_pose,
+                               n_eff)
 
     def commands_for(self, n_steps: int) -> Command:
         """The Controls script as per-tick f32 speed tensors: row
@@ -156,32 +222,50 @@ class FusedWorld:
         return gen
 
     def rollout(self, state: WorldState, n_steps: int, seed: int = 0,
-                commands: Optional[Command] = None
+                commands: Optional[Command] = None,
+                landmark_noise: Optional[tuple] = None
                 ) -> tuple[WorldState, WorldOutputs]:
-        """Tick by tick; outputs stacked along the time axis."""
+        """Tick by tick; outputs stacked along the time axis.
+        ``landmark_noise`` (tests) holds each scan frame's ``(noise_a,
+        noise_d)`` with a leading frame axis, in place of the generator's
+        landmark draws."""
         if commands is None:
             commands = self.commands_for(n_steps)
         gen = self._generator(seed)
         rows = []
+        frame = 0
         for i in range(n_steps):
+            # the next scan frame's draws (None past the last one)
+            draws = (self._frame_draws(landmark_noise, frame)
+                     if landmark_noise is not None
+                     and frame < len(landmark_noise[0]) else None)
             state, row = self.step(
                 state, Command(commands.speed_left[i], commands.speed_right[i]),
-                generator=gen)
+                generator=gen, landmark_noise=draws)
+            frame += int(row.fired)
             rows.append(row)
-        return state, _stack_outputs(rows, self.device,
-                                     self.grid_config is not None)
+        return state, _stack_outputs(rows, self.device)
+
+    def _frame_draws(self, draws, f: int):
+        """Frame ``f`` of per-frame numpy draws, as tensors (None stays)."""
+        if draws is None:
+            return None
+        return tuple(torch.from_numpy(np.array(x[f])).to(self.device)
+                     for x in draws)
 
     def rollout_cadence(self, state: WorldState, n_steps: int, seed: int = 0,
                         commands: Optional[Command] = None,
                         initial_timer: Optional[float] = None,
-                        noise: Optional[gs_model.UpdateNoise] = None
+                        noise: Optional[gs_model.UpdateNoise] = None,
+                        landmark_noise: Optional[tuple] = None
                         ) -> tuple[WorldState, WorldOutputs]:
         """The same ticks as :meth:`rollout`, grouped into frames of idle
         ticks (motion only) followed by one scan tick; outputs are per
         frame (the scan ticks).
 
-        ``noise`` (tests) holds each frame's pre-drawn SLAM randomness
-        with a leading frame axis, in place of the seeded generator.
+        ``noise`` (tests) holds each frame's pre-drawn grid-SLAM draws
+        and ``landmark_noise`` each frame's ``(noise_a, noise_d)``, with a
+        leading frame axis, in place of the seeded generator's.
         """
         if commands is None:
             commands = self.commands_for(n_steps)
@@ -199,7 +283,7 @@ class FusedWorld:
         if fire_idx.size == 0:
             return self.rollout(state, n_steps, seed, commands)
 
-        gen = self._generator(seed) if noise is None else None
+        gen = self._generator(seed)
         sl_all = commands.speed_left * float(dt)
         sr_all = commands.speed_right * float(dt)
         wb = self.params.wheel_base
@@ -213,11 +297,11 @@ class FusedWorld:
             state = state._replace(pose=pose, accum_left=al, accum_right=ar,
                                    scan_timer=float(period))
             frame_noise = None if noise is None else gs_model.UpdateNoise(
-                *(torch.from_numpy(np.array(x[f])).to(self.device)
-                  for x in noise))
+                *self._frame_draws(noise, f))
             state, row = self.step(
                 state, Command(commands.speed_left[e], commands.speed_right[e]),
-                generator=gen, force_fire=True, noise=frame_noise)
+                generator=gen, force_fire=True, noise=frame_noise,
+                landmark_noise=self._frame_draws(landmark_noise, f))
             rows.append(row)
             start = e + 1
 
@@ -227,31 +311,33 @@ class FusedWorld:
             al, ar = al + sl_all[i], ar + sr_all[i]
         state = state._replace(pose=pose, accum_left=al, accum_right=ar,
                                scan_timer=float(timer))
-        return state, _stack_outputs(rows, self.device,
-                                     self.grid_config is not None)
+        return state, _stack_outputs(rows, self.device)
 
 
 def make_fused(scene: Optional[sim_model.Scene] = None,
                params: Optional[sim_model.SimParams] = None,
                grid_config: Optional[gs_model.GridSlamConfig] = None,
-               icp_config=None, ekf_config=None,
+               icp_config: Optional[icp_model.IcpMapConfig] = None,
+               ekf_config: Optional[ekf_model.EkfConfig] = None,
                control_script: Optional[list] = None,
                num_beams: int = 360, dt: float = sim_model.DEFAULT_DT,
                *, device) -> FusedWorld:
-    """Programmatic FusedWorld builder (benchmarks, entry points).
+    """Programmatic FusedWorld builder (benchmarks, entry points).  The
+    default scene is the JAX package's: three rectangles, a line and
+    seven landmarks.
 
     Gives a fused grid config the simulator's static 1-degree beam
     spacing, which selects the static bin-units pipeline of the kernel.
     """
-    if icp_config is not None or ekf_config is not None:
-        raise NotImplementedError("ICP and EKF are not ported yet "
-                                  "(ROADMAP Queue 1 item 10)")
     device = torch.device(device)
     if scene is None:
         scene = sim_model.Scene.build(
             rects=[(-1.0, -1.0, 2.0, 2.0), (-0.1, -0.4, 0.5, 0.1),
                    (-0.6, 0.4, 0.2, 0.5)],
-            lines=[(-0.6, -0.4, 0.2, 0.4)], device=device)
+            lines=[(-0.6, -0.4, 0.2, 0.4)],
+            landmarks=[(-1.0, -1.0), (1.0, 1.0), (-0.1, -0.4), (-0.6, 0.4),
+                       (-0.6, -0.4), (0.6, 0.4), (0.6, -0.4)],
+            device=device)
     if params is None:
         params = sim_model.SimParams.make()
     if (grid_config is not None and grid_config.integrate == "fused"
@@ -261,7 +347,8 @@ def make_fused(scene: Optional[sim_model.Scene] = None,
     return FusedWorld(scene=scene, params=params, dt=dt,
                       grid_config=grid_config,
                       control_script=control_script or [[1e9, 0.05, 0.08]],
-                      device=device, num_beams=num_beams)
+                      device=device, num_beams=num_beams,
+                      icp_config=icp_config, ekf_config=ekf_config)
 
 
 def _scan_topic_aliases(config: Config, source_topic: Optional[str],
@@ -301,20 +388,21 @@ def compile_world(config: Config, *, device) -> FusedWorld:
         config, sim_cfg.topic_observation_scanner, "scanner")
     lm_aliases = _scan_topic_aliases(
         config, sim_cfg.topic_observation_landmarks, "landmark")
-    grid_cfg = None
-    for tag, node in config.nodes:
+    grid_cfg = icp_cfg = ekf_cfg = None
+    for _, node in config.nodes:
         if isinstance(node, GridMapSlamNodeConfig):
             if node.topic_observation_odometry in scan_aliases:
                 grid_cfg = node.slam_config()
-        elif ((tag == "IcpPointMapper"
-               and node.get("topic_observation") in scan_aliases)
-              or (tag == "EKFLandmarkSlam"
-                  and node.get("topic_observation_landmark") in lm_aliases)):
-            raise NotImplementedError(f"!{tag} fed by the simulator is not "
-                                      "ported yet (ROADMAP Queue 1 item 10)")
+        elif isinstance(node, IcpPointMapperNodeConfig):
+            if node.topic_observation in scan_aliases:
+                icp_cfg = node.mapper_config()
+        elif isinstance(node, EKFLandmarkSlamNodeConfig):
+            if node.topic_observation_landmark in lm_aliases:
+                ekf_cfg = node.ekf_config()
 
     device = torch.device(device)
     return FusedWorld(scene=sim_cfg.build_scene(device),
                       params=sim_model.SimParams.make(**sim_cfg.parameters),
                       dt=sim_model.DEFAULT_DT, grid_config=grid_cfg,
-                      control_script=script, device=device)
+                      control_script=script, device=device,
+                      icp_config=icp_cfg, ekf_config=ekf_cfg)

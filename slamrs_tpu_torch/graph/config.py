@@ -1,11 +1,11 @@
 """Declarative YAML node-graph configuration, without JAX.
 
 Counterpart of ``slamrs_tpu/graph/config.py`` for the tags the fused
-world reads: ``!Simulator``, ``!GridMapSlam``, ``!Controls`` and
-``!Splitter``.  They are checked for unknown fields as in the JAX
-package.  Every other ``!Tag`` node is parsed and kept as ``(tag, dict)``
-so :func:`slamrs_tpu_torch.graph.compile.compile_world` can tell whether
-it is wired to the simulator.
+world reads: ``!Simulator``, ``!GridMapSlam``, ``!IcpPointMapper``,
+``!EKFLandmarkSlam``, ``!Controls`` and ``!Splitter``.  They are checked
+for unknown fields as in the JAX package.  Every other ``!Tag`` node
+(the host graph's viewers and inputs) is kept as ``(tag, dict)`` and
+ignored by :func:`slamrs_tpu_torch.graph.compile.compile_world`.
 """
 
 from __future__ import annotations
@@ -14,7 +14,9 @@ import dataclasses
 from pathlib import Path
 from typing import Any, Optional
 
+from slamrs_tpu_torch.models import ekf as ekf_model
 from slamrs_tpu_torch.models import gridslam as gs_model
+from slamrs_tpu_torch.models import icp_mapper as icp_model
 from slamrs_tpu_torch.models import simulator as sim_model
 
 
@@ -33,7 +35,7 @@ class SimulatorNodeConfig:
     seed: int = 0
 
     def build_scene(self, device) -> sim_model.Scene:
-        """The ``!Line``/``!Rectangle`` scene (landmarks are EKF-only)."""
+        """The ``!Line``/``!Rectangle`` scene and its ``!Landmark``s."""
         lines, rects = [], []
         for obj in self.scene:
             tag, fields = obj if isinstance(obj, tuple) else (
@@ -46,7 +48,12 @@ class SimulatorNodeConfig:
                               fields["height"]))
             else:
                 raise ValueError(f"unknown scene object {tag!r}")
-        return sim_model.Scene.build(lines=lines, rects=rects, device=device)
+        lms = []
+        for lm in self.landmarks:
+            _, fields = lm if isinstance(lm, tuple) else (lm.get("_tag"), lm)
+            lms.append((fields["x"], fields["y"]))
+        return sim_model.Scene.build(lines=lines, rects=rects, landmarks=lms,
+                                     device=device)
 
 
 @dataclasses.dataclass
@@ -71,6 +78,45 @@ class GridMapSlamNodeConfig:
 
 
 @dataclasses.dataclass
+class IcpPointMapperNodeConfig:
+    topic_pose: str
+    topic_observation: str
+    topic_pointmap: str
+    icp: dict = dataclasses.field(default_factory=dict)
+    capacity: int = 16384
+    voxel_size: Optional[float] = None
+
+    def mapper_config(self) -> icp_model.IcpMapConfig:
+        """``correspondence_weights`` is ``Uniform``, ``!Step {threshold:
+        t}`` (a ``(tag, fields)`` tuple) or a mapping with ``threshold``."""
+        icp = dict(self.icp)
+        weights = icp.pop("correspondence_weights", "Uniform")
+        threshold = None
+        if isinstance(weights, tuple):
+            tag, fields = weights
+            if tag == "Step":
+                threshold = float(fields["threshold"])
+        elif isinstance(weights, dict) and "threshold" in weights:
+            threshold = float(weights["threshold"])
+        return icp_model.IcpMapConfig(
+            capacity=self.capacity,
+            iterations=int(icp.pop("iterations", 10)),
+            step_threshold=threshold,
+            voxel_size=self.voxel_size)
+
+
+@dataclasses.dataclass
+class EKFLandmarkSlamNodeConfig:
+    topic_pose: str
+    topic_observation_landmark: str
+    topic_map: str
+    config: Optional[dict] = None
+
+    def ekf_config(self) -> ekf_model.EkfConfig:
+        return ekf_model.EkfConfig(**(self.config or {}))
+
+
+@dataclasses.dataclass
 class ControlsNodeConfig:
     topic_command: str
     keyboard_enabled: bool = True
@@ -87,6 +133,8 @@ class SplitterNodeConfig:
 NODE_REGISTRY: dict[str, type] = {
     "Simulator": SimulatorNodeConfig,
     "GridMapSlam": GridMapSlamNodeConfig,
+    "IcpPointMapper": IcpPointMapperNodeConfig,
+    "EKFLandmarkSlam": EKFLandmarkSlamNodeConfig,
     "Controls": ControlsNodeConfig,
     "Splitter": SplitterNodeConfig,
 }

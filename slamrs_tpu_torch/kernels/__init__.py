@@ -102,4 +102,9 @@ def library() -> ctypes.CDLL:
                    ci, ctypes.c_longlong,  # maps, bytes per map
                    vp]  # stream
     fn.restype = ci
+    fn = lib.slamrs_nn_argmin
+    fn.argtypes = [vp, vp, vp, vp, vp,  # p, q, q_count, keys, out
+                   ci, ci, ci,  # problems, p lanes, q lanes
+                   vp]  # stream
+    fn.restype = ci
     return lib

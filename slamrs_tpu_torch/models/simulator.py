@@ -1,10 +1,13 @@
-"""Differential-drive robot scene and 360-beam lidar.
+"""Differential-drive robot scene, 360-beam lidar and landmark sensor.
 
 Counterpart of ``slamrs_tpu/models/simulator.py`` (``SimParams.make``,
-``Scene.build``, ``lidar_scan``).  The lidar casts one beam per whole
-degree; a beam that hits nothing is absent (``present`` false), and a
-hit beyond the scanner range is clamped to the range and marked invalid.
-The landmark sensor (EKF only) is not ported.
+``Scene.build``, ``lidar_scan``, ``landmark_scan``).  The lidar casts one
+beam per whole degree; a beam that hits nothing is absent (``present``
+false), and a hit beyond the scanner range is clamped to the range and
+marked invalid.  The landmark sensor sees every scene landmark whose
+*squared* distance is within the scanner range (the reference compares
+the squared distance with the range; kept verbatim), with Gaussian
+bearing and range noise and the landmark's index as its association.
 """
 
 from __future__ import annotations
@@ -14,7 +17,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from slamrs_tpu_torch.core.types import Scan
+from slamrs_tpu_torch.core.types import LandmarkScan, Scan
 from slamrs_tpu_torch.ops import raycast as _raycast
 
 Tensor = torch.Tensor
@@ -46,26 +49,38 @@ class SimParams(NamedTuple):
                          _f32(distance_uncertainty))
 
 
+def _padded(rows, width, device) -> tuple[Tensor, Tensor]:
+    """``rows`` as f32[max(len, 1), width] plus the mask of real rows."""
+    cap = max(len(rows), 1)
+    arr = np.zeros((cap, width), np.float32)
+    if rows:
+        arr[:len(rows)] = np.asarray(rows, np.float32)
+    return (torch.from_numpy(arr).to(device),
+            torch.arange(cap, device=device) < len(rows))
+
+
 class Scene(NamedTuple):
-    """Padded line-segment geometry: f32[S, 4] ``(x1, y1, x2, y2)`` plus a
-    validity mask."""
+    """Padded geometry: line segments f32[S, 4] ``(x1, y1, x2, y2)`` and
+    point landmarks f32[L, 2], each with a validity mask."""
 
     segments: Tensor
     segment_mask: Tensor
+    landmarks: Tensor
+    landmark_mask: Tensor
 
     @staticmethod
-    def build(lines=(), rects=(), device=None) -> "Scene":
-        """lines: (x1, y1, x2, y2); rects: (x, y, w, h), each four segments."""
+    def build(lines=(), rects=(), landmarks=(), device=None) -> "Scene":
+        """lines: (x1, y1, x2, y2); rects: (x, y, w, h), each four
+        segments; landmarks: (x, y)."""
         segs = [tuple(map(float, l)) for l in lines]
         for (x, y, w, h) in rects:
             segs += [(x, y, x + w, y), (x + w, y, x + w, y + h),
                      (x + w, y + h, x, y + h), (x, y + h, x, y)]
-        cap = max(len(segs), 1)
-        arr = np.zeros((cap, 4), np.float32)
-        if segs:
-            arr[:len(segs)] = np.asarray(segs, np.float32)
-        return Scene(segments=torch.from_numpy(arr).to(device),
-                     segment_mask=torch.arange(cap, device=device) < len(segs))
+        lms = [tuple(map(float, l)) for l in landmarks]
+        segments, segment_mask = _padded(segs, 4, device)
+        lm, lm_mask = _padded(lms, 2, device)
+        return Scene(segments=segments, segment_mask=segment_mask,
+                     landmarks=lm, landmark_mask=lm_mask)
 
 
 def lidar_scan(pose: Tensor, scene: Scene, scanner_range: float,
@@ -85,3 +100,34 @@ def lidar_scan(pose: Tensor, scene: Scene, scanner_range: float,
     distances = torch.where(hit, distances, 0.0)
     return Scan(angles=rel, distances=distances,
                 strengths=hit.to(torch.float32), valid=valid, present=hit)
+
+
+def landmark_scan(pose: Tensor, scene: Scene, params: SimParams,
+                  generator: torch.Generator | None = None,
+                  noise_a: Tensor | None = None,
+                  noise_d: Tensor | None = None) -> LandmarkScan:
+    """Noisy range/bearing observations of every scene landmark from
+    ``pose`` (f32[..., 3]).  The bearing noise, then the range noise, are
+    standard normal draws from ``generator``, or ``noise_a``/``noise_d``
+    (f32[..., L]) when given (tests inject the JAX package's draws)."""
+    lx = scene.landmarks[..., 0]
+    ly = scene.landmarks[..., 1]
+    dx = lx - pose[..., 0:1]
+    dy = ly - pose[..., 1:2]
+    dist_sq = dx * dx + dy * dy
+    in_range = dist_sq <= params.scanner_range
+    angle = torch.atan2(dy, dx)
+    n_lanes = scene.landmarks.shape[-2]
+    shape = (*pose.shape[:-1], n_lanes)
+    if noise_a is None:
+        noise_a = torch.randn(shape, generator=generator, device=pose.device)
+    if noise_d is None:
+        noise_d = torch.randn(shape, generator=generator, device=pose.device)
+    return LandmarkScan(
+        angles=angle - pose[..., 2:3] + noise_a * params.angle_uncertainty,
+        distances=torch.sqrt(dist_sq)
+        + noise_d * params.distance_uncertainty,
+        association=torch.broadcast_to(
+            torch.arange(n_lanes, dtype=torch.int32, device=pose.device),
+            shape),
+        valid=in_range & scene.landmark_mask)

@@ -1,13 +1,16 @@
 """Occupancy-grid geometry and the inverse-sensor-model constants.
 
 Counterpart of ``slamrs_tpu/ops/grid.py:43-106`` (constants and
-``GridSpec2D``).  The DDA and dense integrators are not ported yet.
+``GridSpec2D``, with ``world_to_grid`` for the ICP map's voxel gate).
+The DDA and dense integrators are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math as pymath
+
+import torch
 
 # Inverse sensor model constants (same values as the JAX package).
 P_FREE = 0.30
@@ -45,6 +48,14 @@ class GridSpec2D:
     @property
     def shape(self) -> tuple[int, int]:
         return (self.rows, self.cols)
+
+    def world_to_grid(self, xy):
+        """Continuous world coordinates ``f32[..., 2]`` to grid ones (the
+        offsets stay Python floats: a tensor built from them on the card
+        would be a synchronous host copy)."""
+        res = self.resolution
+        return torch.stack([(xy[..., 0] - self.position_x) / res,
+                            (xy[..., 1] - self.position_y) / res], dim=-1)
 
     def max_ray_steps(self, max_range_m: float) -> int:
         """Static bound on DDA steps for rays up to ``max_range_m``."""

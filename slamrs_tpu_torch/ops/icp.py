@@ -1,0 +1,254 @@
+"""Point-to-normal ICP scan matching, fixed iteration count.
+
+Counterpart of ``slamrs_tpu/ops/icp.py``.  Per iteration: transform the
+source points by the accumulated pose, find each one's nearest neighbour
+in the reference cloud, accumulate the 3-DoF Gauss-Newton normal
+equations of the point-to-normal errors, solve them in closed form and
+renormalize the angle.  Normals are central differences of neighbouring
+reference points; weights are uniform or a step on the squared error.
+
+Every function takes leading batch dims, so one call serves a single
+world (``p [Np, 2]``) and a batch of problems (``p [B, Np, 2]``).
+Point clouds are fixed-capacity buffers: reference lanes at or past
+``q_count`` are pushed out of the argmin, masked source lanes get
+weight 0, and the reference's endpoint lanes have zero normals.
+
+Correspondence is K4: :func:`nearest_neighbors_fused` is the wrapper of
+the hand-written CUDA kernel ``csrc/nn_argmin.cu``, which replaces the
+Pallas kernel ``slamrs_tpu/ops/icp.py::nearest_neighbors_fused``.  On a
+CPU tensor it runs :func:`nearest_neighbors_reference`, the plain
+PyTorch version of the same per-pair arithmetic; on a CUDA tensor it
+launches the kernel or raises.  The JAX package's XLA form
+(``icp.py:158``, a ``[Np, Nq]`` distance matrix through device memory)
+has no counterpart in the port: :func:`nearest_neighbors` keeps its
+contract and routes through K4.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import torch
+
+Tensor = torch.Tensor
+
+_BIG = 1e30  # pushes reference lanes at or past q_count out of the argmin
+
+
+class IcpResult(NamedTuple):
+    transformation: Tensor  # f32[..., 3] (x, y, theta)
+    transformed_points: Tensor  # f32[..., Np, 2] source under the final pose
+    chi_values: Tensor  # f32[..., iterations]
+
+
+def rot2(theta: Tensor) -> Tensor:
+    """R(theta), f32[..., 2, 2]."""
+    c, s = torch.cos(theta), torch.sin(theta)
+    return torch.stack([torch.stack([c, -s], -1), torch.stack([s, c], -1)], -2)
+
+
+def drot2(theta: Tensor) -> Tensor:
+    """dR/dtheta, f32[..., 2, 2]."""
+    c, s = torch.cos(theta), torch.sin(theta)
+    return torch.stack([torch.stack([-s, -c], -1), torch.stack([c, -s], -1)],
+                       -2)
+
+
+def transform_points(points: Tensor, x: Tensor) -> Tensor:
+    """R(x2) p + (x0, x1).  points [..., N, 2], x [..., 3]."""
+    return points @ rot2(x[..., 2]).transpose(-1, -2) + x[..., None, 0:2]
+
+
+def compute_normals(q: Tensor, q_count: Tensor) -> Tensor:
+    """Central-difference normals of an ordered point sequence:
+    ``normalize(perp(q[i+1] - q[i-1]))`` for interior lanes, zero at the
+    endpoints and everywhere for sequences shorter than 3.  q [..., Nq, 2],
+    q_count i32[...] real (leading) lanes."""
+    nq = q.shape[-2]
+    diff = torch.roll(q, -1, dims=-2) - torch.roll(q, 1, dims=-2)
+    perp = torch.stack([-diff[..., 1], diff[..., 0]], dim=-1)
+    norm = torch.sqrt(torch.sum(perp * perp, dim=-1, keepdim=True))
+    normal = torch.where(norm > 0.0,
+                         perp / torch.where(norm > 0.0, norm, 1.0), 0.0)
+    idx = torch.arange(nq, device=q.device)
+    qc = q_count[..., None]
+    interior = (idx >= 1) & (idx < qc - 1) & (qc > 2)
+    return torch.where(interior[..., None], normal, 0.0)
+
+
+def nearest_neighbors_reference(p: Tensor, q: Tensor,
+                                q_count: Tensor) -> Tensor:
+    """Plain PyTorch version of K4 (any leading batch dims): per pair
+    ``d2 = q2 - 2 (px qx + py qy)`` with ``q2 = qx qx + qy qy`` plus
+    ``1e30`` on lanes at or past ``q_count``, each product and sum
+    rounded on its own; the first index of the minimum (``torch.argmin``
+    breaks ties to the first), clamped to ``Nq - 1``, and 0 where
+    ``q_count == 0``.  p [..., Np, 2], q [..., Nq, 2] -> i32[..., Np]."""
+    nq = q.shape[-2]
+    qx, qy = q[..., 0], q[..., 1]
+    valid = torch.arange(nq, device=q.device) < q_count[..., None]
+    q2 = qx * qx + qy * qy + torch.where(valid, 0.0, _BIG)
+    px, py = p[..., :, None, 0], p[..., :, None, 1]
+    d2 = q2[..., None, :] - 2.0 * (px * qx[..., None, :]
+                                   + py * qy[..., None, :])
+    idx = torch.clamp_max(torch.argmin(d2, dim=-1), nq - 1).to(torch.int32)
+    return torch.where(q_count[..., None] > 0, idx, 0)
+
+
+def _ptr(t: Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def check_inputs(p: Tensor, q: Tensor, q_count: Tensor) -> None:
+    """What K4 takes: contiguous, 8-byte-aligned f32 ``p [B, Np, 2]`` and
+    ``q [B, Nq, 2]`` with ``Nq > 0`` and contiguous i32 ``q_count [B]``,
+    on one device.  Raises otherwise."""
+    if p.dim() != 3 or q.dim() != 3 or p.shape[-1] != 2 or q.shape[-1] != 2 \
+            or p.shape[0] != q.shape[0]:
+        raise ValueError(f"p and q must be [B, N, 2] of one B, got "
+                         f"{list(p.shape)} and {list(q.shape)}")
+    if q.shape[1] == 0:
+        raise ValueError("q must hold at least one lane")
+    if q.shape[1] >= 2**31 - 1 or p.shape[0] * p.shape[1] >= 2**31:
+        raise ValueError("K4 indexes lanes with 32-bit integers")
+    for name, t in (("p", p), ("q", q)):
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous f32, got {t.dtype}")
+    if q_count.shape != (p.shape[0],) or q_count.dtype != torch.int32 \
+            or not q_count.is_contiguous():
+        raise ValueError(f"q_count must be contiguous i32[{p.shape[0]}], "
+                         f"got {q_count.dtype}{list(q_count.shape)}")
+    for name, t in (("q", q), ("q_count", q_count)):
+        if t.device != p.device:
+            raise ValueError(f"{name} is on {t.device}, p on {p.device}")
+    if p.data_ptr() % 8 or q.data_ptr() % 8:
+        raise ValueError("p and q must be 8-byte aligned (read as float2)")
+
+
+def nearest_neighbors_fused(p: Tensor, q: Tensor, q_count: Tensor) -> Tensor:
+    """Index into q of the closest point for every p lane: p [B, Np, 2],
+    q [B, Nq, 2], q_count i32[B] -> i32[B, Np] (the contract of the
+    JAX package's Pallas kernel).  On CUDA the kernel reads ``q_count``
+    on the device, so the host never waits."""
+    if p.device.type == "cpu":
+        return nearest_neighbors_reference(p, q, q_count)
+    check_inputs(p, q, q_count)
+    if p.device.type != "cuda":
+        raise ValueError(f"nearest_neighbors_fused runs on cuda or cpu, not "
+                         f"{p.device}")
+    return launch_kernel(p, q, q_count)
+
+
+def launch_kernel(p: Tensor, q: Tensor, q_count: Tensor) -> Tensor:
+    """Launch K4 on validated inputs (see :func:`nearest_neighbors_fused`)
+    on the current stream; counts the launch in
+    ``nearest_neighbors_fused.launches``."""
+    from slamrs_tpu_torch import kernels
+
+    lib = kernels.library()
+    b, n_p, nq = p.shape[0], p.shape[1], q.shape[1]
+    out = torch.empty((b, n_p), dtype=torch.int32, device=p.device)
+    # 64-bit (distance key, index) per p lane, merged across q chunks
+    keys = torch.empty((b, n_p), dtype=torch.int64, device=p.device)
+    with torch.cuda.device(p.device):
+        stream = torch.cuda.current_stream(p.device).cuda_stream
+        rc = lib.slamrs_nn_argmin(_ptr(p), _ptr(q), _ptr(q_count), _ptr(keys),
+                                  _ptr(out), b, n_p, nq,
+                                  ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"nn_argmin kernel launch failed: CUDA error {rc}")
+    nearest_neighbors_fused.launches += 1
+    return out
+
+
+nearest_neighbors_fused.launches = 0
+
+
+def nearest_neighbors(p: Tensor, q: Tensor, q_count: Tensor) -> Tensor:
+    """Index into q of the closest point for every p lane, over any
+    leading batch dims (the contract of the JAX package's XLA form):
+    p [..., Np, 2], q [..., Nq, 2], q_count i32[...] -> i32[..., Np].
+    The batch is flattened into K4's ``B``."""
+    batch = p.shape[:-2]
+    out = nearest_neighbors_fused(
+        p.reshape(-1, *p.shape[-2:]).contiguous(),
+        q.reshape(-1, *q.shape[-2:]).contiguous(),
+        q_count.reshape(-1).to(torch.int32).contiguous())
+    return out.reshape(*batch, p.shape[-2])
+
+
+def icp_point_to_normal(p: Tensor, p_mask: Tensor, q: Tensor,
+                        q_count: Tensor, initial_pose: Tensor,
+                        iterations: int = 10,
+                        step_threshold: float | None = None,
+                        pallas_nn: bool = False) -> IcpResult:
+    """Fixed-iteration point-to-normal ICP.
+
+    p f32[..., Np, 2] source points (padded), p_mask bool[..., Np];
+    q f32[..., Nq, 2] reference points (padded, ordered), q_count
+    i32[...]; initial_pose f32[..., 3].  ``step_threshold`` None gives
+    uniform weights, a float the step weight ``e*e < threshold**2``.
+
+    ``pallas_nn`` is kept for the JAX package's signature and changes
+    nothing: in the port every correspondence step goes through K4
+    (:func:`nearest_neighbors`), on the card the kernel.
+    """
+    del pallas_nn
+    q_normals = compute_normals(q, q_count)
+    x = initial_pose
+    chis = []
+    for _ in range(iterations):
+        p_t = transform_points(p, x)
+        corr = nearest_neighbors(p_t, q, q_count).long()
+        take = corr[..., None].expand(*corr.shape, 2)
+        qc = torch.gather(q, -2, take)
+        nc = torch.gather(q_normals, -2, take)
+
+        # e_i = n_i . (R p_i + t - q_i), J_i = n_i^T [I | dR p_i]
+        e = torch.sum(nc * (p_t - qc), dim=-1)
+        d_rp = p @ drot2(x[..., 2]).transpose(-1, -2)
+        jac = torch.cat([nc, torch.sum(nc * d_rp, dim=-1, keepdim=True)], -1)
+
+        if step_threshold is None:
+            w = torch.ones_like(e)
+        else:
+            w = (e * e < step_threshold * step_threshold).to(e.dtype)
+        w = w * p_mask.to(e.dtype)
+
+        h = torch.einsum("...ni,...nj->...ij", jac * w[..., None], jac)
+        g = torch.einsum("...ni,...n->...i", jac, w * e)
+        chis.append(torch.sum(torch.where(p_mask, e * e, 0.0), dim=-1))
+
+        x = x + _pinv_solve(h, -g)
+        theta = torch.atan2(torch.sin(x[..., 2]), torch.cos(x[..., 2]))
+        x = torch.cat([x[..., 0:2], theta[..., None]], dim=-1)
+    return IcpResult(transformation=x,
+                     transformed_points=transform_points(p, x),
+                     chi_values=torch.stack(chis, dim=-1))
+
+
+def _pinv_solve(h: Tensor, b: Tensor, rcond: float = 1e-8) -> Tensor:
+    """Solve the symmetric PSD 3x3 system ``h dx = b`` in closed form:
+    the adjugate (Cramer) solve with a relative Tikhonov floor
+    ``rcond * trace`` on the diagonal, which only acts when ``h`` is
+    numerically singular (``icp.py:256-286``)."""
+    tr = h[..., 0, 0] + h[..., 1, 1] + h[..., 2, 2]
+    lam = (rcond * torch.clamp_min(tr, 1e-30))[..., None, None]
+    a_mat = h + lam * torch.eye(3, dtype=h.dtype, device=h.device)
+
+    a, bb, c = a_mat[..., 0, 0], a_mat[..., 0, 1], a_mat[..., 0, 2]
+    d, e, f = a_mat[..., 1, 1], a_mat[..., 1, 2], a_mat[..., 2, 2]
+    # cofactors of the symmetric matrix [[a, b, c], [b, d, e], [c, e, f]]
+    c00 = d * f - e * e
+    c01 = c * e - bb * f
+    c02 = bb * e - c * d
+    c11 = a * f - c * c
+    c12 = bb * c - a * e
+    c22 = a * d - bb * bb
+    det = a * c00 + bb * c01 + c * c02
+    inv_det = torch.where(torch.abs(det) > 1e-30, 1.0 / det, 0.0)
+    x0 = c00 * b[..., 0] + c01 * b[..., 1] + c02 * b[..., 2]
+    x1 = c01 * b[..., 0] + c11 * b[..., 1] + c12 * b[..., 2]
+    x2 = c02 * b[..., 0] + c12 * b[..., 1] + c22 * b[..., 2]
+    return torch.stack([x0, x1, x2], dim=-1) * inv_det[..., None]

@@ -10,7 +10,10 @@ chip_smoke.py: for the fused updates (K1, K3) the fraction of cells with
 |diff| > 0.01 below 1e-4 and the likelihood within rtol 1e-5 / atol 1e-4
 (the block reduction sums in another order than torch.sum); the copy
 (K2) bitwise; K3 bitwise against K1 on the materialized maps (they run
-the same device code).
+the same device code); the nearest-neighbour indices (K4) bitwise (the
+same float32 arithmetic per pair, nvcc with ``--fmad=false``).  One ICP
+mapper update on the card against the same on the CPU: pose and points
+within 1e-5 m (the normal equations' sums run in another order).
 """
 
 import math
@@ -19,7 +22,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from slamrs_tpu_torch.ops import cow, fused, tiles  # noqa: E402
+from slamrs_tpu_torch.ops import cow, fused, icp, tiles  # noqa: E402
 from slamrs_tpu_torch.ops.grid import GridSpec2D  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -213,3 +216,80 @@ def test_new_wrappers_check_inputs(dev):
         cow.cow_copy(grids, src, dst, n.long())
     with pytest.raises(ValueError, match="on cpu"):
         cow.cow_copy(grids, src.cpu(), dst, n)
+
+
+def _nn_inputs(dev, case):
+    """chip_smoke.py's K4 input sets, smaller where they were large."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    if case == "bench":
+        ang = torch.linspace(0, 2 * math.pi, 361, device=dev)[:360]
+        r = 0.5 + 0.5 * torch.rand(360, 1, generator=g, device=dev)
+        q = (torch.stack([torch.cos(ang), torch.sin(ang)], -1) * r)
+        q = q.expand(64, 360, 2).contiguous()
+        p = (q + (torch.rand(64, 1, 2, generator=g, device=dev) - 0.5)
+             * 0.1).contiguous()
+        return p, q, torch.full((64,), 360, dtype=torch.int32, device=dev)
+    if case.startswith("mapper"):
+        p = torch.rand(1, 360, 2, generator=g, device=dev) * 2 - 1
+        q = torch.rand(1, 16384, 2, generator=g, device=dev) * 2 - 1
+        qc = int(case.split("_")[1])
+        return p, q, torch.full((1,), qc, dtype=torch.int32, device=dev)
+    if case == "duplicates":
+        q = (torch.rand(4, 96, 2, generator=g, device=dev) * 2 - 1
+             ).repeat_interleave(4, dim=1)
+        p = torch.rand(4, 360, 2, generator=g, device=dev) * 2 - 1
+        return p, q, torch.full((4,), 384, dtype=torch.int32, device=dev)
+    far = torch.tensor([1000.0, -2000.0], device=dev)
+    return (far + torch.rand(8, 360, 2, generator=g, device=dev),
+            far + torch.rand(8, 4096, 2, generator=g, device=dev),
+            torch.tensor([4096, 4000, 3000, 2048, 1000, 100, 7, 4096],
+                         dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize("case", ["bench", "mapper_0", "mapper_1",
+                                  "mapper_360", "mapper_10000",
+                                  "mapper_16384", "duplicates", "far"])
+def test_nn_argmin_matches_plain(dev, case):
+    p, q, qc = _nn_inputs(dev, case)
+    before = icp.nearest_neighbors_fused.launches
+    got = icp.nearest_neighbors_fused(p, q, qc)
+    torch.cuda.synchronize()
+    assert icp.nearest_neighbors_fused.launches == before + 1
+    assert got.dtype == torch.int32 and got.shape == p.shape[:2]
+    assert torch.equal(got, icp.nearest_neighbors_reference(p, q, qc))
+    if case == "duplicates":
+        assert bool((got % 4 == 0).all())  # ties go to the first copy
+    if case == "mapper_0":
+        assert not got.any()
+
+
+def test_nn_argmin_checks_inputs(dev):
+    p, q, qc = _nn_inputs(dev, "duplicates")
+    with pytest.raises(ValueError, match="q_count"):
+        icp.nearest_neighbors_fused(p, q, qc.long())
+    with pytest.raises(ValueError, match="contiguous f32"):
+        icp.nearest_neighbors_fused(p.double(), q, qc)
+    with pytest.raises(ValueError, match="on cpu"):
+        icp.nearest_neighbors_fused(p, q, qc.cpu())
+
+
+def test_icp_mapper_update_matches_cpu(dev):
+    from slamrs_tpu_torch.models import icp_mapper
+    from slamrs_tpu_torch.models.simulator import Scene, lidar_scan
+
+    scene = Scene.build(rects=[(-1.0, -1.0, 2.0, 2.0),
+                               (-0.1, -0.4, 0.5, 0.1)],
+                        lines=[(-0.6, -0.4, 0.2, 0.4)], device="cpu")
+    cfg = icp_mapper.IcpMapConfig(step_threshold=0.05)
+    states = {d: icp_mapper.IcpMapState.init(cfg, d) for d in ("cpu", dev)}
+    for k in range(3):
+        pose = torch.tensor([0.02 * k, 0.01 * k, 0.05 * k])
+        scan = lidar_scan(pose, scene, 1.0)
+        for d in states:
+            states[d], _ = icp_mapper.update(
+                states[d], type(scan)(*(x.to(d) for x in scan)), cfg)
+    card, cpu = states[dev], states["cpu"]
+    assert int(card.count) == int(cpu.count) > 0
+    torch.testing.assert_close(card.pose.cpu(), cpu.pose, atol=1e-5, rtol=0)
+    torch.testing.assert_close(card.points.cpu(), cpu.points, atol=1e-5,
+                               rtol=0)

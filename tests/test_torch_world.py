@@ -11,6 +11,18 @@ the TPU kernel's polynomial).  Also: the same through ``make_fused``
 (static beam spacing), a rollout continued by both packages from the
 JAX package's state carried over by ``slamrs_tpu_torch.convert``, the
 YAML parse, the CLI, and import hygiene.
+
+The ICP and EKF worlds (``make_fused`` with the JAX package's default
+scene, 90 ticks): the ICP mapper's pose per frame within 1e-4 m of the
+JAX package's (the solves' sum order moves it by up to ~4e-5 m over 14
+frames, measured on the CPU); the EKF's pose, with the JAX package's
+landmark draws injected, within the reference's own EKF gate of 1e-3 m
+(``tests/test_parity.py``): the free-running filter is chaotic in
+float32 (``tests/test_torch_ekf.py``), and gaps of ~6e-4 m were measured
+on the CPU.  A frame continued from the JAX package's state, carried
+over by ``convert.py``, holds both to 1e-5 m.  Both presets
+(``configs/icp_test.yaml``, ``configs/landmarks.yaml``) compile to the
+JAX package's configs and scenes.
 """
 
 import dataclasses
@@ -30,13 +42,19 @@ torch.set_num_threads(1)
 
 from slamrs_tpu.graph import compile as jcompile  # noqa: E402
 from slamrs_tpu.graph.config import load_config as jload  # noqa: E402
+from slamrs_tpu.models import ekf as jekf  # noqa: E402
+from slamrs_tpu.models import icp_mapper as jmap  # noqa: E402
 from slamrs_tpu_torch import convert  # noqa: E402
 from slamrs_tpu_torch.__main__ import main as cli_main  # noqa: E402
 from slamrs_tpu_torch.graph import compile as tcompile  # noqa: E402
 from slamrs_tpu_torch.graph.config import load_config as tload  # noqa: E402
+from slamrs_tpu_torch.models import ekf as tekf  # noqa: E402
+from slamrs_tpu_torch.models import icp_mapper as tmap  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 YAML = str(ROOT / "configs" / "grid_slam_fused.yaml")
+ICP_YAML = str(ROOT / "configs" / "icp_test.yaml")
+EKF_YAML = str(ROOT / "configs" / "landmarks.yaml")
 P = 16
 TICKS = 60
 
@@ -106,8 +124,7 @@ def test_state_carried_over_from_jax():
     """JAX runs 3 frames; its state crosses through convert.py; both
     packages continue 3 more frames from it."""
     jw, tw = _worlds("compile_world")
-    tw.scene = convert.scene_from_numpy(np.asarray(jw.scene.segments),
-                                        np.asarray(jw.scene.segment_mask),
+    tw.scene = convert.scene_from_numpy(*(np.asarray(x) for x in jw.scene),
                                         "cpu")
     first, rest = 19, 19  # 3 scan frames each from these timers
     jst, _ = jw.rollout_cadence(jw.init(), first, seed=0, initial_timer=0.0)
@@ -180,14 +197,16 @@ def test_compile_world_carries_resample_cow_tiled():
 
 
 def test_unported_nodes_raise():
+    """Grid SLAM's dda and dense integrators are the paths of the world
+    still to port: a world that asks for one raises when it is built."""
     from slamrs_tpu_torch.graph.config import parse_config
 
-    text = Path(YAML).read_text() + (
-        "\n- !IcpPointMapper\n  topic_observation: \"robot/observation\"\n")
+    text = Path(YAML).read_text().replace('integrate: "fused"',
+                                          'integrate: "dda"')
+    assert text != Path(YAML).read_text()
+    fw = tcompile.compile_world(parse_config(text), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcompile.compile_world(parse_config(text), device="cpu")
-    with pytest.raises(NotImplementedError):
-        tcompile.make_fused(ekf_config=object(), device="cpu")
+        fw.init()
 
 
 def test_rollout_and_cadence_agree_without_noise():
@@ -234,3 +253,148 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) >= 18  # every module was imported
+
+
+def _fire_ticks(jw, n_steps, timer):
+    dt, period = np.float32(jw.dt), np.float32(jw.params.update_period)
+    timer = np.float32(timer)
+    fire = []
+    for i in range(n_steps):
+        timer = np.float32(timer + dt)
+        if timer > period:
+            fire.append(i)
+            timer = np.float32(timer - period)
+    return np.array(fire)
+
+
+def _jax_landmark_noise(jw, n_steps, seed, timer=0.0):
+    """The landmark draws of JAX's rollout_cadence (``k_lm`` of each scan
+    tick's key, split into bearing and range keys), as numpy."""
+    keys = jax.random.split(jax.random.key(seed), n_steps)[
+        _fire_ticks(jw, n_steps, timer)]
+    lanes = jw.scene.landmarks.shape[0]
+
+    def one(key):
+        k1, k2 = jax.random.split(jax.random.split(key)[0])
+        return (jax.random.normal(k1, (lanes,)),
+                jax.random.normal(k2, (lanes,)))
+
+    return tuple(np.array(x) for x in jax.vmap(one)(keys))
+
+
+def _icp_ekf_worlds():
+    jw = jcompile.make_fused(
+        icp_config=jmap.IcpMapConfig(capacity=2048, step_threshold=0.05),
+        ekf_config=jekf.EkfConfig())
+    tw = tcompile.make_fused(
+        icp_config=tmap.IcpMapConfig(capacity=2048, step_threshold=0.05),
+        ekf_config=tekf.EkfConfig(), device="cpu")
+    return jw, tw
+
+
+def test_icp_ekf_world_matches_jax():
+    jw, tw = _icp_ekf_worlds()
+    for name in ("segments", "segment_mask", "landmarks", "landmark_mask"):
+        np.testing.assert_array_equal(getattr(tw.scene, name).numpy(),
+                                      np.asarray(getattr(jw.scene, name)))
+    ticks = 90
+    jst, jo = jw.rollout_cadence(jw.init(), ticks, seed=0, initial_timer=0.0)
+    tst, to = tw.rollout_cadence(
+        tw.init(), ticks, seed=0,
+        landmark_noise=_jax_landmark_noise(jw, ticks, 0))
+    assert to.grid_pose is None and to.n_eff is None
+    assert to.icp_pose.shape == (14, 3) == to.ekf_pose.shape
+    np.testing.assert_allclose(to.pose.numpy(), np.asarray(jo.pose),
+                               atol=1e-5)
+    np.testing.assert_allclose(to.icp_pose.numpy(), np.asarray(jo.icp_pose),
+                               atol=1e-4, rtol=0)
+    np.testing.assert_allclose(to.ekf_pose.numpy(), np.asarray(jo.ekf_pose),
+                               atol=1e-3, rtol=0)
+    assert int(tst.icp.count) == int(jst.icp.count) == 2048  # map full
+    np.testing.assert_array_equal(tst.ekf.seen.numpy(),
+                                  np.asarray(jst.ekf.seen))
+
+
+def test_icp_ekf_state_carried_over_from_jax():
+    """JAX runs 3 frames; its ICP and EKF states cross through
+    convert.py; both packages continue 1 more frame from them."""
+    jw, tw = _icp_ekf_worlds()
+    jst, _ = jw.rollout_cadence(jw.init(), 19, seed=0, initial_timer=0.0)
+    i, e = jst.icp, jst.ekf
+    tst = convert.world_state_from_numpy(
+        np.asarray(jst.pose), np.asarray(jst.accum_left),
+        np.asarray(jst.accum_right), np.asarray(jst.scan_timer),
+        np.asarray(jst.scan_counter), None, "cpu",
+        icp=convert.icp_state_from_numpy(
+            *(np.asarray(x) for x in i), "cpu"),
+        ekf=convert.ekf_state_from_numpy(
+            *(np.asarray(x) for x in e), "cpu"))
+    assert int(tst.icp.count) == int(i.count) and tst.scan_counter == 3
+    timer = float(jst.scan_timer)
+    jst2, jo2 = jw.rollout_cadence(jst, 7, seed=1, initial_timer=timer)
+    tst2, to2 = tw.rollout_cadence(
+        tst, 7, seed=1, landmark_noise=_jax_landmark_noise(jw, 7, 1, timer))
+    assert to2.icp_pose.shape[0] == 1
+    np.testing.assert_allclose(to2.icp_pose.numpy(), np.asarray(jo2.icp_pose),
+                               atol=1e-5, rtol=0)
+    np.testing.assert_allclose(to2.ekf_pose.numpy(), np.asarray(jo2.ekf_pose),
+                               atol=1e-5, rtol=0)
+    np.testing.assert_allclose(tst2.icp.points.numpy(),
+                               np.asarray(jst2.icp.points), atol=1e-5, rtol=0)
+    assert int(tst2.icp.count) == int(jst2.icp.count)
+    np.testing.assert_allclose(tst2.ekf.mean.numpy(),
+                               np.asarray(jst2.ekf.mean), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("yaml", [ICP_YAML, EKF_YAML],
+                         ids=["icp_test", "landmarks"])
+def test_compile_world_icp_ekf_presets_match_jax(yaml):
+    jw = jcompile.compile_world(jload(yaml))
+    tw = tcompile.compile_world(tload(yaml), device="cpu")
+    for name in ("grid_config", "icp_config", "ekf_config"):
+        tc, jc = getattr(tw, name), getattr(jw, name)
+        assert (tc is None) == (jc is None), name
+        if tc is not None:
+            assert dataclasses.asdict(tc) == dataclasses.asdict(jc)
+    assert (tw.icp_config is None) == (yaml == EKF_YAML)
+    for name in ("segments", "segment_mask", "landmarks", "landmark_mask"):
+        np.testing.assert_array_equal(getattr(tw.scene, name).numpy(),
+                                      np.asarray(getattr(jw.scene, name)))
+    for name in tw.params._fields:
+        assert np.float32(getattr(tw.params, name)) == \
+            np.asarray(getattr(jw.params, name))
+    assert tw.control_script == jw.control_script
+
+
+@pytest.mark.parametrize("injected", [False, True],
+                         ids=["generator", "injected"])
+def test_icp_ekf_rollout_and_cadence_agree(injected):
+    """Per tick and per frame, the same draws (the seeded generator's, or
+    per-frame landmark draws handed to both) give the same frames; on
+    idle ticks each filter's previous estimate is carried."""
+    _, tw = _icp_ekf_worlds()
+    rng = np.random.default_rng(9)
+    draws = (tuple(rng.normal(size=(3, 7)).astype(np.float32)
+                   for _ in range(2)) if injected else None)
+    s1, o1 = tw.rollout(tw.init(), 20, seed=4, landmark_noise=draws)
+    s2, o2 = tw.rollout_cadence(tw.init(), 20, seed=4, landmark_noise=draws)
+    fired = o1.fired
+    assert int(fired.sum()) == o2.fired.shape[0] == 3
+    for name in ("icp_pose", "ekf_pose"):
+        torch.testing.assert_close(getattr(o1, name)[fired],
+                                   getattr(o2, name), atol=1e-6, rtol=0)
+        per_tick = getattr(o1, name)
+        first = int(torch.nonzero(fired)[0])
+        torch.testing.assert_close(per_tick[first + 1],
+                                   per_tick[first])  # carried
+    torch.testing.assert_close(s1.ekf.mean, s2.ekf.mean, atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("yaml,key", [(ICP_YAML, "icp_pose_rmse_xy"),
+                                      (EKF_YAML, "ekf_pose_rmse_xy")],
+                         ids=["icp_test", "landmarks"])
+def test_cli_reports_icp_and_ekf_rmse(yaml, key, capsys):
+    cli_main(["rollout", yaml, "--steps", "14", "--device", "cpu"])
+    report = json.loads(capsys.readouterr().out)
+    assert report["scans"] == 2 and np.isfinite(report[key])
+    assert "grid_pose_rmse_xy" not in report
