@@ -12,9 +12,11 @@ Phases, each printing one line, any failure raising (exit code != 0):
 2. build: compiles the CUDA kernels from ``slamrs_tpu_torch/csrc``;
 3. kernel vs plain version at ``[1024, 80, 128]`` bf16 (0.05 m) and
 4. at ``[1024, 200, 256]`` bf16 (0.02 m): static and traced beam
-   spacing, the 360-beam scan and a 90-beam partial sector with mixed
-   flags, non-identity ancestors, maps holding log-odds with ~30 % exact
-   zeros.  Gates: fraction of cells with |diff| > 0.01 below 1e-4, the
+   spacing, the 360-beam scan, a 90-beam partial sector with mixed flags,
+   and a 360-beam scan with a third of its beams out to 5 m (past the
+   1 m range and the quantizer's cap) and six poses on the grid's column
+   and row edges; non-identity ancestors, maps holding log-odds with
+   ~30 % exact zeros.  Gates: maps equal by value (max |diff| 0), the
    likelihood within rtol 1e-5 / atol 1e-4, one launch counted per call;
 5. the main path: ``make_fused`` with the ``configs/grid_slam_fused.yaml``
    values (1,024 particles, 4 x 4 m at 0.05 m, bf16) runs
@@ -39,13 +41,18 @@ a 2.1 GB dense map set, or a 2.35 GB tile pool):
    of peaked weights, and the identity plan; gate: bitwise;
 8. K3 (tiled update) against its plain version on the config-3 pool
    ``[20480, 56, 1024]``, 3 updates with lineage relabels, static and
-   traced spacing, 360 beams and a 90-beam sector, two poses pinned to
-   the y-edges; then the same at 4 x 4 m, 0.02 m (a 3-band span).  Gates:
-   flip fraction < 1e-4 on the materialized maps, likelihood rtol 1e-5 /
+   traced spacing, 360 beams, a 90-beam sector, and the over-range scan
+   with poses on the column and row edges; two poses pinned to the
+   y-edges throughout; then the same at 4 x 4 m, 0.02 m (a 3-band span).
+   Gates: materialized maps equal by value, likelihood rtol 1e-5 /
    atol 1e-4, tables equal, padded column tail exactly 0;
-9. on one set of config-3 inputs, K1 in lineage mode and in place
-   against its plain version (flip and likelihood gates), then K3
-   against both K1 modes: maps and likelihood bitwise;
+9. on config-3 inputs within the range and over it (edge poses), K1 in
+   lineage mode and in place against its plain version (maps equal by
+   value, likelihood gate), then K3 against both K1 modes: maps and
+   likelihood bitwise, over the range for every particle whose dense
+   and tiled windows start on the same row (at the top edge the tiled
+   origin clips into the band padding, so over-range beams mark other
+   rows there, in both packages);
 10. config-3 rollouts of 300 ticks through ``make_fused``: auto (tiled,
     K3 once per frame, K1 never), pinned deferred (``resample_cow=
     "staged", fused_resident=True``: K1 lineage; best pose within 1e-5 m
@@ -85,14 +92,15 @@ then ICP odometry (BASELINE config 1) and EKF landmark SLAM:
 
 Every kernel's bound is the larger of the bytes it must move at
 3.35 TB/s and its float32 operations at 67 TFLOP/s (the published H100
-SXM peaks), from this run's inputs.  No cell outside the scan disc
-changes, so an update must touch only the disc's cells: fresh output
-maps (K1 lineage mode) and privatized bands (K3) are moved whole, maps
-updated in place only on the disc, and operations count disc cells.  The
-full-width window the kernels compute is printed beside it as the cost
-of the current design, not as a bound.  The line before the last is the
-card's name and power limit; the last line is
-``{"ok": true, "device": {...}}``.
+SXM peaks), from this run's inputs.  No cell outside the scan disc's box
+(``ops/fused.cell_pass_box``, from this run's beams) changes, so an
+update must touch only the box's cells inside the logical grid: fresh
+output maps (K1 lineage mode) and privatized bands (K3) are moved whole,
+maps updated in place only on the box, and operations count box cells.
+The kernels compute that box widened to 16-byte columns (``box_cells``),
+printed beside the window's cells with its cost at the same peaks
+(``box_design_cost``).  The line before the last is the card's name and
+power limit; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -105,7 +113,6 @@ import sys
 import time
 from pathlib import Path
 
-FLIP_GATE = 1e-4
 LIK_RTOL, LIK_ATOL = 1e-5, 1e-4
 RMSE_GATE_M = 0.08
 DEFERRED_GATE_M = 1e-5
@@ -138,8 +145,9 @@ def gpu_info() -> str:
     return out.strip().splitlines()[0]
 
 
-def kernel_case(torch, fused, spec, p, seed, num_beams, static):
-    """Random inputs at the main path's shapes (made on the card)."""
+def kernel_case(torch, fused, spec, p, seed, num_beams, static, far=False):
+    """Random inputs at the main path's shapes (made on the card); with
+    ``far``, a third of the beams out to 5 m and poses on the edges."""
     dev = "cuda"
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
@@ -159,6 +167,9 @@ def kernel_case(torch, fused, spec, p, seed, num_beams, static):
         present[350:] = False
     else:  # partial sector: mixed present/valid flags
         present = torch.rand(num_beams, generator=g, device=dev) < 0.85
+    if far:
+        far_beams(torch, dist, g)
+        edge_poses(poses, spec)
     dphi = math.radians(1.0) if static else \
         torch.tensor(math.radians(1.0), dtype=torch.float32, device=dev)
     angles0 = torch.tensor(0.1, dtype=torch.float32, device=dev)
@@ -166,14 +177,33 @@ def kernel_case(torch, fused, spec, p, seed, num_beams, static):
             1.0), dict(ancestors=ancestors, dphi=dphi)
 
 
+def far_beams(torch, dist, g):
+    """A third of the beams out to 5 m: past the 1 m range and, at
+    0.05 m cells, past the quantizer's cap of 511 x 0.125 cells."""
+    dist[::3] = 1.0 + 4.0 * torch.rand(dist[::3].shape, generator=g,
+                                       device=dist.device)
+
+
+def edge_poses(poses, spec):
+    """Six poses on the grid's column and row edges and corners."""
+    x0, y0 = spec.position_x + 0.01, spec.position_y + 0.01
+    x1 = spec.position_x + spec.width - 0.01
+    y1 = spec.position_y + spec.height - 0.01
+    poses[0, 0], poses[1, 0], poses[2, 1], poses[3, 1] = x0, x1, y0, y1
+    poses[4, 0], poses[4, 1], poses[5, 0], poses[5, 1] = x0, y0, x1, y1
+
+
+SCANS = ((360, False), (90, False), (360, True))  # (beams, far)
+
+
 def check_kernel(torch, fused, spec, label):
     """Kernel against its plain version on the same inputs; returns the
     worst absolute error."""
     worst = 0.0
-    for num_beams in (360, 90):
+    for num_beams, far in SCANS:
         for static in (True, False):
             args, kw = kernel_case(torch, fused, spec, 1024, 7 + num_beams,
-                                   num_beams, static)
+                                   num_beams, static, far)
             before = fused.fused_update.launches
             g_k, l_k = fused.fused_update(*args, **kw)
             torch.cuda.synchronize()
@@ -188,13 +218,13 @@ def check_kernel(torch, fused, spec, label):
             worst = max(worst, float(diff.max()), lik_err)
             emit({"phase": f"kernel_vs_plain_{label}",
                   "shape": list(args[0].shape), "beams": num_beams,
-                  "dphi": "static" if static else "traced",
+                  "far": far, "dphi": "static" if static else "traced",
                   "flip_fraction": flip, "lik_max_abs_err": lik_err,
                   "grid_max_abs_err": float(diff.max())})
-            if not (flip < FLIP_GATE and ok_lik):
+            if not (float(diff.max()) == 0.0 and ok_lik):
                 raise AssertionError(f"kernel disagrees with its plain "
                                      f"version ({label}, {num_beams} beams, "
-                                     f"static={static})")
+                                     f"far={far}, static={static})")
     return worst
 
 
@@ -308,25 +338,33 @@ def fused_bound(nbytes, cells):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def disc_extent(torch, spec, prep):
-    """Per particle, the scan disc's bounding square clipped to the
-    logical grid: first row, end row (exclusive) and column count.  No
-    cell outside it can change, so it is what an update must touch."""
+def disc_extent(torch, spec, prep, cols):
+    """Per particle, the scan disc's box (``ops/fused.cell_pass_box``, the
+    same definition the kernels compute) clipped to the logical grid:
+    first map row, end row (exclusive) and column count.  No cell outside
+    it can change, so it is what an update must touch."""
     from slamrs_tpu_torch.ops import fused
 
-    dh = fused.disc_half(spec, 1.0)
-    cx = torch.floor(prep.pp[:, 0]).long()
-    cy = torch.floor(prep.pp[:, 1]).long()
-    ncols = (torch.clamp(cx + dh + 1, max=spec.cols)
-             - torch.clamp(cx - dh, min=0)).clamp_min(0)
-    y0 = torch.clamp(cy - dh, min=0)
-    y1 = torch.maximum(torch.clamp(cy + dh + 1, max=spec.rows), y0)
-    return y0, y1, ncols
+    y0, y1, x0, x1 = (v.long() for v in fused.cell_pass_box(prep, cols))
+    r0 = prep.r0.long()
+    top = r0 + y0
+    end = torch.maximum(torch.clamp(r0 + y1, max=spec.rows), top)
+    ncols = (torch.clamp(x1, max=spec.cols) - x0).clamp_min(0)
+    return top, end, ncols
 
 
-def disc_cells(torch, spec, prep):
-    y0, y1, ncols = disc_extent(torch, spec, prep)
+def disc_cells(torch, spec, prep, cols):
+    y0, y1, ncols = disc_extent(torch, spec, prep, cols)
     return int(((y1 - y0) * ncols).sum())
+
+
+def box_cells(torch, prep, cols, elem_bytes):
+    """Cells the kernels' box pass computes: the box widened to 16-byte
+    columns."""
+    from slamrs_tpu_torch.ops import fused
+
+    y0, y1, x0, x1 = fused.cell_pass_box(prep, cols, 16 // elem_bytes)
+    return int(((y1 - y0).long() * (x1 - x0).long()).sum())
 
 
 def cow_bytes(torch, grids, src, n_copies):
@@ -428,9 +466,10 @@ def tiled_pool(torch, tiles, spec, p, seed):
     return pool, table
 
 
-def tiled_step_inputs(torch, spec, p, g, num_beams, static):
+def tiled_step_inputs(torch, spec, p, g, num_beams, static, far=False):
     """Poses across the map (two pinned to the y-edges), a scan, and a
-    sorted pending lineage."""
+    sorted pending lineage; with ``far``, a third of the beams out to 5 m
+    and six poses on the column and row edges."""
     lo = torch.tensor([spec.position_x + 0.3, spec.position_y + 0.3, -math.pi],
                       device="cuda")
     ext = torch.tensor([spec.width - 0.6, spec.height - 0.6, 2 * math.pi],
@@ -445,6 +484,9 @@ def tiled_step_inputs(torch, spec, p, g, num_beams, static):
         present[350:] = False
     else:
         present = torch.rand(num_beams, generator=g, device="cuda") < 0.85
+    if far:
+        far_beams(torch, dist, g)
+        edge_poses(poses, spec)
     dphi = math.radians(1.0) if static else \
         torch.tensor(math.radians(1.0), dtype=torch.float32, device="cuda")
     anc = torch.sort(torch.randint(0, p, (p,), generator=g, device="cuda",
@@ -476,7 +518,7 @@ def check_tiled(torch, spec, label, n_updates=3):
     from slamrs_tpu_torch.ops import tiles
 
     worst = 0.0
-    for num_beams in (360, 90):
+    for num_beams, far in SCANS:
         for static in (True, False):
             g = torch.Generator(device="cuda").manual_seed(31 + num_beams)
             pool_k, table_k = tiled_pool(torch, tiles, spec, 1024, 41)
@@ -484,7 +526,7 @@ def check_tiled(torch, spec, label, n_updates=3):
             kspan = tiles.span_of(spec, 1.0, pool_k.shape[1])
             for step in range(n_updates):
                 args, dphi, anc = tiled_step_inputs(torch, spec, 1024, g,
-                                                    num_beams, static)
+                                                    num_beams, static, far)
                 before = tiles.fused_update_tiled.launches
                 _, table_k, l_k = tiles.fused_update_tiled(
                     pool_k, table_k, *args, dphi=dphi, ancestors=anc)
@@ -501,7 +543,7 @@ def check_tiled(torch, spec, label, n_updates=3):
                 flip, grid_err, tail_zero = compare_tiled(
                     torch, tiles, pool_k, table_k, pool_p, table_p, spec)
                 lik_err = float((l_k - l_p).abs().max())
-                ok = (flip < FLIP_GATE and tail_zero
+                ok = (grid_err == 0.0 and tail_zero
                       and bool(torch.equal(table_k, table_p))
                       and bool(torch.allclose(l_k, l_p, rtol=LIK_RTOL,
                                               atol=LIK_ATOL)))
@@ -509,7 +551,7 @@ def check_tiled(torch, spec, label, n_updates=3):
                 emit({"phase": f"kernel_vs_plain_tiled_{label}",
                       "pool": list(pool_k.shape),
                       "table": list(table_k.shape), "kspan": kspan,
-                      "beams": num_beams,
+                      "beams": num_beams, "far": far,
                       "dphi": "static" if static else "traced",
                       "update": step, "flip_fraction": flip,
                       "grid_max_abs_err": grid_err,
@@ -519,23 +561,25 @@ def check_tiled(torch, spec, label, n_updates=3):
                 if not ok:
                     raise AssertionError(f"tiled kernel disagrees with its "
                                          f"plain version ({label}, "
-                                         f"{num_beams} beams, "
+                                         f"{num_beams} beams, far={far}, "
                                          f"static={static}, update {step})")
             del pool_k, pool_p
     return worst
 
 
-def check_k3_vs_k1(torch, spec):
-    """On the same config-3 inputs: K1 (lineage mode, and in place on the
-    relabelled maps) against its plain version under the flip and
-    likelihood gates, then K3 on the tiled state against both K1 modes on
-    the materialized maps, bitwise.  Returns K1's worst absolute error
-    against its plain version."""
+def check_k3_vs_k1(torch, spec, far):
+    """On the same config-3 inputs (``far``: beams past the range, poses
+    on the edges): K1 (lineage mode, and in place on the relabelled maps)
+    against its plain version, maps equal by value and the likelihood
+    gate, then K3 on the tiled state against both K1 modes on the
+    materialized maps, bitwise; with ``far`` only where the dense and
+    tiled windows start on the same row.  Returns K1's worst absolute
+    error against its plain version."""
     from slamrs_tpu_torch.ops import fused, tiles
 
     g = torch.Generator(device="cuda").manual_seed(51)
     pool, table = tiled_pool(torch, tiles, spec, 1024, 52)
-    args, dphi, anc = tiled_step_inputs(torch, spec, 1024, g, 360, True)
+    args, dphi, anc = tiled_step_inputs(torch, spec, 1024, g, 360, True, far)
     dense = tiles.materialize(pool, table, spec).contiguous()
     g_lin, l_lin = fused.fused_update(dense, *args, ancestors=anc, dphi=dphi)
     p_lin, pl_lin = fused.fused_update_reference(dense, *args, dphi=dphi,
@@ -553,26 +597,36 @@ def check_k3_vs_k1(torch, spec):
         ok_lik = bool(torch.allclose(l_k, l_p, rtol=LIK_RTOL, atol=LIK_ATOL))
         worst = max(worst, grid_err, lik_err)
         emit({"phase": "kernel_vs_plain_k1_config3", "mode": mode,
-              "shape": list(g_k.shape), "flip_fraction": flip,
+              "far": far, "shape": list(g_k.shape), "flip_fraction": flip,
               "grid_max_abs_err": grid_err, "lik_max_abs_err": lik_err})
-        if not (flip < FLIP_GATE and ok_lik):
+        if not (grid_err == 0.0 and ok_lik):
             raise AssertionError(f"K1 ({mode}) disagrees with its plain "
-                                 f"version at config 3")
+                                 f"version at config 3 (far={far})")
     del p_lin, p_in
+    same = fused.prepare(spec.rows, g_lin.shape[2], *args[:5], spec, 360,
+                         1.0, dphi).r0 == tiles.plan_step(
+        pool, table, *args, dphi=dphi, ancestors=anc).prep.r0
+    if not far:
+        same[:] = True
     _, table_k, l_k = tiles.fused_update_tiled(pool, table, *args, dphi=dphi,
                                                ancestors=anc)
     torch.cuda.synchronize()
     maps_equal = True
     for c in range(0, 1024, 128):
         m = tiles.materialize(pool, table_k[c:c + 128], spec)
-        maps_equal &= bool(torch.equal(m, g_lin[c:c + 128]))
-        maps_equal &= bool(torch.equal(m, g_in[c:c + 128]))
-    lik_equal = bool(torch.equal(l_k, l_lin) and torch.equal(l_k, l_in))
-    emit({"phase": "k3_vs_k1_config3", "maps_bitwise_equal": maps_equal,
+        sel = same[c:c + 128]
+        maps_equal &= bool(torch.equal(m[sel], g_lin[c:c + 128][sel]))
+        maps_equal &= bool(torch.equal(m[sel], g_in[c:c + 128][sel]))
+    lik_equal = bool(torch.equal(l_k[same], l_lin[same])
+                     and torch.equal(l_k[same], l_in[same]))
+    emit({"phase": "k3_vs_k1_config3", "far": far,
+          "maps_bitwise_equal": maps_equal,
           "lik_equal": lik_equal, "maps": list(g_lin.shape),
+          "particles_compared": int(same.sum()),
           "pool": list(pool.shape)})
     if not (maps_equal and lik_equal):
-        raise AssertionError("K3 and K1 disagree on the same inputs")
+        raise AssertionError(f"K3 and K1 disagree on the same inputs "
+                             f"(far={far})")
     return worst
 
 
@@ -689,17 +743,22 @@ def time_config3(torch):
                                                           spec, 360))
     k1_plain = time_call(torch, lambda: fused.plain_update(grids, prep, spec,
                                                            360))
-    # in place only the disc's cells change: read and write them once
+    # in place only the disc's cells change: read and write them once; the
+    # kernel reads and writes its box
     el = grids.element_size()
-    cells = disc_cells(torch, spec, prep)
+    cells = disc_cells(torch, spec, prep, grids.shape[2])
     k1_bound, k1_by = fused_bound(2 * cells * el, cells)
     window = 1024 * prep.wr * grids.shape[2]
+    box = box_cells(torch, prep, grids.shape[2], el)
     emit({"phase": "kernel_time_k1_in_place_config3",
           "shape": list(grids.shape), "kernel_ms": k1_ms,
           "plain_ms": k1_plain, "disc_cells": cells, "bound_ms": k1_bound,
-          "bound_by": k1_by, "window_cells": window,
-          "full_window_design_cost_ms": fused_bound(2 * window * el,
-                                                    window)[0]})
+          "bound_by": k1_by, "window_cells": window, "box_cells": box,
+          "box_design_cost_ms": fused_bound(2 * box * el, box)[0],
+          "g_box_cells_per_s": box / k1_ms / 1e6})
+    if box * 10 > window:
+        raise AssertionError(f"config-3 box of {box} cells exceeds a tenth "
+                             f"of the window's {window}")
     del grids
 
     # K3 after one resample: a real update from the zero pool privatizes
@@ -721,23 +780,27 @@ def time_config3(torch):
     hb, cols, wr = pool.shape[1], pool.shape[2], st.prep.wr
     el = pool.element_size()
     fresh = st.dst != st.src
-    y0, y1, ncols = disc_extent(torch, spec, st.prep)
     band0 = ((st.prep.r0 - st.woff).long()[:, None]
              + torch.arange(st.src.shape[1], device="cuda")[None, :] * hb)
-    overlap = (torch.minimum(y1[:, None], band0 + hb)
-               - torch.maximum(y0[:, None], band0)).clamp_min(0)
-    nbytes = int(torch.where(fresh, hb * cols, overlap * ncols[:, None])
-                 .sum()) * el * 2
+
+    def band_bytes(y0, y1, ncols):
+        overlap = (torch.minimum(y1[:, None], band0 + hb)
+                   - torch.maximum(y0[:, None], band0)).clamp_min(0)
+        return int(torch.where(fresh, hb * cols, overlap * ncols[:, None])
+                   .sum()) * el * 2
+
+    y0, y1, ncols = disc_extent(torch, spec, st.prep, cols)
+    nbytes = band_bytes(y0, y1, ncols)
     cells = int(((y1 - y0) * ncols).sum())
     bound, by = fused_bound(nbytes, cells)
-    # the current design reads and writes the full-width window, and
-    # copies the privatized bands' rows outside it
-    b = torch.arange(st.src.shape[1], device="cuda")[None, :] * hb
-    inside = (torch.clamp(st.woff[:, None] + wr - b, 0, hb)
-              - torch.clamp(st.woff[:, None] - b, 0, hb))
-    copy_rows = int(((hb - inside) * fresh).sum())
+    # the design reads and writes the box widened to 16-byte columns where
+    # the band is owned
+    by0, by1, bx0, bx1 = (v.long() for v in fused.cell_pass_box(
+        st.prep, cols, 16 // el))
+    r0 = st.prep.r0.long()
+    design_bytes = band_bytes(r0 + by0, r0 + by1, bx1 - bx0)
+    box = box_cells(torch, st.prep, cols, el)
     window = 1024 * wr * cols
-    design_bytes = (window + copy_rows * cols) * el * 2
     out["fused_update_tiled"] = dict(ms=ms, plain_ms=plain_ms,
                                      library_ms=None, bound_ms=bound,
                                      bound_by=by)
@@ -746,10 +809,10 @@ def time_config3(torch):
           "disc_cells": cells, "kernel_ms": ms, "plain_ms": plain_ms,
           "bound_ms": bound, "bound_by": by,
           "design_bytes": design_bytes, "window_cells": window,
-          "full_window_design_cost_ms": fused_bound(design_bytes,
-                                                    window)[0],
+          "box_cells": box,
+          "box_design_cost_ms": fused_bound(design_bytes, box)[0],
           "kernel_tb_per_s_of_design_bytes": design_bytes / ms / 1e9,
-          "peak_tb_per_s": 3.35, "g_window_cells_per_s": window / ms / 1e6})
+          "peak_tb_per_s": 3.35, "g_box_cells_per_s": box / ms / 1e6})
     return out
 
 
@@ -1129,18 +1192,26 @@ def main() -> int:
         wrapper_ms = time_call(torch, lambda: fused.fused_update(*args, **kw),
                                hide_host=False)
         # lineage mode: each ancestor map read once, every map written;
-        # operations on the scan disc's cells only
-        map_bytes = grids[0].numel() * grids.element_size()
+        # operations on the scan disc's cells only.  The design reads each
+        # particle's ancestor map (repeats may come from L2), writes its
+        # output map, and computes the box
+        el = grids.element_size()
+        map_bytes = grids[0].numel() * el
         nbytes = (int(torch.unique(anc).numel()) + 1024) * map_bytes
-        bound, by = fused_bound(nbytes, disc_cells(torch, spec, prep))
+        bound, by = fused_bound(nbytes, disc_cells(torch, spec, prep,
+                                                   grids.shape[2]))
         window = 1024 * prep.wr * grids.shape[2]
+        box = box_cells(torch, prep, grids.shape[2], el)
         times[label] = (ms, plain_ms, bound, by)
         emit({"phase": f"kernel_time_{label}", "shape": list(grids.shape),
               "kernel_us": ms * 1e3, "plain_us": plain_ms * 1e3,
               "wrapper_with_host_us": wrapper_ms * 1e3,
               "bound_us": bound * 1e3, "bound_by": by,
-              "full_window_design_cost_us":
-              fused_bound(nbytes, window)[0] * 1e3})
+              "window_cells": window, "box_cells": box,
+              "box_design_cost_us":
+              fused_bound(2 * 1024 * map_bytes, box)[0] * 1e3,
+              "kernel_tb_per_s_of_design_bytes":
+              2 * 1024 * map_bytes / ms / 1e9})
 
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
@@ -1169,7 +1240,8 @@ def main() -> int:
     if hb is None or tiles.span_of(spec_k, 1.0, hb) < 3:
         raise AssertionError("0.02 m tiled maps did not pick a k-band span")
     tiled_err = max(tiled_err, check_tiled(torch, spec_k, "kspan"))
-    worst = max(worst, check_k3_vs_k1(torch, spec3))
+    for far in (False, True):
+        worst = max(worst, check_k3_vs_k1(torch, spec3, far))
     emit({"phase": "config3_checks_memory",
           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()})
     tiled_counts, cow_counts = check_config3_rollouts(torch)

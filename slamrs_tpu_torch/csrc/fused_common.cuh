@@ -1,6 +1,7 @@
 // Device code shared by the fused update kernels (fused_update.cu, K1, and
 // fused_update_tiled.cu, K3): the endpoint likelihood with its block
-// reduction, and the per-cell inverse sensor model of the cell pass.
+// reductions, the scan disc's bounding box, the per-cell inverse sensor
+// model of the cell pass, and the 16-byte copies around the box.
 //
 // Both kernels run one CTA of kThreads threads per particle and call the
 // same functions in the same order, so for the same window they produce
@@ -8,7 +9,24 @@
 // The arithmetic is that of the plain PyTorch version
 // (slamrs_tpu_torch/ops/fused.py::update_window); build with --fmad=false
 // so products and sums stay separately rounded, as PyTorch rounds them.
-
+//
+// What bounds the cell pass on the H100, and what the design does about
+// it.  A window cell costs an atan2f, a sqrtf, a divide and the bin
+// pipeline, ~60 float32 operations with no products to batch, so tensor
+// cores do not apply; at ~120 G cells/s a full-width [wr, cols] window
+// (58.7 M cells at config 3) took the kernels' whole time.  Yet a cell's
+// increment is 0 unless r^2 < a^2 or r^2 <= b^2 for its covering beam,
+// and both are at most (|d| + 1)^2.  So each CTA takes dmax = max |d_enc|
+// over the staged beam row (folded into the likelihood's barrier: no
+// launch, no host input) and runs the cell pass only over the box
+// |dx| < dmax + 2, |dy| < dmax + 2 (the extra cell covers the float32
+// rounding of r^2), clipped to the window and widened to 16-byte columns
+// (cell_box; ops/fused.py::cell_pass_box is the same box in PyTorch).  The
+// box follows the scan, not max_range_m: a beam past the range (a replayed
+// capture) widens it up to the whole window, as the plain version's
+// full-width pass would mark it.  Outside the box the increment is 0, so
+// a cell there is either left alone (in place) or copied (a fresh map or
+// tile), bit for bit.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -58,10 +76,18 @@ __device__ __forceinline__ Particle load_particle(const float* pp, int r0) {
   return Particle{pp[0], pp[1], pp[3], pp[4], pp[5], pp[6], pp[7], r0};
 }
 
-// Stages row 0 of the beam table (quantized d_enc) in shared memory.  Made
-// visible by the __syncthreads() inside block_likelihood.
-__device__ __forceinline__ void stage_denc(const ScanConsts& c, float* s_denc) {
-  for (int b = threadIdx.x; b < kBeamPad; b += kThreads) s_denc[b] = c.table[b];
+// Stages row 0 of the beam table (quantized d_enc) in shared memory, made
+// visible by the __syncthreads() inside block_likelihood, and returns this
+// thread's share of dmax = max |d_enc| over the lanes (absent lanes are
+// +-0; fmaxf drops a NaN, whose beam changes no cell).
+__device__ __forceinline__ float stage_denc(const ScanConsts& c, float* s_denc) {
+  float m = 0.f;
+  for (int b = threadIdx.x; b < kBeamPad; b += kThreads) {
+    const float v = c.table[b];
+    s_denc[b] = v;
+    m = fmaxf(m, fabsf(v));
+  }
+  return m;
 }
 
 // Endpoint log-likelihood of the scan on the pre-update window, summed over
@@ -69,12 +95,14 @@ __device__ __forceinline__ void stage_denc(const ScanConsts& c, float* s_denc) {
 // pre-update log-odds of window cell (wy, wx).  A beam whose endpoint lies
 // outside the logical grid or the window adds nothing.  Contains the
 // __syncthreads() that orders every likelihood read before the caller's
-// first write.
+// first write; the same barrier reduces the threads' `dmax_part` (from
+// stage_denc), and every thread gets the block's dmax back.  s_red holds
+// 2 * kThreads / 32 floats.
 template <typename CellAt>
-__device__ __forceinline__ void block_likelihood(const ScanConsts& c,
-                                                 const Particle& q,
-                                                 CellAt cell, float* s_warp,
-                                                 float* out) {
+__device__ __forceinline__ float block_likelihood(const ScanConsts& c,
+                                                  const Particle& q,
+                                                  CellAt cell, float dmax_part,
+                                                  float* s_red, float* out) {
   const int tid = threadIdx.x;
   float acc = 0.f;
   for (int b = tid; b < kBeamPad; b += kThreads) {
@@ -98,14 +126,50 @@ __device__ __forceinline__ void block_likelihood(const ScanConsts& c,
     }
     acc += logf(factor);
   }
-  for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
-  if ((tid & 31) == 0) s_warp[tid >> 5] = acc;
+  float m = dmax_part;
+  for (int o = 16; o > 0; o >>= 1) {
+    acc += __shfl_xor_sync(0xffffffffu, acc, o);
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+  }
+  constexpr int kWarps = kThreads / 32;
+  if ((tid & 31) == 0) {
+    s_red[tid >> 5] = acc;
+    s_red[kWarps + (tid >> 5)] = m;
+  }
   __syncthreads();
   if (tid == 0) {
     float s = 0.f;
-    for (int w = 0; w < kThreads / 32; ++w) s += s_warp[w];
+    for (int w = 0; w < kWarps; ++w) s += s_red[w];
     *out = s;
   }
+  float dmax = 0.f;
+  for (int w = 0; w < kWarps; ++w) dmax = fmaxf(dmax, s_red[kWarps + w]);
+  return dmax;
+}
+
+// The cell pass's box in window coordinates: rows [y0, y1), columns
+// [x0, x1).  The window cells with |dx| < dmax + 2 and |dy| < dmax + 2
+// (dx, dy the cell offsets of make_cell_pass) lie in rows
+// [floor(cy - e), ceil(cy + e)) - r0 and columns [floor(cx - e),
+// ceil(cx + e)), e = dmax + 2; clipped to the window, columns widened to
+// multiples of `align` cells (16 bytes).  Clamped as floats first, so an
+// infinite dmax gives the whole window.  ops/fused.py::cell_pass_box
+// computes the same box.
+struct Box {
+  int y0, y1, x0, x1;
+};
+
+__device__ __forceinline__ Box cell_box(const ScanConsts& c, const Particle& q,
+                                        float dmax, int align) {
+  const float e = dmax + 2.f;
+  const float r0f = static_cast<float>(q.r0);
+  const float wrf = static_cast<float>(c.wr);
+  const float colsf = static_cast<float>(c.cols);
+  const int x0 = static_cast<int>(fminf(fmaxf(floorf(q.cx - e), 0.f), colsf));
+  const int x1 = static_cast<int>(fminf(fmaxf(ceilf(q.cx + e), 0.f), colsf));
+  return Box{static_cast<int>(fminf(fmaxf(floorf(q.cy - e) - r0f, 0.f), wrf)),
+             static_cast<int>(fminf(fmaxf(ceilf(q.cy + e) - r0f, 0.f), wrf)),
+             x0 / align * align, (x1 + align - 1) / align * align};
 }
 
 // The cell pass's per-particle constants (window offsets folded in).
@@ -173,10 +237,78 @@ __device__ __forceinline__ float cell_increment(const ScanConsts& c,
   return (present && in_b) ? inc * dens : 0.f;
 }
 
-// 16-byte copy of `n` uint4 words by the whole block.
+// Runs `cell(wy, wx, inc)` for every cell of the box, threads striding
+// over its cells in row-major order.
+template <typename Cell>
+__device__ __forceinline__ void box_pass(const ScanConsts& c,
+                                         const CellPass& k,
+                                         const float* s_denc, const Box& b,
+                                         Cell cell) {
+  const int bw = b.x1 - b.x0;
+  const int n = (b.y1 - b.y0) * bw;
+  for (int idx = threadIdx.x; idx < n; idx += kThreads) {
+    const int oy = idx / bw;
+    const int wy = b.y0 + oy;
+    const int wx = b.x0 + idx - oy * bw;
+    cell(wy, wx, cell_increment(c, k, s_denc, wy, wx));
+  }
+}
+
+// 16-byte copy of words [begin, end) by the whole block, two loads in
+// flight a thread.
 __device__ __forceinline__ void block_copy16(const uint4* __restrict__ s,
-                                             uint4* __restrict__ d, size_t n) {
-  for (size_t k = threadIdx.x; k < n; k += kThreads) d[k] = s[k];
+                                             uint4* __restrict__ d, int begin,
+                                             int end) {
+  int k = begin + threadIdx.x;
+  for (; k + kThreads < end; k += 2 * kThreads) {
+    const uint4 a = s[k];
+    const uint4 b = s[k + kThreads];
+    d[k] = a;
+    d[k + kThreads] = b;
+  }
+  if (k < end) d[k] = s[k];
+}
+
+// 16-byte copy by the whole block of a region of `rows` rows of `per_row`
+// words, except the box words: rows [y0, y1) x words [v0, v1).  Rows
+// outside [y0, y1) are two contiguous runs; inside, the words left and
+// right of the box are walked as one run of per_row - (v1 - v0) words a
+// row (the right part of a row and the left part of the next lie side by
+// side), two loads in flight a thread.
+__device__ __forceinline__ void copy_outside_box(const uint4* __restrict__ s,
+                                                 uint4* __restrict__ d,
+                                                 int rows, int per_row, int y0,
+                                                 int y1, int v0, int v1) {
+  block_copy16(s, d, 0, y0 * per_row);
+  block_copy16(s, d, y1 * per_row, rows * per_row);
+  const int bw = v1 - v0;
+  const int g = per_row - bw;  // words a row outside the box
+  const int n = (y1 - y0) * g;
+  if (n <= 0) return;
+  const int dr = kThreads / g, dc = kThreads - dr * g;
+  int r = threadIdx.x / g, col = threadIdx.x - r * g;
+  auto next = [&]() {  // this thread's next word, then one stride on
+    const int k = (y0 + r) * per_row + (col < v0 ? col : col + bw);
+    col += dc;
+    r += dr;
+    if (col >= g) {
+      col -= g;
+      ++r;
+    }
+    return k;
+  };
+  for (int j = threadIdx.x; j < n; j += 2 * kThreads) {
+    const int k0 = next();
+    if (j + kThreads < n) {
+      const int k1 = next();
+      const uint4 a = s[k0];
+      const uint4 b = s[k1];
+      d[k0] = a;
+      d[k1] = b;
+    } else {
+      d[k0] = s[k0];
+    }
+  }
 }
 
 }  // namespace slamrs

@@ -10,34 +10,49 @@
 // the TPU's VMEM residency, particle batching, lane packing, column rolls
 // or staged windows is carried over.
 //
-// What bounds it on the H100: at the headline shape (1,024 particles of
-// [80, 128] bf16 maps) one update reads and writes the 21 MB map set once,
-// and each of the 1024 x 56 x 128 window cells costs about 40 flops plus an
-// atan2.  Both are small next to the launch and host overheads of the
-// rollout around the kernel.  The design does nothing about that yet:
-// one CTA per particle, 256 threads, in one of two modes:
+// What bounds it on the H100, and what the design does about it.  Only
+// the cells of the scan disc can change, so the cell pass covers only the
+// disc's bounding box (fused_common.cuh), computed in the kernel from the
+// staged beam row: ~45 x 48 cells a particle at 0.05 m (1 m range) where
+// the window has 56 x cols.  What is left:
+//   - in place (config 3, [1024, 1000, 1024] bf16): the box pass alone,
+//     ~2.3 M cells of ~60 float32 operations plus the likelihood: per-cell
+//     arithmetic, no bytes outside the box are read or written;
+//   - lineage (the headline [1024, 80, 128] and [1024, 200, 256]): every
+//     output map is a fresh buffer written whole, so the 16-byte copy of
+//     the words outside the box from the ancestor map adds the bytes of
+//     the map set, overlapped with the box pass across the CTAs of an SM.
+//     At 0.02 m the box is ~105 x 112 cells (11.5 M in all) and its
+//     arithmetic outweighs the 210 MB of copies.
+// The work has no products, so tensor cores do not apply.  ptxas: 32
+// registers, 2,112 bytes of shared memory, no spills: 8 CTAs a SM, so
+// 1,024 particles run in one wave.  One CTA per particle, 256 threads, in
+// one of two modes:
 //   - lineage (ping-pong): read grids_in[anc[i]], write grids_out[i], so
 //     the likelihood read of the pre-update ancestor map can never race a
 //     write (the deferred-lineage resample);
 //   - in place (grids_out == grids_in, anc == nullptr: identity): each CTA
 //     touches only its own map, its likelihood reads finish before the
-//     __syncthreads() that precedes the cell pass's writes, and the rows
-//     outside the window are not copied (the counterpart of the aliased
+//     __syncthreads() that precedes the box pass's writes, and nothing
+//     outside the box is read or written (the counterpart of the aliased
 //     _kernel_hbm; used by the copy-on-write and whole-set-gather resample).
 //
 // Per CTA (particle i):
 //   1. likelihood: threads stride over the 512 beam lanes, compute each
 //      valid beam's endpoint cell, and sum log(Z_HIT mixture) over the
 //      beams whose endpoint lies inside the logical grid and the window
-//      (an out-of-window endpoint adds nothing, as on the TPU);
-//   2. copy (lineage mode only): rows outside [r0, r0 + wr) go from the
-//      ancestor map to the output map with 16-byte vector loads;
-//   3. cell pass: every window cell finds its beam by atan2 (static
-//      bin-units or traced pipeline), decodes the quantized d_enc staged
-//      in shared memory, applies the squared-space inverse sensor model
-//      times the beam density, and stores f32(cell) + inc, rounded to
-//      bf16 for bf16 maps.
-// The likelihood and the cell pass are the shared device code of
+//      (an out-of-window endpoint adds nothing, as on the TPU); its
+//      barrier also reduces dmax = max |d_enc| of the staged beam row;
+//   2. the box from dmax and the particle's pose;
+//   3. copy (lineage mode only): every 16-byte word of the ancestor map
+//      outside the box goes to the output map, two loads in flight a
+//      thread;
+//   4. box pass: every box cell finds its beam by atan2 (static bin-units
+//      or traced pipeline), decodes the quantized d_enc staged in shared
+//      memory, applies the squared-space inverse sensor model times the
+//      beam density, and stores f32(cell) + inc, rounded to bf16 for bf16
+//      maps.
+// The likelihood, the box and the cell pass are the shared device code of
 // fused_common.cuh, which K3 (fused_update_tiled.cu) runs too.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
@@ -67,7 +82,6 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads) fused_update_kernel(Args a) {
   const int i = blockIdx.x;
   const int cols = a.c.cols;
-  const int wr = a.c.wr;
   const size_t map = static_cast<size_t>(a.rows) * cols;
   const int from = a.anc ? a.anc[i] : i;
   // not __restrict__: in place, src and dst are the same map
@@ -76,40 +90,38 @@ __global__ void __launch_bounds__(kThreads) fused_update_kernel(Args a) {
   const Particle q = load_particle(a.pp + 8 * i, a.r0[i]);
 
   __shared__ float s_denc[kBeamPad];
-  __shared__ float s_warp[kThreads / 32];
-  stage_denc(a.c, s_denc);
+  __shared__ float s_red[2 * kThreads / 32];
+  const float dmax_part = stage_denc(a.c, s_denc);
 
   // 1. endpoint likelihood on the pre-update map (its barrier also
-  //    publishes s_denc)
+  //    publishes s_denc and reduces dmax)
   const T* win = src + static_cast<size_t>(q.r0) * cols;
-  block_likelihood(
+  const float dmax = block_likelihood(
       a.c, q,
       [&](int wy, int wx) {
         return load_cell(win + static_cast<size_t>(wy) * cols + wx);
       },
-      s_warp, a.lik + i);
+      dmax_part, s_red, a.lik + i);
 
-  // 2. rows outside the window, lineage mode only: 16-byte copies
+  // 2. the box; its columns are whole 16-byte words
+  constexpr int kPerWord = 16 / sizeof(T);
+  const Box box = cell_box(a.c, q, dmax, kPerWord);
+
+  // 3. lineage mode only: the map outside the box, 16-byte copies
   //    (cols % 128 == 0, so every row is a whole number of uint4)
   if (src != dst) {
-    const size_t per_row = static_cast<size_t>(cols) * sizeof(T) / 16;
-    const uint4* s4 = reinterpret_cast<const uint4*>(src);
-    uint4* d4 = reinterpret_cast<uint4*>(dst);
-    block_copy16(s4, d4, static_cast<size_t>(q.r0) * per_row);
-    const size_t tail = static_cast<size_t>(q.r0 + wr) * per_row;
-    block_copy16(s4 + tail, d4 + tail, static_cast<size_t>(a.rows) * per_row - tail);
+    copy_outside_box(reinterpret_cast<const uint4*>(src),
+                     reinterpret_cast<uint4*>(dst), a.rows, cols / kPerWord,
+                     q.r0 + box.y0, q.r0 + box.y1, box.x0 / kPerWord,
+                     box.x1 / kPerWord);
   }
 
-  // 3. dense inverse-sensor-model pass over the [wr, cols] window
-  const CellPass k = make_cell_pass(a.c, q);
-  const int n = wr * cols;
-  for (int idx = threadIdx.x; idx < n; idx += kThreads) {
-    const int wy = idx / cols;
-    const int wx = idx - wy * cols;
-    const float inc = cell_increment(a.c, k, s_denc, wy, wx);
-    const size_t off = static_cast<size_t>(q.r0 + wy) * cols + wx;
-    store_cell(dst + off, load_cell(src + off) + inc);
-  }
+  // 4. inverse-sensor-model pass over the box
+  box_pass(a.c, make_cell_pass(a.c, q), s_denc, box,
+           [&](int wy, int wx, float inc) {
+             const size_t off = static_cast<size_t>(q.r0 + wy) * cols + wx;
+             store_cell(dst + off, load_cell(src + off) + inc);
+           });
 }
 
 }  // namespace

@@ -7,8 +7,8 @@
 // k-band span).  It computes what the plain version
 // slamrs_tpu_torch/ops/tiles.py::fused_update_tiled_reference computes.  The
 // TPU's double-buffered DMA schedule, particle batching, shared-window
-// cache, 128-lane crop and lane rolls are not carried over: the window is
-// computed at full width, as K1 computes it.
+// cache, 128-lane crop and lane rolls are not carried over: the cell pass
+// covers the scan disc's bounding box, as K1's does (fused_common.cuh).
 //
 // Layout.  pool [n_phys, hb, cols] T is updated in place.  Particle i's
 // window of wr rows starts at in-span row woff[i] of its kspan-band span;
@@ -21,24 +21,32 @@
 //   1. likelihood on the pre-update window read through the src tiles:
 //      window row y is row (woff + y) % hb of tile src[(woff + y) / hb];
 //   2. __syncthreads() (inside block_likelihood): every read of step 1 is
-//      done before any write below;
-//   3. for each spanned band with dst != src, the band's rows outside the
-//      window go from the src tile to the dst tile with 16-byte loads;
-//   4. the full-width cell pass over the [wr, cols] window: read each cell
-//      from its src tile, write it to its dst tile.
-// Steps 1 and 4 are the device code of fused_common.cuh that K1 runs, so K3
-// is bitwise K1 on the materialized maps.
+//      done before any write below; the same barrier reduces dmax, from
+//      which every thread computes the box;
+//   3. for each spanned band with dst != src (privatized), every 16-byte
+//      word of the band outside the box goes from the src tile to the dst
+//      tile; an owned band (dst == src) is not touched outside the box;
+//   4. the box pass: read each box cell from its src tile, write it to its
+//      dst tile.
+// Steps 1, 2 and 4 are the device code of fused_common.cuh that K1 runs,
+// so K3 is bitwise K1 on the materialized maps.
 //
 // Why in place is race-free (the module's own argument, tiles.py:46-53): a
 // CTA writes only fresh tiles, which no table row references, or tiles it
 // owns exclusively, for which it is the only reader.  No CTA reads what
 // another writes, and tiled_plan hands out distinct fresh tiles.
 //
-// What bounds it on the H100: at config 3 (1,024 particles, hb = wr = 56,
-// cols = 1,024, bf16) one update reads and writes 2 x 56 x 1,024 cells per
-// particle, 470 MB in all (~0.14 ms at 3.35 TB/s), and computes 58.7 M
-// window cells of ~40 flops plus an atan2, so per-cell arithmetic bounds
-// it, as it bounds K1.  The design does nothing about that yet.
+// What bounds it on the H100, and what the design does about it: at
+// config 3 (1,024 particles, hb = wr = 56, cols = 1,024, bf16) the box
+// pass computes ~2.4 M cells (~45 x 52 a particle) instead of the
+// window's 58.7 M, and every privatized band is a fresh tile written
+// whole: after a resample that shares half the maps, ~355 MB of band
+// copies, ~0.11 ms at 3.35 TB/s.  So bytes bound it.  The copies run two
+// 16-byte loads in flight a thread, and the box pass of one CTA overlaps
+// the copies of the others on its SM.  ptxas: 40 registers, 2,112 bytes
+// of shared memory, no spills, so 6 CTAs a SM; capped at 32 registers
+// (8 a SM, one wave of 1,024) it spilled and was no faster.  The work has
+// no products, so tensor cores do not apply.
 
 #include "fused_common.cuh"
 
@@ -63,7 +71,6 @@ __global__ void __launch_bounds__(kThreads) fused_update_tiled_kernel(TiledArgs 
   const int i = blockIdx.x;
   const int hb = a.hb;
   const int cols = a.c.cols;
-  const int wr = a.c.wr;
   const int woff = a.woff[i];
   const size_t tile = static_cast<size_t>(hb) * cols;
   const int* src = a.src + static_cast<size_t>(i) * a.kspan;
@@ -72,11 +79,11 @@ __global__ void __launch_bounds__(kThreads) fused_update_tiled_kernel(TiledArgs 
   const Particle q = load_particle(a.pp + 8 * i, a.r0[i]);
 
   __shared__ float s_denc[kBeamPad];
-  __shared__ float s_warp[kThreads / 32];
-  stage_denc(a.c, s_denc);
+  __shared__ float s_red[2 * kThreads / 32];
+  const float dmax_part = stage_denc(a.c, s_denc);
 
   // 1. likelihood on the pre-update window, through the src tiles
-  block_likelihood(
+  const float dmax = block_likelihood(
       a.c, q,
       [&](int wy, int wx) {
         const int s = woff + wy;
@@ -84,35 +91,35 @@ __global__ void __launch_bounds__(kThreads) fused_update_tiled_kernel(TiledArgs 
         return load_cell(pool + static_cast<size_t>(src[b]) * tile +
                          static_cast<size_t>(s - b * hb) * cols + wx);
       },
-      s_warp, a.lik + i);
+      dmax_part, s_red, a.lik + i);
 
-  // 3. privatized bands: rows outside the window, src tile -> dst tile
-  const size_t per_row = static_cast<size_t>(cols) * sizeof(T) / 16;
+  // 2. the box; its columns are whole 16-byte words
+  constexpr int kPerWord = 16 / sizeof(T);
+  const Box box = cell_box(a.c, q, dmax, kPerWord);
+
+  // 3. privatized bands: every word outside the box, src tile -> dst tile
   for (int b = 0; b < a.kspan; ++b) {
     const int ts = src[b], td = dst[b];
     if (ts == td) continue;
-    const int lo = min(max(woff - b * hb, 0), hb);       // window rows of
-    const int hi = min(max(woff + wr - b * hb, 0), hb);  // band b: [lo, hi)
-    const uint4* s4 = reinterpret_cast<const uint4*>(pool + static_cast<size_t>(ts) * tile);
-    uint4* d4 = reinterpret_cast<uint4*>(pool + static_cast<size_t>(td) * tile);
-    block_copy16(s4, d4, static_cast<size_t>(lo) * per_row);
-    const size_t tail = static_cast<size_t>(hi) * per_row;
-    block_copy16(s4 + tail, d4 + tail, static_cast<size_t>(hb) * per_row - tail);
+    const int lo = min(max(woff + box.y0 - b * hb, 0), hb);  // box rows of
+    const int hi = min(max(woff + box.y1 - b * hb, 0), hb);  // band b
+    copy_outside_box(
+        reinterpret_cast<const uint4*>(pool + static_cast<size_t>(ts) * tile),
+        reinterpret_cast<uint4*>(pool + static_cast<size_t>(td) * tile), hb,
+        cols / kPerWord, lo, hi, box.x0 / kPerWord, box.x1 / kPerWord);
   }
 
-  // 4. full-width cell pass: read from src tiles, write to dst tiles
-  const CellPass k = make_cell_pass(a.c, q);
-  const int n = wr * cols;
-  for (int idx = threadIdx.x; idx < n; idx += kThreads) {
-    const int wy = idx / cols;
-    const int wx = idx - wy * cols;
-    const float inc = cell_increment(a.c, k, s_denc, wy, wx);
-    const int s = woff + wy;
-    const int b = s / hb;
-    const size_t in_tile = static_cast<size_t>(s - b * hb) * cols + wx;
-    const float v = load_cell(pool + static_cast<size_t>(src[b]) * tile + in_tile);
-    store_cell(pool + static_cast<size_t>(dst[b]) * tile + in_tile, v + inc);
-  }
+  // 4. the box pass: read from src tiles, write to dst tiles
+  box_pass(a.c, make_cell_pass(a.c, q), s_denc, box,
+           [&](int wy, int wx, float inc) {
+             const int s = woff + wy;
+             const int b = s / hb;
+             const size_t in_tile = static_cast<size_t>(s - b * hb) * cols + wx;
+             const float v =
+                 load_cell(pool + static_cast<size_t>(src[b]) * tile + in_tile);
+             store_cell(pool + static_cast<size_t>(dst[b]) * tile + in_tile,
+                        v + inc);
+           });
 }
 
 }  // namespace

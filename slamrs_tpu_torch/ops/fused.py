@@ -21,13 +21,15 @@ window rows of ``grids`` updated where they lie: the copy-on-write and
 whole-set-gather resamples).  :func:`update_window` is the window-level
 plain update that the tiled plain version (``ops/tiles.py``) reuses.
 
-What bounds it on the H100: at the headline shape (1,024 particles of
-``[80, 128]`` bf16) one update reads and writes the 21 MB map set once
-(about 13 us at 3.35 TB/s), and each of the 1024 x 56 x 128 window cells
-costs about 40 flops plus an atan2, so the kernel is small next to the
-launch and host overheads of the rollout around it.  The design does
-nothing about that yet: one CTA per particle, ping-pong map buffers in
-lineage mode.
+The kernel computes the increment only over the scan disc's bounding
+box (:func:`cell_pass_box`, found on the card from the beam table), the
+one part of the window whose cells can change; the plain version
+computes the whole window, whose other cells gain exactly 0.  What bounds
+it on the H100: in place, the box's per-cell arithmetic (an atan2, a
+sqrt, a divide); in lineage mode, the bytes of the fresh output maps (the
+21 MB headline map set read and written once, about 13 us at 3.35 TB/s).
+Both are small next to the launch and host overheads of the rollout
+around it.
 
 Documented deviations kept from the JAX package: beam distances snap to
 the static quantum of :func:`pack3_quantum` in the cell pass, and a valid
@@ -76,7 +78,7 @@ def supports_deferred_hbm(spec: GridSpec2D, max_range_m: float,
 
     Like :func:`fits_vmem_resident` the port keeps it only because it
     fixes the resample mechanism and so the slot order; it says nothing
-    about the H100, whose kernel always computes full-width windows.
+    about the H100, whose kernel always gives the full-width result.
     """
     wr = window_rows(spec, max_range_m)
     wr = min(wr, rows - rows % 8 if rows % 8 else rows)
@@ -99,8 +101,8 @@ def window_rows(spec: GridSpec2D, max_range_m: float) -> int:
 def window_cols(spec: GridSpec2D, max_range_m: float, cols: int) -> int:
     """The JAX package's window column count for padded ``cols``: all of
     them up to 256 or for a disc wider than 128 lanes, else a 256-column
-    crop.  The port always computes all ``cols``; this only feeds the
-    JAX package's geometry predicates."""
+    crop.  The port always gives the result over all ``cols``; this only
+    feeds the JAX package's geometry predicates."""
     return cols if (cols <= 256 or disc_half(spec, max_range_m) > 64) else 256
 
 
@@ -306,6 +308,37 @@ def update_window(win: Tensor, prep: Prepared, spec: GridSpec2D,
     in_b = (wyl < float(spec.rows) - r0f) & (wxl < float(spec.cols))
     inc = torch.where(pres & in_b, inc * dens, 0.0)
     return (w32 + inc).to(win.dtype), lik
+
+
+def cell_pass_box(prep: Prepared, cols: int, align: int = 1
+                  ) -> tuple[Tensor, Tensor, Tensor, Tensor]:
+    """Per particle, the window cells the kernels' cell pass visits: rows
+    ``[y0, y1)`` and columns ``[x0, x1)`` of the ``[wr, cols]`` window,
+    i32[P] each.
+
+    The box holds the cells with ``|dx| < dmax + 2`` and ``|dy| < dmax +
+    2`` (``dx``, ``dy`` the cell offsets of :func:`update_window`, ``dmax``
+    the largest ``|d_enc|`` in row 0 of the beam table, a NaN lane
+    ignored), clipped to the window, its columns widened to multiples of
+    ``align`` cells (the kernels use 16 bytes: 8 bf16 or 4 f32 cells).  No
+    cell outside it gains a nonzero increment: that needs ``r^2`` at most
+    ``(|d| + 1)^2`` for its beam, and the extra cell covers the float32
+    rounding of ``r^2``.  It follows the scan, not ``max_range_m``, so a
+    beam past the range widens it.  The float32 steps are those of
+    ``csrc/fused_common.cuh::cell_box``, so both give the same box; the
+    tests and ``chip_smoke.py`` use it, the main path does not."""
+    d = torch.abs(prep.table[0])
+    e = torch.where(torch.isnan(d), 0.0, d).max() + 2.0
+    cx, cy = prep.pp[:, 0], prep.pp[:, 1]
+    r0 = prep.r0.to(torch.float32)
+
+    def clip(v, hi):
+        return torch.clamp(v, 0.0, float(hi)).to(torch.int32)
+
+    x0 = clip(torch.floor(cx - e), cols) // align * align
+    x1 = (clip(torch.ceil(cx + e), cols) + align - 1) // align * align
+    return (clip(torch.floor(cy - e) - r0, prep.wr),
+            clip(torch.ceil(cy + e) - r0, prep.wr), x0, x1)
 
 
 def plain_update(maps: Tensor, prep: Prepared, spec: GridSpec2D,

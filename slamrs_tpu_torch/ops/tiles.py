@@ -21,8 +21,10 @@ On a CPU tensor it runs :func:`fused_update_tiled_reference`, the plain
 PyTorch version; on a CUDA tensor it launches the kernel or raises.  Both
 update the pool in place.
 
-The window is computed at full width, as the port's dense kernel
-computes it.  The TPU's shared-window cache (``_window_groups``,
+The result is that of the full-width window, as the port's dense
+kernel gives it (both kernels compute only the scan disc's bounding box,
+``ops/fused.py::cell_pass_box``, the cells that can change).  The TPU's
+shared-window cache (``_window_groups``,
 ``shared_window_plan``, ``merge_segment_windows``), its crop128 lane
 roll with ``u0`` quantization, and the ``SLAMRS_TILES_NOBANDS`` ablation
 exist for VMEM and 128-lane views; none changes the materialized maps of

@@ -6,11 +6,15 @@ with nvcc at first use); without one they skip.  Run them on the card:
     python -m pytest tests/test_torch_cuda.py -q
 
 Both versions run on the card on the same inputs.  Gates as in
-chip_smoke.py: for the fused updates (K1, K3) the fraction of cells with
-|diff| > 0.01 below 1e-4 and the likelihood within rtol 1e-5 / atol 1e-4
-(the block reduction sums in another order than torch.sum); the copy
+chip_smoke.py: for the fused updates (K1, K3) maps equal by value (max
+abs difference 0: the kernels compute only the scan disc's bounding box,
+whose cells get the plain version's bits, and leave or copy the rest; the
+cases include beams past the range and poses on the grid's edges) and
+the likelihood within rtol 1e-5 / atol 1e-4 (the block reduction sums
+in another order than torch.sum); the copy
 (K2) bitwise; K3 bitwise against K1 on the materialized maps (they run
-the same device code); the nearest-neighbour indices (K4) bitwise (the
+the same device code) for every particle whose two windows start on the
+same row; the nearest-neighbour indices (K4) bitwise (the
 same float32 arithmetic per pair, nvcc with ``--fmad=false``).  One ICP
 mapper update on the card against the same on the CPU: pose and points
 within 1e-5 m (the normal equations' sums run in another order).
@@ -35,7 +39,10 @@ def dev():
     return torch.device("cuda")
 
 
-def _case(dev, spec, p, num_beams, static, dtype, seed=0):
+def _case(dev, spec, p, num_beams, static, dtype, seed=0, scan="within"):
+    """Random maps, poses, lineage and scan on the card.  ``far``: a third
+    of the beams out to 5 m (past the 1 m range and the quantizer's cap)
+    and six poses on the grid's column and row edges."""
     g = torch.Generator(device=dev).manual_seed(seed)
     rows, cols = spec.rows, (spec.cols + 127) // 128 * 128
     grids = torch.randn(p, rows, cols, generator=g, device=dev) * 1.5
@@ -48,6 +55,10 @@ def _case(dev, spec, p, num_beams, static, dtype, seed=0):
     dist = 0.1 + 0.9 * torch.rand(num_beams, generator=g, device=dev)
     valid = torch.rand(num_beams, generator=g, device=dev) < 0.8
     present = torch.rand(num_beams, generator=g, device=dev) < 0.9
+    if scan == "far":
+        dist[::3] = 1.0 + 4.0 * torch.rand(dist[::3].shape, generator=g,
+                                           device=dev)
+        _edge_poses(poses, spec)
     dphi = math.radians(1.0) if static else torch.tensor(
         math.radians(1.0), device=dev)
     args = (grids.to(dtype), poses, torch.tensor(0.1, device=dev), dist,
@@ -55,22 +66,35 @@ def _case(dev, spec, p, num_beams, static, dtype, seed=0):
     return args, dict(ancestors=anc, dphi=dphi)
 
 
+def _edge_poses(poses, spec):
+    """Six poses on the grid's column and row edges and corners."""
+    x0, y0 = spec.position_x + 0.01, spec.position_y + 0.01
+    x1 = spec.position_x + spec.width - 0.01
+    y1 = spec.position_y + spec.height - 0.01
+    poses[0, 0], poses[1, 0], poses[2, 1], poses[3, 1] = x0, x1, y0, y1
+    poses[4, 0], poses[4, 1], poses[5, 0], poses[5, 1] = x0, y0, x1, y1
+
+
+def _max_diff(a, b):
+    return float((a.float() - b.float()).abs().max())
+
+
+@pytest.mark.parametrize("scan", ["within", "far"])
 @pytest.mark.parametrize("height", [4.0, 3.9])  # 80 rows, and 78 (rows % 8)
 @pytest.mark.parametrize("num_beams", [360, 90])
 @pytest.mark.parametrize("static", [True, False], ids=["static", "traced"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-def test_kernel_matches_plain(dev, height, num_beams, static, dtype):
+def test_kernel_matches_plain(dev, height, num_beams, static, dtype, scan):
     spec = GridSpec2D(-2.0, -2.0, 4.0, height, 0.05)
-    args, kw = _case(dev, spec, 64, num_beams, static, dtype)
+    args, kw = _case(dev, spec, 64, num_beams, static, dtype, scan=scan)
     before = fused.fused_update.launches
     g_k, l_k = fused.fused_update(*args, **kw)
     torch.cuda.synchronize()
     assert fused.fused_update.launches == before + 1
     g_p, l_p = fused.fused_update_reference(*args, **kw)
     assert g_k.dtype == dtype and g_k.shape == args[0].shape
-    flip = float(((g_k.float() - g_p.float()).abs() > 0.01).float().mean())
-    assert flip < 1e-4, flip
+    assert _max_diff(g_k, g_p) == 0.0
     torch.testing.assert_close(l_k, l_p, rtol=1e-5, atol=1e-4)
 
 
@@ -89,15 +113,12 @@ def test_wrapper_checks_inputs(dev):
         fused.fused_update(args[0], args[1].cpu(), *args[2:], **kw)
 
 
-def _flip(a, b):
-    return float(((a.float() - b.float()).abs() > 0.01).float().mean())
-
-
+@pytest.mark.parametrize("scan", ["within", "far"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-def test_in_place_matches_plain_and_lineage_mode(dev, dtype):
+def test_in_place_matches_plain_and_lineage_mode(dev, dtype, scan):
     spec = GridSpec2D(-2.0, -2.0, 4.0, 3.9, 0.05)
-    args, kw = _case(dev, spec, 64, 360, True, dtype)
+    args, kw = _case(dev, spec, 64, 360, True, dtype, scan=scan)
     g_lin, l_lin = fused.fused_update(*args, dphi=kw["dphi"])
     g_plain, l_plain = fused.fused_update_reference(
         args[0].clone(), *args[1:], dphi=kw["dphi"], in_place=True)
@@ -109,7 +130,7 @@ def test_in_place_matches_plain_and_lineage_mode(dev, dtype):
     assert fused.fused_update.in_place_launches == before + 1
     assert g_in.data_ptr() == grids.data_ptr()
     assert torch.equal(g_in, g_lin) and torch.equal(l_in, l_lin)
-    assert _flip(g_in, g_plain) < 1e-4
+    assert _max_diff(g_in, g_plain) == 0.0
     torch.testing.assert_close(l_in, l_plain, rtol=1e-5, atol=1e-4)
 
 
@@ -152,9 +173,10 @@ def _random_pool(dev, spec, p, g):
     return pool, table
 
 
+@pytest.mark.parametrize("scan", ["within", "far"])
 @pytest.mark.parametrize("geom", list(TILED_SPECS))
 @pytest.mark.parametrize("static", [True, False], ids=["static", "traced"])
-def test_tiled_matches_plain_and_dense(dev, geom, static):
+def test_tiled_matches_plain_and_dense(dev, geom, static, scan):
     spec = TILED_SPECS[geom]
     p = 64
     g = torch.Generator(device=dev).manual_seed(2)
@@ -163,19 +185,29 @@ def test_tiled_matches_plain_and_dense(dev, geom, static):
     table_k = table_p = table
     for step in range(3):
         args, kw = _case(dev, spec, p, 360, static, torch.bfloat16,
-                         seed=10 + step)
+                         seed=10 + step, scan=scan)
         _, poses, a0, dist, valid, present = args[:6]
         lo = torch.tensor([spec.position_x, spec.position_y], device=dev)
         span = torch.tensor([spec.width, spec.height], device=dev)
         poses[:, :2] = lo + span * torch.rand(p, 2, generator=g, device=dev)
         poses[0, 1] = spec.position_y + 0.01
         poses[1, 1] = spec.position_y + spec.height - 0.01
+        if scan == "far":
+            _edge_poses(poses, spec)
         anc = torch.sort(torch.randint(0, p, (p,), generator=g, device=dev,
                                        dtype=torch.int32))[0]
         rest = (poses, a0, dist, valid, present, spec, 360, 1.0)
         dense = tiles.materialize(pool_k, table_k, spec).contiguous()
         g_d, l_d = fused.fused_update(dense, *rest, ancestors=anc,
                                       dphi=kw["dphi"])
+        # K1 is K3 wherever both windows start on the same row: always
+        # within the range, and past it (far) off the top edge, where the
+        # tiled origin clips into the band padding
+        same = fused.prepare(spec.rows, dense.shape[2], *rest[:5], spec, 360,
+                             1.0, kw["dphi"]).r0 == tiles.plan_step(
+            pool_k, table_k, *rest, dphi=kw["dphi"], ancestors=anc).prep.r0
+        if scan == "within":
+            same[:] = True
         before = tiles.fused_update_tiled.launches
         _, table_k, l_k = tiles.fused_update_tiled(
             pool_k, table_k, *rest, dphi=kw["dphi"], ancestors=anc)
@@ -189,9 +221,10 @@ def test_tiled_matches_plain_and_dense(dev, geom, static):
         table_p = step_p.new_table
         assert torch.equal(table_k, table_p)
         m_k = tiles.materialize(pool_k, table_k, spec)
-        assert _flip(m_k, tiles.materialize(pool_p, table_p, spec)) < 1e-4
+        assert _max_diff(m_k, tiles.materialize(pool_p, table_p, spec)) == 0
         torch.testing.assert_close(l_k, l_p, rtol=1e-5, atol=1e-4)
-        assert torch.equal(m_k, g_d) and torch.equal(l_k, l_d)
+        assert torch.equal(m_k[same], g_d[same])
+        assert torch.equal(l_k[same], l_d[same])
         assert not m_k[:, :, spec.cols:].any()
 
 

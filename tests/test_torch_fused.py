@@ -9,6 +9,12 @@ flips: the TPU kernel uses a minimax polynomial, the port the library
 atan2), and the likelihood within rtol 1e-5 / atol 1e-4 (sums taken in
 another order).  The CUDA kernel itself runs only on a GPU; chip_smoke.py
 holds it against this plain version there.
+
+The kernel computes only the scan disc's bounding box
+(``cell_pass_box``); the box tests show that the plain version, and the
+JAX reference it copies, change no cell outside that box, by value (a
+``-0.0`` cell is the one difference bits could show: the full-width pass
+turns it into ``+0.0``; no map grown from a ``+0`` prior holds one).
 """
 
 import math
@@ -189,3 +195,98 @@ def test_prepare_rejects_unsupported_geometry():
                         torch.from_numpy(poses), 0.0, torch.from_numpy(dist),
                         torch.from_numpy(valid), torch.from_numpy(present),
                         spec, 360, 1.0)
+
+
+BOX_SPEC = (-3.2, -3.2, 12.8, 6.4, 0.05)  # 128 x 256 cells
+CONFIG3 = (-25.0, -25.0, 50.0, 50.0, 0.05)  # 1,000 x 1,000 cells
+P_BOX = 8
+
+
+def _box_case(scan, seed=5):
+    """Maps, poses and a scan for the box tests.  ``within``: beams inside
+    the 1 m range; ``over_range``: a third of them out to 5 m, past the
+    range and the quantizer's cap (511 x 0.125 cells); ``unquantized``:
+    382 beams (no quantization) with one 4 m beam; ``edges``: poses on the
+    grid's column and row edges and corners; ``config3``: BASELINE config
+    3's 50 x 50 m grid."""
+    x, y, w, h, res = geom = CONFIG3 if scan == "config3" else BOX_SPEC
+    spec = TSpec(*geom)
+    rng = np.random.default_rng(seed)
+    nb = 382 if scan == "unquantized" else 360
+    cols = (spec.cols + 127) // 128 * 128
+    grids = rng.normal(scale=1.5, size=(P_BOX, spec.rows, cols)).astype(
+        np.float32)
+    grids[rng.uniform(size=grids.shape) < 0.3] = 0.0
+    poses = np.stack([rng.uniform(x + 0.3, x + w - 0.3, P_BOX),
+                      rng.uniform(y + 0.3, y + h - 0.3, P_BOX),
+                      rng.uniform(-3.0, 3.0, P_BOX)], -1).astype(np.float32)
+    dist = rng.uniform(0.1, 1.0, nb).astype(np.float32)
+    valid = rng.uniform(size=nb) < 0.8
+    present = rng.uniform(size=nb) < 0.9
+    if scan == "over_range":
+        dist[::3] = rng.uniform(1.0, 5.0, dist[::3].shape)
+    if scan == "unquantized":
+        dist[7], valid[7], present[7] = 4.0, True, True
+    if scan == "edges":
+        poses[0, 0], poses[1, 0] = x + 0.01, x + w - 0.01
+        poses[2, 1], poses[3, 1] = y + 0.01, y + h - 0.01
+        poses[4, :2] = x + 0.01, y + 0.01
+        poses[5, :2] = x + w - 0.01, y + h - 0.01
+    dphi = 2 * math.pi / nb if scan == "unquantized" else DPHI
+    return spec, geom, grids, poses, dist, valid, present, nb, dphi
+
+
+def _box_mask(prep, shape, align=1):
+    """[P, rows, cols] True on the cells of ``cell_pass_box``."""
+    p, rows, cols = shape
+    y0, y1, x0, x1 = tf.cell_pass_box(prep, cols, align)
+    gy = torch.arange(rows)[None, :] - prep.r0.long()[:, None]
+    gx = torch.arange(cols)[None, :]
+    in_y = (gy >= y0.long()[:, None]) & (gy < y1.long()[:, None])
+    in_x = (gx >= x0.long()[:, None]) & (gx < x1.long()[:, None])
+    return in_y[:, :, None] & in_x[:, None, :]
+
+
+@pytest.mark.parametrize("scan", ["within", "over_range", "unquantized",
+                                  "edges", "config3"])
+@pytest.mark.parametrize("static", [True, False], ids=["static", "traced"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_update_changes_only_the_box(scan, static, dtype):
+    spec, geom, grids, poses, dist, valid, present, nb, dphi = _box_case(scan)
+    tdphi = dphi if static else torch.tensor(dphi, dtype=torch.float32)
+    g = torch.from_numpy(grids).to(getattr(torch, dtype))
+    scan_args = (torch.from_numpy(poses), 0.1, torch.from_numpy(dist),
+                 torch.from_numpy(valid), torch.from_numpy(present))
+    out, _ = tf.fused_update(g, *scan_args, spec, nb, 1.0, dphi=tdphi)
+    prep = tf.prepare(g.shape[1], g.shape[2], *scan_args, spec, nb, 1.0,
+                      tdphi)
+    box = _box_mask(prep, g.shape)
+    changed = out != g
+    assert changed.any() and not (changed & ~box).any()
+
+    # the kernels' 16-byte columns hold the box and are whole words
+    align = 16 // g.element_size()
+    x0 = tf.cell_pass_box(prep, g.shape[2], align)[2]
+    assert not (x0 % align).any()
+    assert not (box & ~_box_mask(prep, g.shape, align)).any()
+    # the box follows the scan: past the range it is wider than the disc
+    # that max_range_m gives, and cells out there change
+    cx = prep.pp[:, 0]
+    dx = (torch.arange(g.shape[2])[None, :] + 0.5 - cx[:, None]).abs()
+    far = dx[:, None, :] > tf.disc_half(spec, 1.0) + 1
+    assert bool((changed & far).any()) == (scan in ("over_range",
+                                                    "unquantized"))
+    if scan == "config3":
+        window = P_BOX * prep.wr * g.shape[2]
+        cells = int(_box_mask(prep, g.shape, align).sum())
+        assert cells * 10 <= window, (cells, window)
+        return
+    # the JAX reference the plain version copies changes no other cell
+    jdphi = dphi if static else jnp.float32(dphi)
+    jg = jnp.asarray(grids).astype(dtype)
+    jout, _ = jf.fused_update_reference(jg, poses, np.float32(0.1), dist,
+                                        valid, present, JSpec(*geom), nb,
+                                        1.0, dphi=jdphi)
+    j_changed = np.asarray(jout.astype(jnp.float32)) != \
+        np.asarray(jg.astype(jnp.float32))
+    assert j_changed.any() and not (j_changed & ~box.numpy()).any()

@@ -11,7 +11,9 @@ atan2 is a polynomial, the port's the library's), the likelihood within
 rtol 1e-5 / atol 1e-4 (sums in another order), tables equal on the 2-band
 geometries (the JAX package's k-span window merge, not ported, moves some
 windows and so privatizes other bands), and the padded column tail
-exactly 0.  The port's tiled plain version is also bitwise its dense one.
+exactly 0.  The port's tiled plain version is also bitwise its dense one,
+and changes no materialized cell outside ``cell_pass_box``, the box the
+kernels compute.
 """
 
 import jax
@@ -173,11 +175,18 @@ def test_tiled_update_matches_jax(geom, static):
         assert (tm[:, :, ts.cols:] == 0).all()
 
 
+@pytest.mark.parametrize("scan", ["within", "far"])
 @pytest.mark.parametrize("geom", ["2band", "wide", "kspan"])
-def test_tiled_plain_is_dense_plain(geom):
+def test_tiled_plain_is_dense_plain(geom, scan):
     """The tiled plain update on materialized maps is bitwise the dense
     plain update with the same lineage, whatever window row origin each
-    picks."""
+    picks, as long as the scan stays in range.  With beams past the range
+    (``far``: a third out to 5 m) a particle within half a window of the
+    top edge differs where the bands run past the grid: the tiled window
+    origin clips into the band padding and the dense one into the grid,
+    so over-range beams mark other rows and see other endpoints (both
+    packages pick their origins so).  Every particle whose two windows
+    start on the same row stays bitwise equal."""
     ts = TSpec(*GEOMS[geom])
     pool, table = _random_state(geom, 3)
     tpool = torch.from_numpy(pool).to(torch.bfloat16)
@@ -185,17 +194,27 @@ def test_tiled_plain_is_dense_plain(geom):
     rng = np.random.default_rng(4)
     for step in range(3):
         poses, dist, valid, present, anc = _step_inputs(geom, rng, step)
+        if scan == "far":
+            dist[::3] = rng.uniform(1.0, 5.0, dist[::3].shape)
         args = (torch.from_numpy(poses), 0.05, torch.from_numpy(dist),
                 torch.from_numpy(valid), torch.from_numpy(present), ts, B,
                 1.0)
+        anc_t = torch.from_numpy(anc)
         dense = tt.materialize(tpool, ttab, ts).contiguous()
         dg, dl = tf.fused_update(dense, *args, dphi=2 * np.pi / B,
-                                 ancestors=torch.from_numpy(anc))
+                                 ancestors=anc_t)
+        same = tt.plan_step(tpool, ttab, *args, dphi=2 * np.pi / B,
+                            ancestors=anc_t).prep.r0 == tf.prepare(
+            ts.rows, dense.shape[2], *args[:5], ts, B, 1.0,
+            2 * np.pi / B).r0
         tpool, ttab, tl = tt.fused_update_tiled(
-            tpool, ttab, *args, dphi=2 * np.pi / B,
-            ancestors=torch.from_numpy(anc))
-        assert torch.equal(tt.materialize(tpool, ttab, ts), dg)
-        assert torch.equal(tl, dl)
+            tpool, ttab, *args, dphi=2 * np.pi / B, ancestors=anc_t)
+        if scan == "within":
+            same[:] = True
+        elif step == 1 and geom != "kspan":  # padded rows past the grid:
+            assert not bool(same[1])  # the top-edge windows start apart
+        assert torch.equal(tt.materialize(tpool, ttab, ts)[same], dg[same])
+        assert torch.equal(tl[same], dl[same])
 
 
 def test_tiled_wrapper_rejects_bad_inputs_before_any_launch():
@@ -219,3 +238,45 @@ def test_tiled_wrapper_rejects_bad_inputs_before_any_launch():
     with pytest.raises(ValueError, match="too small"):
         tt.tiled_plan(torch.zeros(P, 5, dtype=torch.int32),
                       torch.zeros(P, dtype=torch.int32), P * 5 + P)
+
+
+@pytest.mark.parametrize("scan", ["within", "over_range", "edges"])
+@pytest.mark.parametrize("geom", ["2band", "kspan"])
+def test_tiled_plain_changes_only_the_box(geom, scan):
+    """Over an update with a lineage relabel, the materialized maps change
+    only inside the box, by value, with beams inside the range, beams
+    past it (out to 5 m, past the quantizer's cap), and poses on the
+    grid's column and row edges."""
+    ts = TSpec(*GEOMS[geom])
+    x, y, w, h, _ = GEOMS[geom]
+    pool, table = _random_state(geom, 5)
+    tpool = torch.from_numpy(pool).to(torch.bfloat16)
+    ttab = torch.from_numpy(table)
+    rng = np.random.default_rng(6)
+    poses, dist, valid, present, anc = _step_inputs(geom, rng, 0)
+    if scan == "over_range":
+        dist[::3] = rng.uniform(1.0, 5.0, dist[::3].shape)
+    if scan == "edges":
+        poses[0, 0], poses[1, 0] = x + 0.01, x + w - 0.01
+        poses[2, 1], poses[3, 1] = y + 0.01, y + h - 0.01
+        poses[4, :2] = x + 0.01, y + 0.01
+        poses[5, :2] = x + w - 0.01, y + h - 0.01
+    args = (torch.from_numpy(poses), 0.05, torch.from_numpy(dist),
+            torch.from_numpy(valid), torch.from_numpy(present), ts, B, 1.0)
+    anc = torch.from_numpy(anc)
+    before = tt.materialize(tpool, ttab[anc.long()])
+    step = tt.plan_step(tpool, ttab, *args, dphi=2 * np.pi / B,
+                        ancestors=anc)
+    tpool, ttab, _ = tt.fused_update_tiled(tpool, ttab, *args,
+                                           dphi=2 * np.pi / B, ancestors=anc)
+    after = tt.materialize(tpool, ttab)
+    p, rows, cols = after.shape
+    y0, y1, x0, x1 = tf.cell_pass_box(step.prep, cols)
+    gy = torch.arange(rows)[None, :] - step.prep.r0.long()[:, None]
+    gx = torch.arange(cols)[None, :]
+    box = (((gy >= y0.long()[:, None]) & (gy < y1.long()[:, None]))[:, :, None]
+           & ((gx >= x0.long()[:, None]) & (gx < x1.long()[:, None]))[:, None])
+    changed = after != before
+    assert changed.any() and not (changed & ~box).any()
+    if scan == "over_range":  # wider than the disc of max_range_m
+        assert bool(((x1 - x0) > 2 * (tf.disc_half(ts, 1.0) + 2)).any())
