@@ -9,7 +9,10 @@ Phases, each printing one line, any failure raising (exit code != 0):
 
 1. device: requires CUDA (no CPU path) and prints the card's name and
    power limit from nvidia-smi;
-2. build: compiles the CUDA kernels from ``slamrs_tpu_torch/csrc``;
+2. build: compiles the CUDA kernels from ``slamrs_tpu_torch/csrc``, then
+   counts the CUDA launches of one K4 call at bench.py's ICP batch and at
+   the ICP mapper's shape under ``torch.profiler`` (gate: one kernel, no
+   memset);
 3. kernel vs plain version at ``[1024, 80, 128]`` bf16 (0.05 m) and
 4. at ``[1024, 200, 256]`` bf16 (0.02 m): static and traced beam
    spacing, the 360-beam scan, a 90-beam partial sector with mixed flags,
@@ -71,9 +74,12 @@ then ICP odometry (BASELINE config 1) and EKF landmark SLAM:
 13. K4 (nearest neighbours) against its plain version, indices bitwise,
     on bench.py's ICP batch (2,048 problems of 360 x 360), at the ICP
     mapper's shape ``[1, 360] x [1, 16384]`` with ``q_count`` in {0, 1,
-    360, 10000, 16384}, on a cloud of duplicated points (ties go to the
-    first index) and far from the origin (negative distances, many exact
-    ties);
+    43, 44, 45, 360, 372, 373, 374, 10000, 16384} (both edges of its
+    44-chunk q split), on clouds of duplicated points within a chunk and
+    across chunks (ties go to the first index), far from the origin
+    (many exact ties), with negative distances, at coordinates near
+    1e-20 m (subnormal products), with +-0 coordinates (ties at d2 = 0),
+    and with 1, 33 and 361 source points;
 14. the ICP world: ``compile_world(configs/icp_test.yaml)`` for 900 ticks;
     K4 launches 10 times per frame, the map fills its 16,384 points,
     outputs are finite and the ICP pose RMSE is <= 0.04 m (the JAX package
@@ -85,10 +91,13 @@ then ICP odometry (BASELINE config 1) and EKF landmark SLAM:
 16. one ICP mapper update at the full map and one EKF update under
     ``torch.cuda.set_sync_debug_mode("error")``;
 17. times: K4, its plain version and the XLA form in torch (``baddbmm``,
-    mask, ``argmin``) at bench.py's batch and the mapper's shape; batched
-    ICP iterations per second at bench.py's batch; warm 900-tick ICP and
+    mask, ``argmin``) at bench.py's batch and the mapper's shape, with
+    the CUDA launches of one K4 call (from phase 2) and K4's bound over
+    the q lanes below
+    ``q_count`` (the figure over all lanes beside it); batched ICP
+    iterations per second at bench.py's batch; warm 900-tick ICP and
     300-tick EKF rollouts with their peak memory; a profiled 300-tick ICP
-    run.
+    run with K4's own device time and launches.
 
 Every kernel's bound is the larger of the bytes it must move at
 3.35 TB/s and its float32 operations at 67 TFLOP/s (the published H100
@@ -128,6 +137,9 @@ EKF_RMSE_GATE_M = 0.03
 # float32 operations per (p, q) pair of K4: px*qx, py*qy, their sum, the
 # doubling, the subtraction and the compare
 NN_PAIR_OPS = 6
+# thread instructions the H100 SXM issues a second: 132 SMs x 4
+# schedulers x 32 lanes at its 1.98 GHz boost clock
+H100_ISSUE_SLOTS_PER_S = 132 * 128 * 1.98e9
 YAML_SCRIPT = [[4.0, 0.05, 0.08], [8.0, 0.08, 0.05], [999.0, 0.06, 0.06]]
 YAML_RECTS = [(-1.0, -1.0, 2.0, 2.0), (-0.1, -0.4, 0.5, 0.1),
               (-0.6, 0.4, 0.2, 0.5)]
@@ -836,24 +848,34 @@ def time_config3_rollouts(torch):
         del state, outs
 
 
-def profile_rollout(torch, fw, label, n_steps=300):
-    """Device busy time, idle share and launches of a profiled run."""
+def profile_rollout(torch, fw, label, n_steps=300, kernel=None):
+    """Device busy time, idle share and launches of a profiled run; with
+    ``kernel``, the device time and launches of the kernels whose name
+    holds it."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fw.rollout_cadence(fw.init(), n_steps, seed=1)
+        _, outs = fw.rollout_cadence(fw.init(), n_steps, seed=1)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     device = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
     device_s = sum(e.self_device_time_total for e in device) / 1e6
     top = max(device, key=lambda e: e.self_device_time_total)
+    extra = {}
+    if kernel is not None:
+        mine = [e for e in device if kernel in e.key]
+        extra = {f"{kernel}_s": sum(e.self_device_time_total
+                                    for e in mine) / 1e6,
+                 f"{kernel}_launches": sum(e.count for e in mine),
+                 "frames": int(outs.fired.shape[0])}
     emit({"phase": f"profile_{label}", "wall_s_profiled": wall,
           "device_busy_s": device_s, "idle_share": 1 - device_s / wall,
           "kernel_launches": sum(e.count for e in device),
           "top_kernel": top.key[:60], "top_kernel_s":
-          top.self_device_time_total / 1e6, "top_kernel_count": top.count})
+          top.self_device_time_total / 1e6, "top_kernel_count": top.count,
+          **extra})
 
 
 def bench_icp_inputs(torch, batch=2048, beams=360):
@@ -878,7 +900,9 @@ def nn_cases(torch):
     cases = {"bench_2048x360x360": bench_icp_inputs(torch)}
     p = torch.rand(1, 360, 2, generator=g, device="cuda") * 2 - 1
     q = torch.rand(1, 16384, 2, generator=g, device="cuda") * 2 - 1
-    for qc in (0, 1, 360, 10000, 16384):
+    # the mapper's q split is 44 chunks of ceil(q_count / 44) lanes (at
+    # most 373): counts around both edges
+    for qc in (0, 1, 43, 44, 45, 360, 372, 373, 374, 10000, 16384):
         cases[f"mapper_1x360x16384_qc{qc}"] = (
             p, q, torch.full((1,), qc, dtype=torch.int32, device="cuda"))
     base = torch.rand(4, 96, 2, generator=g, device="cuda") * 2 - 1
@@ -886,6 +910,30 @@ def nn_cases(torch):
     cases["duplicates_4x360x384"] = (
         torch.rand(4, 360, 2, generator=g, device="cuda") * 2 - 1, dup,
         torch.full((4,), 384, dtype=torch.int32, device="cuda"))
+    # 512 points 32 times over: every point's copies in other chunks
+    tied = (torch.rand(1, 512, 2, generator=g, device="cuda") * 2 - 1
+            ).repeat(1, 32, 1)
+    p_tied = p.clone()
+    p_tied[:, ::3] = tied[:, 5:125]
+    cases["ties_across_chunks_1x360x16384"] = (
+        p_tied, tied, torch.full((1,), 16384, dtype=torch.int32,
+                                 device="cuda"))
+    p4 = torch.rand(4, 360, 2, generator=g, device="cuda") * 2 - 1
+    q4 = torch.rand(4, 1000, 2, generator=g, device="cuda") * 2 - 1
+    ragged = torch.tensor([1000, 999, 37, 1], dtype=torch.int32,
+                          device="cuda")
+    cases["negative_4x360x1000"] = (p4 * 10.0, q4, ragged)
+    cases["tiny_4x360x1000"] = (p4 * 1e-20, q4 * 1e-20, ragged)
+    vals = torch.tensor([0.0, -0.0, 1.0, -1.0], device="cuda")
+    cases["signed_zero_4x360x1000"] = (
+        vals[torch.randint(0, 4, p4.shape, generator=g, device="cuda")],
+        vals[torch.randint(0, 4, q4.shape, generator=g, device="cuda")],
+        ragged)
+    for n_p in (1, 33, 361):
+        cases[f"np{n_p}_4x{n_p}x1000"] = (
+            torch.rand(4, n_p, 2, generator=g, device="cuda") * 2 - 1, q4,
+            torch.tensor([1000, 500, 3, 0], dtype=torch.int32,
+                         device="cuda"))
     far = torch.tensor([1000.0, -2000.0], device="cuda")
     cases["far_8x360x4096"] = (
         far + torch.rand(8, 360, 2, generator=g, device="cuda"),
@@ -915,6 +963,8 @@ def check_nn(torch):
         extra = {}
         if label.startswith("duplicates"):  # the first copy always wins
             extra["first_copy_wins"] = bool((got % 4 == 0).all())
+        if label.startswith("ties_across_chunks"):
+            extra["first_copy_wins"] = bool((got < 512).all())
         emit({"phase": "kernel_vs_plain_nn", "case": label,
               "p": list(p.shape), "q": list(q.shape),
               "q_count": qc.tolist()[:8], "bitwise_equal": diff == 0,
@@ -1054,10 +1104,12 @@ def xla_form_nn(torch, p, q, q_count):
     return torch.argmin(d2, dim=-1).to(torch.int32)
 
 
-def time_nn(torch):
+def time_nn(torch, launched):
     """Device times of K4, its plain version and the XLA form at bench.py's
-    batch and the mapper's shape, with K4's bound; returns the kernels-line
-    numbers of the mapper shape (the main path's) and bench's."""
+    batch and the mapper's shape, with K4's bound and ``launched`` (the
+    CUDA launches of one call, from :func:`check_nn_launches`); returns
+    the kernels-line numbers of the mapper shape (the main path's) and
+    bench's."""
     from slamrs_tpu_torch.ops import icp
 
     cases = nn_cases(torch)
@@ -1065,27 +1117,83 @@ def time_nn(torch):
     for label in ("bench_2048x360x360", "mapper_1x360x16384_qc10000"):
         p, q, qc = cases[label]
         b, n_p, nq = p.shape[0], p.shape[1], q.shape[1]
+        names = launched[label]
         ms = time_call(torch, lambda: icp.launch_kernel(p, q, qc))
         plain_ms = time_call(torch, lambda: icp.nearest_neighbors_reference(
             p, q, qc))
         lib_ms = time_call(torch, lambda: xla_form_nn(torch, p, q, qc))
         lib_diff = int((xla_form_nn(torch, p, q, qc)
                         != icp.launch_kernel(p, q, qc)).sum())
-        nbytes = (b * n_p * 2 + b * nq * 2 + b + b * n_p) * 4
-        pairs = b * n_p * nq
-        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-        t_ops = pairs * NN_PAIR_OPS / PEAK_F32_PER_S * 1e3
-        bound, by = (t_bytes, "bytes") if t_bytes >= t_ops else \
-            (t_ops, "operations")
+        # what these inputs need: the q lanes below q_count; the figure
+        # over every lane beside it
+        filled = int(torch.clamp(qc, 0, nq).sum())
+        bound, by = nn_bound(b * n_p, filled, b)
+        bound_all, _ = nn_bound(b * n_p, b * nq, b)
+        pairs = n_p * filled
         out[label] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                           bound_ms=bound, bound_by=by)
-        emit({"phase": "kernel_time_nn", "case": label, "pairs": pairs,
-              "bytes": nbytes, "kernel_us": ms * 1e3,
+        emit({"phase": "kernel_time_nn", "case": label,
+              "plan": list(icp.nn_plan(b, n_p, nq)),
+              "cuda_launches_per_call": len(names), "launched": names,
+              "pairs": pairs, "pairs_all_lanes": b * n_p * nq,
+              "kernel_us": ms * 1e3,
               "plain_us": plain_ms * 1e3, "xla_form_us": lib_ms * 1e3,
               "xla_form_index_mismatches": lib_diff,
-              "bound_us": bound * 1e3,
-              "bound_by": by, "g_pairs_per_s": pairs / ms / 1e6})
+              "bound_us": bound * 1e3, "bound_by": by,
+              "bound_all_lanes_us": bound_all * 1e3,
+              "g_pairs_per_s": pairs / ms / 1e6,
+              "issue_slots_per_pair": ms * 1e-3 * H100_ISSUE_SLOTS_PER_S
+              / pairs})
     return out
+
+
+def check_nn_launches(torch):
+    """The CUDA kernels and memsets of one K4 call at bench.py's batch and
+    at the mapper's shape, under ``torch.profiler``; gate: one nn_argmin
+    kernel and nothing else.  Runs before any long profiled run in the
+    process (after those, a short profile here recorded no device
+    events)."""
+    from slamrs_tpu_torch.ops import icp
+
+    cases = nn_cases(torch)
+    launched = {}
+    for label in ("bench_2048x360x360", "mapper_1x360x16384_qc10000"):
+        p, q, qc = cases[label]
+        icp.launch_kernel(p, q, qc)  # the arrival counters exist now
+        torch.cuda.synchronize()
+        names = cuda_launches(torch, lambda: icp.launch_kernel(p, q, qc))
+        launched[label] = names
+        emit({"phase": "nn_launches_per_call", "case": label,
+              "cuda_launches": len(names), "launched": names})
+        if len(names) != 1 or "nn_argmin" not in names[0]:
+            raise AssertionError(f"K4 call launched {names}, expected one "
+                                 f"nn_argmin kernel and nothing else")
+    return launched
+
+
+def nn_bound(p_lanes, q_lanes, problems):
+    """(ms, bound_by) of K4 over ``problems`` problems of equal p width,
+    ``p_lanes`` source and ``q_lanes`` reference points in all: each
+    point and count read once, each index written once; 6 float32
+    operations per (p, q) pair of one problem."""
+    nbytes = (p_lanes * 2 + q_lanes * 2 + problems + p_lanes) * 4
+    pairs = p_lanes * q_lanes / problems
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = pairs * NN_PAIR_OPS / PEAK_F32_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def cuda_launches(torch, fn):
+    """Names of the CUDA kernels and memsets that one ``fn()`` puts on the
+    card, from ``torch.profiler`` (one entry per launch)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.key for e in prof.key_averages()
+            if e.device_type.name == "CUDA" for _ in range(e.count)]
 
 
 def time_icp_batch(torch, reps=5):
@@ -1133,7 +1241,8 @@ def time_icp_ekf_rollouts(torch):
               f"{est}_rmse_xy_m": pose_rmse(torch, getattr(outs, est),
                                             outs.pose),
               "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()})
-    profile_rollout(torch, preset_world(torch, "icp_test.yaml"), "icp_300")
+    profile_rollout(torch, preset_world(torch, "icp_test.yaml"), "icp_300",
+                    kernel="nn_argmin")
 
 
 def _spec(geom):
@@ -1165,6 +1274,7 @@ def main() -> int:
           "sources": [src.name for src in kernels.sources()],
           "flags": " ".join(kernels.NVCC_FLAGS)})
 
+    nn_launched = check_nn_launches(torch)
     spec05 = GridSpec2D(-2.0, -2.0, 4.0, 4.0, 0.05)
     spec02 = GridSpec2D(-2.0, -2.0, 4.0, 4.0, 0.02)
     worst = check_kernel(torch, fused, spec05, "0.05m")
@@ -1256,7 +1366,7 @@ def main() -> int:
     ekf_world, ekf_state = check_ekf_world(torch)
     check_icp_ekf_no_host_sync(torch, icp_state.icp, ekf_world,
                                ekf_state.ekf)
-    t4 = time_nn(torch)
+    t4 = time_nn(torch, nn_launched)
     time_icp_batch(torch)
     time_icp_ekf_rollouts(torch)
 

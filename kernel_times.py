@@ -1,10 +1,16 @@
 #!/usr/bin/env python3
-"""Device times of the fused update kernels of the checkout in the working
-directory: K1 in lineage mode at ``[1024, 80, 128]`` and ``[1024, 200,
-256]`` bf16, K1 in place on BASELINE config 3's ``[1024, 1000, 1024]``
-maps, and K3 on the config-3 tile pool after a resample; the inputs and
-the timing (CUDA events, median of 20) are ``chip_smoke.py``'s.  Prints
-one line, ``KERNEL_TIMES {...}``.
+"""Device times of the kernels of the checkout in the working directory:
+K1 in lineage mode at ``[1024, 80, 128]`` and ``[1024, 200, 256]`` bf16,
+K1 in place on BASELINE config 3's ``[1024, 1000, 1024]`` maps, K3 on the
+config-3 tile pool after a resample, and K4 at bench.py's ICP batch
+(``[2048, 360] x [2048, 360]``) and the ICP mapper's shape (``[1, 360] x
+[1, 16384]``, ``q_count`` 10,000, and 0 and 44), with a one-element
+fill as the floor of a launch timed this way; the inputs and the timing
+(CUDA events, median of 20) are ``chip_smoke.py``'s.  Then a profiled
+300-tick ICP run (``configs/icp_test.yaml``): device busy time, K4's
+share of it and its launches, and the memsets; and ptxas's register,
+spill and shared-memory lines per source.  Prints one line,
+``KERNEL_TIMES {...}``.
 
 Run from the root of a checkout on a machine with one NVIDIA GPU.  To
 compare two commits on one card, unpack the other one (``git archive``)
@@ -16,6 +22,8 @@ root in turns, the path of this file given from the other:
 """
 
 import json
+import os
+import subprocess
 import sys
 
 sys.path.insert(0, ".")  # the checkout in the working directory
@@ -26,14 +34,15 @@ def main() -> int:
 
     import chip_smoke as cs
     from slamrs_tpu_torch import kernels
-    from slamrs_tpu_torch.ops import fused, tiles
+    from slamrs_tpu_torch.ops import fused, icp, tiles
     from slamrs_tpu_torch.ops.grid import GridSpec2D
 
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times: CUDA is not available")
     kernels.build(force=True)
     kernels.library()
-    out = {"tree": sys.argv[1] if len(sys.argv) > 1 else "."}
+    out = {"tree": sys.argv[1] if len(sys.argv) > 1 else ".",
+           "ptxas": ptxas_stats(kernels)}
     for label, res in (("0.05m", 0.05), ("0.02m", 0.02)):
         spec = GridSpec2D(-2.0, -2.0, 4.0, 4.0, res)
         args, kw = cs.kernel_case(torch, fused, spec, 1024, 3, 360, True)
@@ -61,8 +70,65 @@ def main() -> int:
                          dphi=dphi, ancestors=anc)
     out["k3_config3_ms"] = cs.time_call(
         torch, lambda: tiles.launch_kernel(pool, st, spec, 360))
+    del pool
+    # K4 at bench.py's batch and the ICP mapper's shape (q_count 10,000);
+    # at the mapper's shape also with q_count 0 (no pairs) and 44 (one
+    # pair a lane in each of 44 chunks), where a tree has those sets, and
+    # a one-element fill as the floor of a launch timed this way
+    cases = cs.nn_cases(torch)
+    for label, key in (("bench_2048x360x360", "k4_bench_us"),
+                       ("mapper_1x360x16384_qc10000", "k4_mapper_us"),
+                       ("mapper_1x360x16384_qc0", "k4_mapper_qc0_us"),
+                       ("mapper_1x360x16384_qc44", "k4_mapper_qc44_us")):
+        if label in cases:
+            p, q, qc = cases[label]
+            out[key] = 1e3 * cs.time_call(
+                torch, lambda: icp.launch_kernel(p, q, qc))
+    out["fill_1_us"] = 1e3 * cs.time_call(
+        torch, lambda: torch.zeros(1, device="cuda"))
+    out.update(icp_run_profile(torch, cs))
     print("KERNEL_TIMES", json.dumps(out), flush=True)
     return 0
+
+
+def ptxas_stats(kernels):
+    """Per source of ``csrc/``, ptxas's lines on registers, spills and
+    shared memory (``-Xptxas -v``, the build's flags)."""
+    procs = {src.name: subprocess.Popen(
+        [kernels.nvcc(), *kernels.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
+         os.devnull, str(src)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for src in kernels.sources()}
+    return {name: [ln.split(":", 1)[-1].strip()
+                   for ln in proc.communicate()[0].splitlines()
+                   if "Used" in ln or "spill" in ln]
+            for name, proc in procs.items()}
+
+
+def icp_run_profile(torch, cs, ticks=300):
+    """A warm ``configs/icp_test.yaml`` run of ``ticks`` ticks under
+    ``torch.profiler``: the device's busy time, K4's share of it (the
+    kernels ``nn_argmin_kernel`` and, before the one-launch design,
+    ``nn_finish_kernel``) and their CUDA launches, and the memsets on the
+    card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fw = cs.preset_world(torch, "icp_test.yaml")
+    fw.rollout_cadence(fw.init(), 30, seed=2)  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fw.rollout_cadence(fw.init(), ticks, seed=1)
+        torch.cuda.synchronize()
+    dev = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    k4 = [e for e in dev if "nn_argmin" in e.key or "nn_finish" in e.key]
+    return {"icp_run_device_ms":
+            sum(e.self_device_time_total for e in dev) / 1e3,
+            "icp_run_launches": sum(e.count for e in dev),
+            "icp_run_k4_device_ms":
+            sum(e.self_device_time_total for e in k4) / 1e3,
+            "icp_run_k4_launches": sum(e.count for e in k4),
+            "icp_run_memsets": sum(e.count for e in dev
+                                   if "memset" in e.key.lower())}
 
 
 if __name__ == "__main__":

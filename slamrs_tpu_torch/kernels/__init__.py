@@ -103,8 +103,10 @@ def library() -> ctypes.CDLL:
                    vp]  # stream
     fn.restype = ci
     fn = lib.slamrs_nn_argmin
-    fn.argtypes = [vp, vp, vp, vp, vp,  # p, q, q_count, keys, out
+    fn.argtypes = [vp, vp, vp, vp, vp, vp,  # p, q, q_count, partials,
+                   # counters, out
                    ci, ci, ci,  # problems, p lanes, q lanes
+                   ci, ci, ci,  # threads per group, groups, chunks
                    vp]  # stream
     fn.restype = ci
     return lib

@@ -18,7 +18,10 @@ the hand-written CUDA kernel ``csrc/nn_argmin.cu``, which replaces the
 Pallas kernel ``slamrs_tpu/ops/icp.py::nearest_neighbors_fused``.  On a
 CPU tensor it runs :func:`nearest_neighbors_reference`, the plain
 PyTorch version of the same per-pair arithmetic; on a CUDA tensor it
-launches the kernel or raises.  The JAX package's XLA form
+launches the kernel, one launch a call, or raises.
+:func:`nearest_neighbors_chunked_reference` is the kernel's split of the
+q axis and its in-order merge, and :func:`nn_plan` its launch shape.
+The JAX package's XLA form
 (``icp.py:158``, a ``[Np, Nq]`` distance matrix through device memory)
 has no counterpart in the port: :func:`nearest_neighbors` keeps its
 contract and routes through K4.
@@ -27,6 +30,7 @@ contract and routes through K4.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -96,8 +100,76 @@ def nearest_neighbors_reference(p: Tensor, q: Tensor,
     return torch.where(q_count[..., None] > 0, idx, 0)
 
 
-def _ptr(t: Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def nearest_neighbors_chunked_reference(p: Tensor, q: Tensor,
+                                        q_count: Tensor,
+                                        chunk: int) -> Tensor:
+    """K4's split and merge in PyTorch (tests and ``chip_smoke.py``
+    only): the lanes ``[0, q_count)`` in chunks of ``chunk``, each chunk's
+    partial the first index of its minimum, the partials merged in chunk
+    order with a strict ``<``; lanes at or past ``q_count`` are skipped,
+    not pushed out by ``1e30``.  Equal to
+    :func:`nearest_neighbors_reference` while every valid ``|d2|`` is far
+    below ``1e30``.  p [..., Np, 2], q [..., Nq, 2] -> i32[..., Np]."""
+    nq = q.shape[-2]
+    qv = torch.clamp(q_count, 0, nq)[..., None, None]
+    qx, qy = q[..., None, :, 0], q[..., None, :, 1]
+    px, py = p[..., :, None, 0], p[..., :, None, 1]
+    d2 = (qx * qx + qy * qy) - 2.0 * (px * qx + py * qy)
+    lane = torch.arange(nq, device=q.device)
+    d2 = torch.where(lane < qv, d2, torch.inf)
+    best = torch.full(d2.shape[:-1], torch.inf, device=q.device)
+    idx = torch.zeros(d2.shape[:-1], dtype=torch.int64, device=q.device)
+    for j0 in range(0, nq, chunk):
+        part = d2[..., j0:j0 + chunk]
+        at = torch.argmin(part, dim=-1)  # the first index of its minimum
+        val = torch.gather(part, -1, at[..., None])[..., 0]
+        take = val < best
+        best = torch.where(take, val, best)
+        idx = torch.where(take, at + j0, idx)
+    idx = torch.clamp_max(idx, nq - 1).to(torch.int32)
+    return torch.where(q_count[..., None] > 0, idx, 0)
+
+
+_LANES = 4  # p lanes per thread of K4
+_SMS = 132  # streaming multiprocessors of an H100 SXM
+_MAX_CHUNK = 2048  # q points a K4 CTA stages: 32 KB of shared memory
+
+
+@functools.lru_cache(maxsize=64)
+def nn_plan(b: int, n_p: int, nq: int) -> tuple[int, int, int]:
+    """K4's launch shape for ``b`` problems of ``n_p`` x ``nq`` lanes:
+    (threads per group ``L``, groups per CTA ``G``, q chunks ``C``).  A
+    CTA holds ``4 L`` p lanes; with enough of those tiles to fill the card
+    twice, two groups of up to three warps, each over half the q axis
+    (bench.py's batch); otherwise 128-lane tiles of eight one-warp groups
+    and the q axis split until the tiles times the chunks fill the 132
+    SMs (the ICP mapper's one problem)."""
+    wide = min(96, -(-n_p // (_LANES * 32)) * 32)
+    tiles = b * -(-n_p // (wide * _LANES))
+    min_chunks = -(-nq // _MAX_CHUNK)
+    if tiles >= 2 * _SMS:
+        return wide, 2, min_chunks
+    tiles = b * -(-n_p // (32 * _LANES))
+    return 32, 8, min(max(-(-_SMS // tiles), min_chunks), nq)
+
+
+_COUNTERS: dict[tuple[int, int], Tensor] = {}
+
+
+def _arrival_counters(device: torch.device, stream: int, n: int) -> Tensor:
+    """K4's per-tile arrival counters on ``device`` for ``stream``: zeros
+    that the kernel leaves at zero, kept across calls (grown, never
+    shrunk), one set per stream so that concurrent calls do not share."""
+    key = (device.index, stream)
+    cnt = _COUNTERS.get(key)
+    if cnt is None or cnt.numel() < n:
+        cnt = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _COUNTERS[key] = cnt
+    return cnt
+
+
+def _ptr(t: Tensor | None) -> ctypes.c_void_p:
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
 def check_inputs(p: Tensor, q: Tensor, q_count: Tensor) -> None:
@@ -148,13 +220,19 @@ def launch_kernel(p: Tensor, q: Tensor, q_count: Tensor) -> Tensor:
 
     lib = kernels.library()
     b, n_p, nq = p.shape[0], p.shape[1], q.shape[1]
+    threads, groups, chunks = nn_plan(b, n_p, nq)
     out = torch.empty((b, n_p), dtype=torch.int32, device=p.device)
-    # 64-bit (distance key, index) per p lane, merged across q chunks
-    keys = torch.empty((b, n_p), dtype=torch.int64, device=p.device)
     with torch.cuda.device(p.device):
         stream = torch.cuda.current_stream(p.device).cuda_stream
-        rc = lib.slamrs_nn_argmin(_ptr(p), _ptr(q), _ptr(q_count), _ptr(keys),
-                                  _ptr(out), b, n_p, nq,
+        partials = counters = None
+        if chunks > 1:  # (d2, index) per lane and chunk, merged on the card
+            tiles = b * -(-n_p // (threads * _LANES))
+            partials = torch.empty(tiles * chunks * threads * _LANES * 2,
+                                   dtype=torch.float32, device=p.device)
+            counters = _arrival_counters(p.device, stream, tiles)
+        rc = lib.slamrs_nn_argmin(_ptr(p), _ptr(q), _ptr(q_count),
+                                  _ptr(partials), _ptr(counters), _ptr(out),
+                                  b, n_p, nq, threads, groups, chunks,
                                   ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"nn_argmin kernel launch failed: CUDA error {rc}")

@@ -272,6 +272,31 @@ def _nn_inputs(dev, case):
              ).repeat_interleave(4, dim=1)
         p = torch.rand(4, 360, 2, generator=g, device=dev) * 2 - 1
         return p, q, torch.full((4,), 384, dtype=torch.int32, device=dev)
+    if case == "ties_across_chunks":  # 512 points 32 times over
+        q = (torch.rand(1, 512, 2, generator=g, device=dev) * 2 - 1
+             ).repeat(1, 32, 1)
+        p = torch.rand(1, 360, 2, generator=g, device=dev) * 2 - 1
+        p[:, ::3] = q[:, 5:125]
+        return p, q, torch.full((1,), 16384, dtype=torch.int32, device=dev)
+    if case in ("negative", "signed_zero", "tiny"):
+        p = torch.rand(4, 360, 2, generator=g, device=dev) * 2 - 1
+        q = torch.rand(4, 1000, 2, generator=g, device=dev) * 2 - 1
+        if case == "negative":  # d2 = q2 - 2 p.q below zero
+            p = p * 10.0
+        elif case == "tiny":  # subnormal products
+            p, q = p * 1e-20, q * 1e-20
+        else:  # many lanes tie at d2 = +0
+            vals = torch.tensor([0.0, -0.0, 1.0, -1.0], device=dev)
+            p = vals[torch.randint(0, 4, p.shape, generator=g, device=dev)]
+            q = vals[torch.randint(0, 4, q.shape, generator=g, device=dev)]
+        return p, q, torch.tensor([1000, 999, 37, 1], dtype=torch.int32,
+                                  device=dev)
+    if case.startswith("np"):  # p lanes not a multiple of 4 x 32
+        n_p = int(case[2:])
+        return (torch.rand(4, n_p, 2, generator=g, device=dev) * 2 - 1,
+                torch.rand(4, 1000, 2, generator=g, device=dev) * 2 - 1,
+                torch.tensor([1000, 500, 3, 0], dtype=torch.int32,
+                             device=dev))
     far = torch.tensor([1000.0, -2000.0], device=dev)
     return (far + torch.rand(8, 360, 2, generator=g, device=dev),
             far + torch.rand(8, 4096, 2, generator=g, device=dev),
@@ -279,9 +304,16 @@ def _nn_inputs(dev, case):
                          dtype=torch.int32, device=dev))
 
 
+# the mapper's q split is 44 chunks of ceil(q_count / 44) lanes (at most
+# 373): counts around both edges
 @pytest.mark.parametrize("case", ["bench", "mapper_0", "mapper_1",
-                                  "mapper_360", "mapper_10000",
-                                  "mapper_16384", "duplicates", "far"])
+                                  "mapper_43", "mapper_44", "mapper_45",
+                                  "mapper_360", "mapper_372", "mapper_373",
+                                  "mapper_374", "mapper_10000",
+                                  "mapper_16384", "duplicates",
+                                  "ties_across_chunks", "negative",
+                                  "signed_zero", "tiny", "np1", "np33",
+                                  "np361", "far"])
 def test_nn_argmin_matches_plain(dev, case):
     p, q, qc = _nn_inputs(dev, case)
     before = icp.nearest_neighbors_fused.launches
@@ -292,8 +324,31 @@ def test_nn_argmin_matches_plain(dev, case):
     assert torch.equal(got, icp.nearest_neighbors_reference(p, q, qc))
     if case == "duplicates":
         assert bool((got % 4 == 0).all())  # ties go to the first copy
+    if case == "ties_across_chunks":
+        assert bool((got < 512).all())
     if case == "mapper_0":
         assert not got.any()
+
+
+@pytest.mark.parametrize("case", ["bench", "mapper_10000"])
+def test_nn_argmin_is_one_launch(dev, case):
+    """One CUDA kernel and no memset per K4 call, under the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    p, q, qc = _nn_inputs(dev, case)
+    if case == "bench":  # bench.py's batch of 2,048 problems
+        p, q = (x[:1].expand(2048, *x.shape[1:]).contiguous() for x in (p, q))
+        qc = torch.full((2048,), 360, dtype=torch.int32, device=dev)
+    icp.nearest_neighbors_fused(p, q, qc)  # counters allocated once
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        icp.nearest_neighbors_fused(p, q, qc)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type.name == "CUDA"]
+    assert sum(e.count for e in events) == 1, [e.key for e in events]
+    assert "nn_argmin" in events[0].key
 
 
 def test_nn_argmin_checks_inputs(dev):

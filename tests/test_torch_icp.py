@@ -70,6 +70,92 @@ def test_nn_reference_matches_jax(case):
         assert not np.any(ours % 2 == 1)
 
 
+NQ_SPLIT = 300
+
+
+def _split_case(name, chunk):
+    """(p [6, 40, 2], q [6, NQ_SPLIT, 2], q_count [6]) as numpy, with
+    q_count 0, 1, chunk - 1, chunk + 1, chunk and Nq (clipped to
+    [0, Nq]).  ``duplicates``: q is 60 points five times over, so every
+    point's copies lie in other chunks (exact ties across chunk edges) and
+    p holds some of them; ``negative``: p ten times farther out than q,
+    so d2 = q2 - 2 p.q is negative; ``signed_zero``: q and p with +-0.0
+    and 1.0 coordinates, so many lanes tie at d2 = +0 (q2 >= +0 makes a
+    -0 distance impossible; the zeros' signs still reach the products);
+    ``far``: the cloud 1,000 / 2,000 m from the origin."""
+    rng = np.random.default_rng(11)
+    p = rng.uniform(-1, 1, (6, 40, 2)).astype(np.float32)
+    q = rng.uniform(-1, 1, (6, NQ_SPLIT, 2)).astype(np.float32)
+    if name == "duplicates":
+        q = np.tile(q[:, :60], (1, 5, 1))
+        p[:, ::2] = q[:, 7:27]
+    elif name == "negative":
+        p = p * np.float32(10.0)
+    elif name == "signed_zero":
+        vals = np.array([0.0, -0.0, 1.0, -1.0], np.float32)
+        q = vals[rng.integers(0, 4, q.shape)]
+        p = vals[rng.integers(0, 4, p.shape)]
+    elif name == "far":
+        off = np.array([1000.0, -2000.0], np.float32)
+        p, q = p + off, q + off
+    qc = np.clip([0, 1, chunk - 1, chunk + 1, chunk, NQ_SPLIT], 0, NQ_SPLIT)
+    return p, q, qc.astype(np.int32)
+
+
+@pytest.mark.parametrize("chunk", [1, 7, 256, NQ_SPLIT - 1, NQ_SPLIT],
+                         ids=["1", "7", "256", "nq-1", "nq"])
+@pytest.mark.parametrize("case", ["duplicates", "negative", "signed_zero",
+                                  "far"])
+def test_nn_chunked_merge_matches_plain(case, chunk):
+    """K4's split of the q axis and in-order merge (the spec the kernel
+    follows) gives the plain version's indices bit for bit."""
+    p, q, qc = (_t(x) for x in _split_case(case, chunk))
+    want = ticp.nearest_neighbors_reference(p, q, qc)
+    got = ticp.nearest_neighbors_chunked_reference(p, q, qc, chunk)
+    assert got.dtype == torch.int32
+    assert torch.equal(got, want)
+    assert not got[0].any()  # q_count 0
+    if case == "negative":
+        pq = (p[:, :, None, :] * q[:, None, :, :]).sum(-1)
+        assert float(((q * q).sum(-1)[:, None, :] - 2 * pq).min()) < 0.0
+    if case == "duplicates":  # the first copy wins across chunk edges
+        live = qc[:, None].expand_as(got) > 60
+        assert bool((got[live] < 60).all())
+
+
+@pytest.mark.parametrize("shape", [(2048, 360, 360), (1, 360, 16384),
+                                   (8, 360, 4096), (4, 360, 384),
+                                   (2, 1, 50), (2, 33, 50), (2, 361, 50)],
+                         ids=["bench", "mapper", "far", "duplicates",
+                              "np1", "np33", "np361"])
+def test_nn_plan_fills_the_card_and_splits_exactly(shape):
+    """The launch shape fits the kernel's limits and fills 132 SMs; the
+    q split it gives (each problem's filled lanes in ``C`` chunks of
+    ``ceil(q_count / C)``) merges to the plain version's indices."""
+    b, n_p, nq = shape
+    threads, groups, chunks = ticp.nn_plan(b, n_p, nq)
+    tile = threads * 4
+    tiles = b * -(-n_p // tile)
+    smem = -(-nq // chunks) * 16 + tile * 8 * groups
+    assert threads % 32 == 0 and threads * groups <= 1024
+    assert smem <= 48 * 1024 and 1 <= chunks <= min(nq, 65535)
+    assert tiles * chunks >= min(132, tiles * nq)  # one q lane a CTA at least
+    if shape[0] == 2048:
+        assert (threads, groups, chunks) == (96, 2, 1)  # no chunk merge
+    if shape == (1, 360, 16384):
+        assert tiles * chunks == 132
+    rng = np.random.default_rng(12)
+    b = min(b, 4)  # the split is per problem
+    p = _t(rng.uniform(-1, 1, (b, n_p, 2)).astype(np.float32))
+    q = _t(rng.uniform(-1, 1, (b, nq, 2)).astype(np.float32))
+    for qc in {0, 1, chunks - 1, chunks + 1, nq // 3, nq}:
+        qcs = torch.full((b,), max(qc, 0), dtype=torch.int32)
+        chunk = max(1, -(-max(qc, 0) // chunks))
+        torch.testing.assert_close(
+            ticp.nearest_neighbors_chunked_reference(p, q, qcs, chunk),
+            ticp.nearest_neighbors_reference(p, q, qcs), rtol=0, atol=0)
+
+
 @pytest.mark.parametrize("batch", [(), (2, 3)], ids=["single", "batch2x3"])
 def test_nearest_neighbors_over_leading_dims(batch):
     rng = np.random.default_rng(1)
