@@ -97,7 +97,40 @@ then ICP odometry (BASELINE config 1) and EKF landmark SLAM:
     ``q_count`` (the figure over all lanes beside it); batched ICP
     iterations per second at bench.py's batch; warm 900-tick ICP and
     300-tick EKF rollouts with their peak memory; a profiled 300-tick ICP
-    run with K4's own device time and launches.
+    run with K4's own device time and launches;
+
+then grid SLAM's dda (the default ``integrate``, the fidelity path) and
+dense integrators, plain PyTorch with no kernel of their own:
+
+18. the grid functions on the card against the same on the CPU, on
+    random 1,024-particle inputs at 0.05 m (edge poses, beams past the
+    range): ``traverse_ray`` on identical grid coordinates bitwise;
+    ``grid_integrate`` and ``grid_integrate_dense`` on >= 99.9 % of cells
+    within 5e-3 (``tests/test_parity.py``'s map gate: the card's cos, sin
+    and atan2 are a few ulps from the CPU's); ``grid_log_likelihood``
+    within rtol 1e-5 / atol 1e-4 on >= 99.9 % of the particles;
+    ``grid_integrate`` twice on the card bitwise equal (the sort-based
+    ``index_put_`` accumulate); the device time of each;
+19. ``compile_world(configs/grid_slam.yaml)`` (dda, 10 particles at
+    0.02 m) for 300 ticks with numpy draws injected: no kernel launched,
+    finite outputs, weights summing to 1, best-pose RMSE <= 0.15 m (the
+    JAX package gives 0.012-0.052 m on the CPU over seeds 0-2); the same
+    ticks and draws on the CPU: best poses within 0.04 m (2 cells) RMSE,
+    and the frames whose ancestors differ are printed;
+20. ``make_fused`` with the headline's scene and cadence at
+    ``integrate="dda"`` and ``"dense"`` (1,024 particles, 0.05 m, maps
+    ``f32[1024, 80, 80]``: bench.py's ``dda_parity_path`` shape) for 300
+    ticks: no kernel launched, finite outputs, RMSE <= 0.08 m (the JAX
+    package gives 0.018 and 0.027 m on the CPU);
+21. ``tests/test_path_deviation.py`` on the card (its scene, odometry and
+    draws, carried here as numbers): fused (K1 once per update), dense and
+    dda; best-pose RMSE against dda <= 2 cells and occupancy agreement
+    >= 90 % of the touched cells;
+22. one dda and one dense update at the headline shape under
+    ``torch.cuda.set_sync_debug_mode("error")``;
+23. times: warm 300-tick dda, dense and ``grid_slam.yaml`` runs (ticks/s,
+    peak memory) and a profiled 300-tick dda run (device busy time, idle
+    share, launches per tick).
 
 Every kernel's bound is the larger of the bytes it must move at
 3.35 TB/s and its float32 operations at 67 TFLOP/s (the published H100
@@ -264,15 +297,19 @@ def time_call(torch, fn, reps=20, warmup=3, hide_host=True) -> float:
     return statistics.median(times)
 
 
-def headline_world(torch, resolution):
+def headline_world(torch, resolution, integrate="fused",
+                   grid_dtype="bfloat16"):
+    """``make_fused`` with the ``configs/grid_slam_fused.yaml`` values
+    (1,024 particles, 4 x 4 m, N_eff gate 0.5, scan every 0.2 s) at
+    ``integrate``; the dda and dense maps are f32 and unpadded."""
     from slamrs_tpu_torch.graph.compile import make_fused
     from slamrs_tpu_torch.models.gridslam import GridSlamConfig
     from slamrs_tpu_torch.models.simulator import Scene, SimParams
 
     cfg = GridSlamConfig(position_x=-2.0, position_y=-2.0, width=4.0,
                          height=4.0, resolution=resolution, n_particles=1024,
-                         max_scan_range=1.0, integrate="fused",
-                         resample_neff_frac=0.5, grid_dtype="bfloat16")
+                         max_scan_range=1.0, integrate=integrate,
+                         resample_neff_frac=0.5, grid_dtype=grid_dtype)
     return make_fused(
         scene=Scene.build(rects=YAML_RECTS, lines=YAML_LINES, device="cuda"),
         params=SimParams.make(wheel_base=0.1, update_period=0.2,
@@ -873,6 +910,7 @@ def profile_rollout(torch, fw, label, n_steps=300, kernel=None):
     emit({"phase": f"profile_{label}", "wall_s_profiled": wall,
           "device_busy_s": device_s, "idle_share": 1 - device_s / wall,
           "kernel_launches": sum(e.count for e in device),
+          "launches_per_tick": sum(e.count for e in device) / n_steps,
           "top_kernel": top.key[:60], "top_kernel_s":
           top.self_device_time_total / 1e6, "top_kernel_count": top.count,
           **extra})
@@ -1245,6 +1283,364 @@ def time_icp_ekf_rollouts(torch):
                     kernel="nn_argmin")
 
 
+# --- grid SLAM's dda and dense integrators (plain PyTorch, no kernel) ---
+
+GRID_SLAM_RMSE_GATE_M = 0.15
+GRID_SLAM_CPU_GATE_M = 0.04  # 2 cells of configs/grid_slam.yaml
+MAP_CELL_TOL, MAP_AGREE = 5e-3, 0.999  # tests/test_parity.py's map gate
+DEVIATION_CELLS, DEVIATION_AGREE = 2, 0.90  # tests/test_path_deviation.py
+# tests/test_path_deviation.py's draws: its key chain (jax.random.key(7),
+# one split a step) through slamrs_tpu's derive_noise for 6 particles,
+# per step eps_c[6] + eps_t[6] + u01; tests/test_torch_gridslam.py holds
+# these values to the JAX package's
+PATH_DEVIATION_DRAWS = [
+    [-0.014316261745989323, -1.9772720336914062, -0.464983195066452,
+     -1.818358302116394, 1.3057658672332764, 0.31368598341941833,
+     -1.8414205312728882, 1.3842440843582153, 0.14463147521018982,
+     -1.0966203212738037, -0.31351569294929504, -1.719457745552063,
+     0.2391601800918579],
+    [1.3121635913848877, 0.3231795132160187, 1.3230540752410889,
+     -0.528336226940155, -2.562178134918213, -1.2474901676177979,
+     0.7203118801116943, 0.337359756231308, 0.2876996397972107,
+     1.123923659324646, 0.2675434648990631, -2.111067771911621,
+     0.30930447578430176],
+    [0.7078719139099121, 0.23987318575382233, -0.4109421372413635,
+     -0.7684392929077148, -1.1011642217636108, -0.7782418131828308,
+     -0.8828319907188416, -1.3621946573257446, -1.0295859575271606,
+     -0.6978057026863098, -0.19328011572360992, 0.6058013439178467,
+     0.614766001701355],
+    [0.07835733145475388, 0.44666239619255066, 1.595667839050293,
+     0.07967682182788849, -1.1302273273468018, -0.35618165135383606,
+     -0.9628964066505432, -0.25974565744400024, -0.8822312355041504,
+     0.25651803612709045, 0.42029353976249695, -1.8359770774841309,
+     0.21386468410491943],
+    [0.8658902049064636, 0.48835399746894836, 1.4777336120605469,
+     0.11346644908189774, 1.8833987712860107, -1.2736238241195679,
+     1.0560027360916138, -0.9665396809577942, 0.242921382188797,
+     -0.18299680948257446, -0.08687581866979599, 0.7200927138328552,
+     0.8043084144592285],
+    [-1.516849398612976, -0.005526506807655096, -1.0687272548675537,
+     -2.2421302795410156, -1.391342282295227, 0.3184681236743927,
+     -0.9615846872329712, -0.9271396994590759, 1.3962315320968628,
+     -0.60442715883255, -0.7884882688522339, -0.7822952270507812,
+     0.7463116645812988]]
+
+
+def grid_op_inputs(torch, spec, p=1024, seed=81):
+    """Random inputs for the grid functions, made on the CPU: log-odds
+    maps (~30 % nonzero, the rest exactly 0), poses across the map (six
+    on its edges), and a 360-beam scan out to 1.2 m (some past the range),
+    ~80 % valid, the last ten beams absent."""
+    g = torch.Generator().manual_seed(seed)
+    grids = torch.randn(p, spec.rows, spec.cols, generator=g) * 2.0
+    grids[torch.rand(grids.shape, generator=g) > 0.3] = 0.0
+    lo = torch.tensor([spec.position_x + 0.2, spec.position_y + 0.2,
+                       -math.pi])
+    ext = torch.tensor([spec.width - 0.4, spec.height - 0.4, 2 * math.pi])
+    poses = lo + ext * torch.rand(p, 3, generator=g)
+    edge_poses(poses, spec)
+    angles = 0.1 + torch.deg2rad(torch.arange(360, dtype=torch.float32))
+    dist = 0.05 + 1.15 * torch.rand(360, generator=g)
+    valid = torch.rand(360, generator=g) < 0.8
+    present = torch.ones(360, dtype=torch.bool)
+    present[350:] = False
+    return grids, poses, (angles, dist, valid, present)
+
+
+def map_agreement(torch, a, b):
+    """(share of cells within MAP_CELL_TOL, share of b's touched cells
+    whose sign a shares, max |a - b|) of two f32 map sets."""
+    diff = (a - b).abs()
+    touched = b.abs() > 1e-6
+    sign = (torch.sign(a[touched]) == torch.sign(b[touched])).float()
+    return (float((diff <= MAP_CELL_TOL).float().mean()),
+            float(sign.mean()) if sign.numel() else 1.0, float(diff.max()))
+
+
+def check_grid_ops(torch):
+    """(a) The grid functions on the card against the same on the CPU, on
+    the same 1,024-particle inputs at 0.05 m: ``traverse_ray`` on
+    identical grid coordinates bitwise; ``grid_integrate`` and
+    ``grid_integrate_dense`` at the map gate (>= 99.9 % of cells within
+    5e-3; the card's cos, sin and atan2 are a few ulps from the CPU's);
+    ``grid_log_likelihood`` within rtol 1e-5 / atol 1e-4 on >= 99.9 % of
+    the particles; ``grid_integrate`` twice on the card bitwise equal.
+    Returns the device times (ms) of the three functions."""
+    from slamrs_tpu_torch.ops import grid as G
+
+    spec = _spec((-2.0, -2.0, 4.0, 4.0, 0.05))
+    grids, poses, scan = grid_op_inputs(torch, spec)
+    steps = spec.max_ray_steps(1.0)
+    window = G.dense_window_for(spec, 1.0)
+
+    def cuda(t):
+        return t.to("cuda")
+
+    g_c, p_c, scan_c = cuda(grids), cuda(poses), tuple(cuda(t) for t in scan)
+    start = spec.world_to_grid(poses[:, 0:2])
+    ends = spec.world_to_grid(G.scan_endpoints(poses, scan[0], scan[1]))
+    ray = (start[:, 0:1], start[:, 1:2], ends[..., 0], ends[..., 1])
+    on_cpu = G.traverse_ray(*ray, spec.cols, spec.rows, steps)
+    on_card = G.traverse_ray(*(cuda(t) for t in ray), spec.cols, spec.rows,
+                             steps)
+    ray_equal = all(bool(torch.equal(a, b.cpu()))
+                    for a, b in zip(on_cpu, on_card))
+    lanes = int(on_cpu[3].sum())
+    del on_card
+
+    out = {}
+    for name, fn, extra in (("grid_integrate", G.grid_integrate, steps),
+                            ("grid_integrate_dense", G.grid_integrate_dense,
+                             window)):
+        want = fn(grids, spec, poses, *scan, extra)
+        got = fn(g_c, spec, p_c, *scan_c, extra)
+        again = fn(g_c, spec, p_c, *scan_c, extra)
+        torch.cuda.synchronize()
+        agree, sign, err = map_agreement(torch, got.cpu(), want)
+        repeat = bool(torch.equal(got, again))
+        out[name] = time_call(torch, lambda: fn(g_c, spec, p_c, *scan_c,
+                                                  extra))
+        emit({"phase": f"grid_ops_card_vs_cpu_{name}",
+              "shape": list(got.shape), "cells_within_5e-3": agree,
+              "touched_sign_agreement": sign, "max_abs_err": err,
+              "card_repeat_bitwise_equal": repeat, "ms": out[name]})
+        if not (agree >= MAP_AGREE and sign >= MAP_AGREE):
+            raise AssertionError(f"{name} on the card disagrees with the CPU "
+                                 f"({agree}, {sign})")
+        if name == "grid_integrate" and not repeat:
+            raise AssertionError("grid_integrate on the card is not bitwise "
+                                 "reproducible")
+        del got, again
+    want = G.grid_log_likelihood(grids, spec, poses, *scan)
+    got = G.grid_log_likelihood(g_c, spec, p_c, *scan_c).cpu()
+    close = (got - want).abs() <= LIK_ATOL + LIK_RTOL * want.abs()
+    lik_share = float(close.float().mean())
+    out["grid_log_likelihood"] = time_call(
+        torch, lambda: G.grid_log_likelihood(g_c, spec, p_c, *scan_c))
+    emit({"phase": "grid_ops_card_vs_cpu", "particles": 1024,
+          "max_steps": steps, "dense_window": window,
+          "traverse_ray_bitwise_equal": ray_equal, "ray_lanes": lanes,
+          "lik_share_within_gate": lik_share,
+          "lik_max_abs_err": float((got - want).abs().max()),
+          "lik_ms": out["grid_log_likelihood"]})
+    if not ray_equal:
+        raise AssertionError("traverse_ray on the card differs from the CPU")
+    if not lik_share >= MAP_AGREE:
+        raise AssertionError(f"grid_log_likelihood within the gate on only "
+                             f"{lik_share} of the particles")
+    return out
+
+
+def recording_ancestors(gs):
+    """Wrap ``gs._weigh_and_select`` so each update's ancestors are kept;
+    returns the list and a function that restores the original."""
+    orig = gs._weigh_and_select
+    kept = []
+
+    def wrapped(*args):
+        result = orig(*args)
+        kept.append(result[1])
+        return result
+
+    gs._weigh_and_select = wrapped
+
+    def restore():
+        gs._weigh_and_select = orig
+
+    return kept, restore
+
+
+def injected_grid_noise(fw, n_steps, seed):
+    """Per-frame grid-SLAM draws from numpy for ``n_steps`` ticks of a
+    fresh world: (eps_c [F, P], eps_t [F, P], u01 [F, 1])."""
+    import numpy as np
+
+    period = np.float32(fw.params.update_period)
+    timer, frames = np.float32(0.0), 0
+    for _ in range(n_steps):
+        timer = np.float32(timer + np.float32(fw.dt))
+        if timer > period:
+            frames += 1
+            timer = np.float32(timer - period)
+    rng = np.random.default_rng(seed)
+    p = fw.grid_config.n_particles
+    return (rng.standard_normal((frames, p)).astype(np.float32),
+            rng.standard_normal((frames, p)).astype(np.float32),
+            rng.random((frames, 1)).astype(np.float32))
+
+
+def check_grid_slam_yaml(torch):
+    """(b) ``compile_world(configs/grid_slam.yaml)`` (dda, 10 particles at
+    0.02 m) for 300 ticks on the card with injected draws, then the same
+    ticks and draws on the CPU.  Returns the card world."""
+    from slamrs_tpu_torch.models import gridslam as gs
+
+    fw = preset_world(torch, "grid_slam.yaml")
+    cpu = preset_world(torch, "grid_slam.yaml", device="cpu")
+    if fw.grid_config.integrate != "dda":
+        raise AssertionError("configs/grid_slam.yaml is not the dda path")
+    noise = injected_grid_noise(fw, 300, 6)
+    kept, restore = recording_ancestors(gs)
+    try:
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, outs = fw.rollout_cadence(fw.init(), 300, seed=0, noise=noise)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = read_counts()
+        card_anc = [a.cpu() for a in kept]
+        kept.clear()
+        _, cpu_outs = cpu.rollout_cadence(cpu.init(), 300, seed=0,
+                                          noise=noise)
+        cpu_anc = list(kept)
+    finally:
+        restore()
+    frames = int(outs.fired.shape[0])
+    rmse = pose_rmse(torch, outs.grid_pose, outs.pose)
+    wsum = float(state.grid.weights.sum())
+    finite = all(bool(torch.isfinite(t).all()) for t in (
+        outs.pose, outs.grid_pose, outs.n_eff, state.grid.weights,
+        state.grid.poses, state.grid.grids))
+    gap = pose_rmse(torch, outs.grid_pose.cpu(), cpu_outs.grid_pose)
+    differ = [f for f, (a, b) in enumerate(zip(card_anc, cpu_anc))
+              if not torch.equal(a, b)]
+    emit({"phase": "rollout_grid_slam_yaml_300", "ticks": 300,
+          "frames": frames, "grids": list(state.grid.grids.shape),
+          "launch_counts": counts, "grid_pose_rmse_xy_m": rmse,
+          "cpu_grid_pose_rmse_xy_m": pose_rmse(torch, cpu_outs.grid_pose,
+                                               cpu_outs.pose),
+          "card_vs_cpu_best_pose_rmse_m": gap,
+          "frames_where_ancestors_differ": differ, "weights_sum": wsum,
+          "finite": finite, "seconds": seconds})
+    if any(counts.values()):
+        raise AssertionError(f"the dda path launched a kernel: {counts}")
+    if not finite or abs(wsum - 1.0) > 1e-5:
+        raise AssertionError("non-finite outputs or weights not normalized")
+    if not rmse <= GRID_SLAM_RMSE_GATE_M:
+        raise AssertionError(f"grid_slam.yaml RMSE {rmse} m > "
+                             f"{GRID_SLAM_RMSE_GATE_M} m")
+    if not gap <= GRID_SLAM_CPU_GATE_M:
+        raise AssertionError(f"card and CPU best poses differ by {gap} m "
+                             f"RMSE")
+    return fw
+
+
+NO_KERNELS = {"fused_update": 0, "fused_update_tiled": 0, "cow_copy": 0,
+              "nn_argmin": 0}
+
+
+def check_path_deviation(torch):
+    """(d) ``tests/test_path_deviation.py`` on the card: the same 6 updates
+    (its scene, odometry and draws) through dda, dense and fused (K1);
+    best-pose RMSE against dda <= 2 cells, occupancy classification
+    agreement >= 90 % of the cells either path touched."""
+    from slamrs_tpu_torch.core import motion
+    from slamrs_tpu_torch.core.types import OdometryReading
+    from slamrs_tpu_torch.models import gridslam as gs
+    from slamrs_tpu_torch.models.simulator import Scene, lidar_scan
+
+    p, res = 6, 0.05
+    scene = Scene.build(rects=[(-1.0, -1.0, 2.0, 2.0),
+                               (-0.1, -0.4, 0.5, 0.1)],
+                        lines=[(-0.6, -0.4, 0.2, 0.4)], device="cuda")
+    draws = torch.tensor(PATH_DEVIATION_DRAWS, device="cuda")
+
+    def rollout(integrate):
+        cfg = gs.GridSlamConfig(position_x=-2.0, position_y=-2.0, width=4.0,
+                                height=4.0, resolution=res, n_particles=p,
+                                max_scan_range=1.0, integrate=integrate,
+                                resample_neff_frac=1.0)
+        state = gs.GridSlamState.init(cfg, "cuda")
+        pose = torch.zeros(3, device="cuda")
+        sl = torch.full((), 0.004, device="cuda")
+        sr = torch.full((), 0.0065, device="cuda")
+        odo = OdometryReading(sl, sr, torch.full((), 0.1, device="cuda"))
+        best = []
+        for row in draws:
+            pose = motion.integrate_exact(pose, sl, sr, 0.1)
+            scan = lidar_scan(pose, scene, 1.0, 360)
+            noise = gs.UpdateNoise(row[:p], row[p:2 * p], row[2 * p:])
+            state, out = gs.update(state, scan, odo, cfg, noise=noise)
+            best.append(out.pose)
+        return torch.stack(best), gs.estimated_probability_grid(state, cfg)
+
+    def cls(g):
+        return torch.where(g > 0.6, 1, torch.where(g < 0.4, -1, 0))
+
+    reset_counts()
+    poses_dda, grid_dda = rollout("dda")
+    failed = []
+    for name in ("dense", "fused"):
+        poses, grid = rollout(name)
+        rmse = pose_rmse(torch, poses, poses_dda)
+        a, b = cls(grid_dda), cls(grid)
+        touched = (a != 0) | (b != 0)
+        agree = float((a[touched] == b[touched]).float().mean())
+        emit({"phase": f"path_deviation_{name}_vs_dda", "particles": p,
+              "updates": len(PATH_DEVIATION_DRAWS), "pose_rmse_m": rmse,
+              "cell_agreement": agree, "touched_cells": int(touched.sum()),
+              "launch_counts": read_counts()})
+        if not (rmse <= DEVIATION_CELLS * res and agree >= DEVIATION_AGREE):
+            failed.append(name)
+    if read_counts()["fused_update"] != len(PATH_DEVIATION_DRAWS):
+        raise AssertionError("the fused path did not launch K1 per update")
+    if failed:
+        raise AssertionError(f"{failed} deviate from dda beyond the gates")
+
+
+def check_nonfused_no_host_sync(torch):
+    """(e) One dda and one dense update at the headline shape (1,024
+    particles, 0.05 m) never wait for the card."""
+    from slamrs_tpu_torch.core.types import OdometryReading
+    from slamrs_tpu_torch.models import gridslam as gs
+    from slamrs_tpu_torch.models.simulator import lidar_scan
+
+    for integrate in ("dda", "dense"):
+        fw = headline_world(torch, 0.05, integrate, "float32")
+        st = fw.init().grid
+        pose = torch.tensor([0.1, -0.2, 0.3], device="cuda")
+        scan = lidar_scan(pose, fw.scene, 1.0, 360)
+        odo = OdometryReading(torch.full((), 0.01, device="cuda"),
+                              torch.full((), 0.012, device="cuda"),
+                              fw.params.wheel_base)
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            st, out = gs.update(st, scan, odo, fw.grid_config, generator=gen)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        emit({"phase": f"no_host_sync_{integrate}", "ok": True,
+              "pose_finite": bool(torch.isfinite(out.pose).all())})
+
+
+def time_nonfused_rollouts(torch, grid_slam_world):
+    """(f) Warm 300-tick dda and dense runs at the headline shape and a
+    warm 300-tick ``configs/grid_slam.yaml`` run: ticks/s and peak
+    memory; then a profiled 300-tick dda run at the headline shape."""
+    runs = (("dda_0.05m", headline_world(torch, 0.05, "dda", "float32")),
+            ("dense_0.05m", headline_world(torch, 0.05, "dense", "float32")),
+            ("grid_slam_yaml", grid_slam_world))
+    for label, fw in runs:
+        fw.rollout_cadence(fw.init(), 30, seed=2)  # warm
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        _, outs = fw.rollout_cadence(fw.init(), 300, seed=0)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        emit({"phase": f"rollout_time_{label}_300", "ticks": 300,
+              "frames": int(outs.fired.shape[0]), "seconds": seconds,
+              "ticks_per_s": 300 / seconds,
+              "grid_pose_rmse_xy_m": pose_rmse(torch, outs.grid_pose,
+                                               outs.pose),
+              "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()})
+    profile_rollout(torch, runs[0][1], "dda_0.05m_300")
+
+
+
 def _spec(geom):
     from slamrs_tpu_torch.ops.grid import GridSpec2D
 
@@ -1369,6 +1765,18 @@ def main() -> int:
     t4 = time_nn(torch, nn_launched)
     time_icp_batch(torch)
     time_icp_ekf_rollouts(torch)
+
+    # grid SLAM's dda and dense integrators: plain PyTorch, no kernel
+    check_grid_ops(torch)
+    grid_slam_world = check_grid_slam_yaml(torch)
+    for integrate in ("dda", "dense"):
+        check_rollout(torch, headline_world(torch, 0.05, integrate,
+                                            "float32"),
+                      300, f"{integrate}_0.05m_300", RMSE_GATE_M,
+                      expect=NO_KERNELS)
+    check_path_deviation(torch)
+    check_nonfused_no_host_sync(torch)
+    time_nonfused_rollouts(torch, grid_slam_world)
 
     k1_ms, k1_plain, k1_bound, k1_by = times["0.05m"]
     emit({"kernels": [

@@ -1,11 +1,24 @@
-"""Rao-Blackwellized particle-filter occupancy-grid SLAM (fused path).
+"""Rao-Blackwellized particle-filter occupancy-grid SLAM.
 
 Counterpart of ``slamrs_tpu/models/gridslam.py``.  Per update: sample a
-successor pose per particle from the odometry model, weight and integrate
-the scan in one fused kernel (:func:`slamrs_tpu_torch.ops.fused.fused_update`),
-add the motion log-probability, then normalize, take the argmax pose and
-N_eff, and resample systematically when N_eff falls to
-``resample_neff_frac * P``.
+successor pose per particle from the odometry model, weight it by the
+scan's endpoint likelihood on its map and integrate the scan into that
+map, add the motion log-probability, then normalize, take the argmax pose
+and N_eff, and resample systematically when N_eff falls to
+``resample_neff_frac * P``.  Three integrators, as in the JAX package:
+
+- ``fused`` (the throughput path): likelihood and integrate in one kernel
+  (:func:`slamrs_tpu_torch.ops.fused.fused_update`), maps ``[P, H, Wp]``
+  with 128-padded columns, f32 or bf16;
+- ``dda`` (the default, the fidelity path held against the reference's
+  line-by-line oracle) and ``dense``: the likelihood on the old maps at
+  the sampled poses (:func:`~slamrs_tpu_torch.ops.grid.grid_log_likelihood`),
+  then the DDA walk with its scatter-add
+  (:func:`~slamrs_tpu_torch.ops.grid.grid_integrate`) or the windowed
+  polar update (:func:`~slamrs_tpu_torch.ops.grid.grid_integrate_dense`)
+  of the old maps at the same poses; maps ``f32[P, H, W]`` unpadded,
+  whatever ``grid_dtype`` says.  Plain PyTorch: the JAX package computes
+  these in plain ``jnp``.
 
 The resample is applied by one of four mechanisms, picked exactly as the
 JAX package picks them (:func:`resample_mechanism`):
@@ -18,16 +31,18 @@ JAX package picks them (:func:`resample_mechanism`):
   into a fresh buffer;
 - ``cow``: the kernel updates the maps in place, then only duplicated
   maps are copied into freed slots (``ops/cow.py``);
-- ``gather``: the kernel updates the maps in place, then the whole set is
-  gathered by ``ancestors`` (``resample_cow=False``).
+- ``gather``: the maps are updated (the fused kernel in place, the dda
+  and dense integrators into new tensors), then the whole set is
+  gathered by ``ancestors`` (``resample_cow=False``, and every dda and
+  dense update).
 
 The mechanism decides the slot order after a resample (copy on write puts
 duplicated maps into freed slots), and the injected draws are indexed by
 slot, so the port copies the JAX package's choice even where its reasons
 (TPU VMEM residency, the TPU's column-cropped windows) mean nothing on the
-H100.  In the ``tiled``, ``cow`` and ``gather`` mechanisms the update
-writes the input state's map storage in place: the old state must not be
-used again.
+H100.  In the fused path's ``tiled``, ``cow`` and ``gather`` mechanisms
+the update writes the input state's map storage in place: the old state
+must not be used again.
 """
 
 from __future__ import annotations
@@ -43,7 +58,9 @@ from slamrs_tpu_torch.ops import resample as _resample
 from slamrs_tpu_torch.ops.cow import cow_resample
 from slamrs_tpu_torch.ops.fused import (fits_vmem_resident, fused_update,
                                         supports_deferred_hbm)
-from slamrs_tpu_torch.ops.grid import GridSpec2D
+from slamrs_tpu_torch.ops.grid import (GridSpec2D, dense_window_for,
+                                       grid_integrate, grid_integrate_dense,
+                                       grid_log_likelihood)
 from slamrs_tpu_torch.ops.tiles import (fused_update_tiled, init_tiled,
                                         materialize_one)
 
@@ -54,8 +71,8 @@ Tensor = torch.Tensor
 class GridSlamConfig:
     """Same fields and defaults as the JAX package's ``GridSlamConfig``.
 
-    Only ``integrate="fused"`` is ported; the other values raise
-    ``NotImplementedError`` naming the ROADMAP item.  ``resample_cow``
+    ``integrate`` is ``"dda"``, ``"dense"`` or ``"fused"``; another
+    value raises ``ValueError``.  ``resample_cow``
     takes ``None`` (auto), ``True``, ``False``, ``"staged"`` and
     ``"tiled"``; ``"deferred"`` (the JAX package's non-aliased band
     kernel, a recorded dead end) raises ``ValueError``.
@@ -93,26 +110,29 @@ class GridSlamConfig:
                           self.height, self.resolution)
 
     @property
+    def max_ray_steps(self) -> int:
+        return self.grid_spec.max_ray_steps(self.max_scan_range)
+
+    @property
     def torch_dtype(self) -> torch.dtype:
         return torch.bfloat16 if self.grid_dtype == "bfloat16" \
             else torch.float32
 
 
 def check_supported(config: GridSlamConfig) -> None:
-    """Raise for configuration values whose path is not ported."""
-    if config.integrate != "fused":
-        raise NotImplementedError(
-            f"integrate={config.integrate!r} is not ported yet (ROADMAP "
-            "Queue 1 item 9: dda; item 3: dense); use integrate='fused'")
+    """Raise for configuration values the port does not run."""
+    if config.integrate not in ("dda", "dense", "fused"):
+        raise ValueError(f"integrate must be 'dda', 'dense' or 'fused', got "
+                         f"{config.integrate!r}")
     if config.resample_cow == "deferred":
         raise ValueError(
             "resample_cow='deferred' (the JAX package's non-aliased band "
             "kernel, a recorded dead end) is not ported (ROADMAP Queue 1 "
-            "item 11); use None or 'staged'")
+            "item 5); use None or 'staged'")
     if config.resample_cow not in (None, True, False, "staged", "tiled"):
         raise ValueError(f"resample_cow must be None, True, False, 'staged' "
                          f"or 'tiled', got {config.resample_cow!r} "
-                         "(ROADMAP Queue 1 item 11)")
+                         "(ROADMAP Queue 1 item 5)")
     if config.grid_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"grid_dtype must be float32 or bfloat16, got "
                          f"{config.grid_dtype!r}")
@@ -136,7 +156,8 @@ def auto_tiled(config: GridSlamConfig) -> bool:
 
 class GridSlamState(NamedTuple):
     poses: Tensor  # f32[P, 3]
-    grids: Tensor  # [P, H, Wp] log-odds, f32 or bf16
+    # log-odds: fused [P, H, Wp] f32 or bf16; dda and dense f32[P, H, W]
+    grids: Tensor
     weights: Tensor  # f32[P] normalized
     best_pose: Tensor  # f32[3] argmax-weight particle pose
     best_idx: Tensor  # i64[] (0-dim)
@@ -154,7 +175,10 @@ class GridSlamState(NamedTuple):
         spec = config.grid_spec
         f32 = torch.float32
         tile_table = None
-        if config.resample_cow == "tiled" or auto_tiled(config):
+        if config.integrate != "fused":
+            grids = torch.zeros((p, spec.rows, spec.cols), dtype=f32,
+                                device=device)
+        elif config.resample_cow == "tiled" or auto_tiled(config):
             grids, tile_table = init_tiled(p, spec, config.max_scan_range,
                                            config.torch_dtype, device=device)
         else:
@@ -213,16 +237,21 @@ def _weigh_and_select(log_lik: Tensor, log_motion: Tensor,
 def resample_mechanism(config: GridSlamConfig, state: GridSlamState) -> str:
     """``"tiled"``, ``"deferred"``, ``"cow"`` or ``"gather"``: the JAX
     package's choice for this config and state (``gridslam.py:320-385``,
-    ``:439-441``), line for line, with its errors."""
-    if state.tile_table is not None and config.resample_cow not in (
-            None, "tiled"):
+    ``:439-441``, ``:471-478``), line for line, with its errors.  The dda
+    and dense integrators always gather."""
+    if state.tile_table is not None and (
+            config.integrate != "fused"
+            or config.resample_cow not in (None, "tiled")):
         raise ValueError("state has a tile_table but the config does not "
-                         "accept tiled maps (resample_cow None or 'tiled')")
+                         "accept tiled maps (integrate='fused' with "
+                         "resample_cow None or 'tiled')")
     if config.resample_cow == "tiled" and state.tile_table is None:
         raise ValueError("config pins resample_cow='tiled' but the state has "
                          "no tile pool: init with the same config")
     if state.tile_table is not None:
         return "tiled"
+    if config.integrate != "fused":
+        return "gather"
     rows, cols = state.grids.shape[-2:]
     grid_bytes = state.grids.numel() * state.grids.element_size()
     resident = (config.fused_resident if config.fused_resident is not None
@@ -238,14 +267,40 @@ def resample_mechanism(config: GridSlamConfig, state: GridSlamState) -> str:
     return "gather" if config.resample_cow is False else "cow"
 
 
+def _fused_integrate(state: GridSlamState, new_poses: Tensor, scan: Scan,
+                     config: GridSlamConfig, mechanism: str):
+    """The fused kernel under ``mechanism``: ``(grids, tile_table,
+    log_lik)``."""
+    nb = scan.angles.shape[-1]
+    if config.beam_spacing is not None:
+        dphi = config.beam_spacing
+    elif nb > 1:
+        dphi = scan.angles[1] - scan.angles[0]
+    else:
+        dphi = torch.tensor(2.0 * torch.pi, dtype=torch.float32,
+                            device=new_poses.device)
+    args = (new_poses, scan.angles[0], scan.distances, scan.valid,
+            scan.present, config.grid_spec, nb, config.max_scan_range)
+    if mechanism == "tiled":
+        return fused_update_tiled(state.grids, state.tile_table, *args,
+                                  dphi=dphi, ancestors=state.ancestors)
+    if mechanism == "deferred":
+        grids, log_lik = fused_update(state.grids, *args,
+                                      ancestors=state.ancestors, dphi=dphi)
+    else:
+        grids, log_lik = fused_update(state.grids, *args, dphi=dphi,
+                                      in_place=True)
+    return grids, None, log_lik
+
+
 def update(state: GridSlamState, scan: Scan, odometry: OdometryReading,
            config: GridSlamConfig, generator: torch.Generator | None = None,
            noise: UpdateNoise | None = None
            ) -> tuple[GridSlamState, GridSlamOutputs]:
     """One SLAM update.  Randomness comes from ``noise`` (tests inject the
-    JAX package's draws) or else from ``generator``.  The ``tiled``,
-    ``cow`` and ``gather`` mechanisms update ``state``'s map storage in
-    place (see the module docstring)."""
+    JAX package's draws) or else from ``generator``.  On the fused path
+    the ``tiled``, ``cow`` and ``gather`` mechanisms update ``state``'s
+    map storage in place (see the module docstring)."""
     check_supported(config)
     mechanism = resample_mechanism(config, state)
     p = config.n_particles
@@ -258,26 +313,25 @@ def update(state: GridSlamState, scan: Scan, odometry: OdometryReading,
     new_poses = motion.sample(state.poses, odometry.distance_left,
                               odometry.distance_right, odometry.wheel_base,
                               eps=(noise.eps_c, noise.eps_t))
-    nb = scan.angles.shape[-1]
-    if config.beam_spacing is not None:
-        dphi = config.beam_spacing
-    elif nb > 1:
-        dphi = scan.angles[1] - scan.angles[0]
-    else:
-        dphi = torch.tensor(2.0 * torch.pi, dtype=torch.float32, device=dev)
-    args = (new_poses, scan.angles[0], scan.distances, scan.valid,
-            scan.present, config.grid_spec, nb, config.max_scan_range)
     tile_table = None
-    if mechanism == "tiled":
-        grids, tile_table, log_lik = fused_update_tiled(
-            state.grids, state.tile_table, *args, dphi=dphi,
-            ancestors=state.ancestors)
-    elif mechanism == "deferred":
-        grids, log_lik = fused_update(state.grids, *args,
-                                      ancestors=state.ancestors, dphi=dphi)
+    if config.integrate == "fused":
+        grids, tile_table, log_lik = _fused_integrate(state, new_poses, scan,
+                                                      config, mechanism)
     else:
-        grids, log_lik = fused_update(state.grids, *args, dphi=dphi,
-                                      in_place=True)
+        # the likelihood on the old maps at the sampled poses, then the
+        # old maps integrated at the same poses (gridslam.py:401-416);
+        # dense takes its beam spacing from scan.angles
+        spec = config.grid_spec
+        lik_args = (spec, new_poses, scan.angles, scan.distances,
+                    scan.valid, scan.present)
+        log_lik = grid_log_likelihood(state.grids, *lik_args)
+        if config.integrate == "dense":
+            grids = grid_integrate_dense(
+                state.grids, *lik_args,
+                dense_window_for(spec, config.max_scan_range))
+        else:
+            grids = grid_integrate(state.grids, *lik_args,
+                                   config.max_ray_steps)
     log_motion = motion.log_prob(state.poses, new_poses,
                                  odometry.distance_left,
                                  odometry.distance_right, odometry.wheel_base)

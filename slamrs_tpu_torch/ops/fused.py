@@ -48,7 +48,7 @@ import torch
 
 from slamrs_tpu_torch.ops.grid import (ADDITIONAL_STEPS, GridSpec2D, L_FREE,
                                        L_OCCUPIED, SENSOR_MAXDIST,
-                                       TOLERANCE_CELLS, Z_HIT)
+                                       TOLERANCE_CELLS, Z_HIT, _f32_scalar)
 
 Tensor = torch.Tensor
 
@@ -156,14 +156,6 @@ def encode_beam_table(distances_cells: Tensor, valid: Tensor, present: Tensor,
     ca = torch.where(use, torch.cos(ang), zero)
     sa = torch.where(use, torch.sin(ang), zero)
     return torch.stack([row, d_lik, ca, sa, use.to(f32), zero, zero, zero])
-
-
-def _f32_scalar(v, device) -> Tensor:
-    """``v`` as a 0-dim f32 tensor on ``device``; a Python number becomes
-    a fill, so no synchronizing host-to-device copy is made."""
-    if isinstance(v, Tensor):
-        return v.to(device=device, dtype=torch.float32)
-    return torch.full((), float(v), dtype=torch.float32, device=device)
 
 
 def static_dphi(dphi) -> float | None:

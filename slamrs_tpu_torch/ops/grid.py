@@ -1,8 +1,32 @@
-"""Occupancy-grid geometry and the inverse-sensor-model constants.
+"""Log-odds occupancy grid: geometry, the inverse sensor model, the DDA
+and dense integrators, and the endpoint likelihood.
 
-Counterpart of ``slamrs_tpu/ops/grid.py:43-106`` (constants and
-``GridSpec2D``, with ``world_to_grid`` for the ICP map's voxel gate).
-The DDA and dense integrators are not ported yet.
+Counterpart of ``slamrs_tpu/ops/grid.py``, with the JAX package's names
+and signatures, batched over a leading particle axis where the JAX
+package lifts one map with ``vmap``: ``grid`` is ``[P, H, W]`` and
+``pose`` ``[P, 3]``; the scan's ``[B]`` beam lanes are shared.  These are
+plain PyTorch: the JAX package computes them in plain ``jnp``, with no
+Pallas kernel.
+
+- :func:`traverse_ray` is the integer DDA walk of the reference's
+  ``GridRayIterator``, a Python loop of ``max_steps`` steps carrying the
+  same sequential float32 error accumulator as the JAX package's
+  ``lax.scan`` (no cumulative sum or closed form: those round otherwise).
+- :func:`grid_integrate` adds every visited cell's log-odds increment
+  with one ``index_put_(accumulate=True)`` on a flattened int64 index.
+  On the card that is PyTorch's sort-based accumulate, the same sum for
+  the same inputs on every call (``index_add_`` and ``scatter_add_`` use
+  float atomics in arbitrary order and are not used).  Masked lanes add
+  0.0 at their particle's cell (0, 0), as the JAX package does, so no
+  boolean compaction waits for the device.
+- :func:`grid_integrate_dense` is the scatter-free polar update over a
+  window around each pose; the beam lookup indexes the ``[B]`` tables
+  directly (the JAX package's ``ops/lookup.radix_lookup`` is a TPU
+  gather workaround and is not ported).
+
+Divisions by the cell size and by 2*pi go through a 0-dim tensor on the
+inputs' device: PyTorch's CUDA true divide by a Python scalar multiplies
+by its reciprocal, which can move a ``floor`` by one cell.
 """
 
 from __future__ import annotations
@@ -11,6 +35,8 @@ import dataclasses
 import math as pymath
 
 import torch
+
+Tensor = torch.Tensor
 
 # Inverse sensor model constants (same values as the JAX package).
 P_FREE = 0.30
@@ -24,6 +50,16 @@ ADDITIONAL_STEPS = 2
 L_FREE = pymath.log(P_FREE / (1.0 - P_FREE))
 L_OCCUPIED = pymath.log(P_OCCUPIED / (1.0 - P_OCCUPIED))
 L_PRIOR = 0.0
+
+_TWO_PI = 2.0 * pymath.pi
+
+
+def _f32_scalar(v, device) -> Tensor:
+    """``v`` as a 0-dim f32 tensor on ``device``; a Python number becomes
+    a fill, so no synchronizing host-to-device copy is made."""
+    if isinstance(v, Tensor):
+        return v.to(device=device, dtype=torch.float32)
+    return torch.full((), float(v), dtype=torch.float32, device=device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,11 +85,9 @@ class GridSpec2D:
     def shape(self) -> tuple[int, int]:
         return (self.rows, self.cols)
 
-    def world_to_grid(self, xy):
-        """Continuous world coordinates ``f32[..., 2]`` to grid ones (the
-        offsets stay Python floats: a tensor built from them on the card
-        would be a synchronous host copy)."""
-        res = self.resolution
+    def world_to_grid(self, xy: Tensor) -> Tensor:
+        """Continuous world coordinates ``f32[..., 2]`` to grid ones."""
+        res = _f32_scalar(self.resolution, xy.device)
         return torch.stack([(xy[..., 0] - self.position_x) / res,
                             (xy[..., 1] - self.position_y) / res], dim=-1)
 
@@ -61,3 +95,241 @@ class GridSpec2D:
         """Static bound on DDA steps for rays up to ``max_range_m``."""
         cells = max_range_m / self.resolution
         return int(pymath.ceil(cells * pymath.sqrt(2.0))) + ADDITIONAL_STEPS + 3
+
+
+def traverse_ray(x0, y0, x1, y1, cols: int, rows: int, max_steps: int,
+                 additional_steps: int = ADDITIONAL_STEPS):
+    """Integer DDA walk from (x0, y0) to (x1, y1) in grid coordinates
+    (``slamrs_tpu/ops/grid.py:109-185``): the step budget, the error
+    accumulator (y moves when error > 0), +0.5 cell centers, and a stop
+    at the first out-of-bounds cell.  The coordinates broadcast together.
+
+    When both deltas are 0 the error is ``inf - inf = NaN``; ``NaN > 0``
+    is false, so the walk steps in x by 0 and stays on its cell.
+
+    Returns ``cols_idx i32[..., T]``, ``rows_idx i32[..., T]``,
+    ``centers f32[..., T, 2]`` and ``mask bool[..., T]`` with ``T =
+    max_steps``.
+    """
+    x0, y0, x1, y1 = torch.broadcast_tensors(
+        *(torch.as_tensor(v, dtype=torch.float32) for v in (x0, y0, x1, y1)))
+    i32 = torch.int32
+    dx = torch.abs(x1 - x0)
+    dy = torch.abs(y1 - y0)
+    fx0, fy0 = torch.floor(x0), torch.floor(y0)
+    fx1, fy1 = torch.floor(x1), torch.floor(y1)
+    x = fx0.to(i32)
+    y = fy0.to(i32)
+
+    # step budget (ray.rs:36-66)
+    zero = torch.zeros_like(x)
+    n = (1 + additional_steps
+         + torch.where(dx == 0.0, zero,
+                       torch.where(x1 > x0, (fx1 - fx0).to(i32),
+                                   (fx0 - fx1).to(i32)))
+         + torch.where(dy == 0.0, zero,
+                       torch.where(y1 > y0, (fy1 - fy0).to(i32),
+                                   (fy0 - fy1).to(i32))))
+    one = torch.ones_like(x)
+    x_inc = torch.where(dx == 0.0, zero, torch.where(x1 > x0, one, -one))
+    y_inc = torch.where(dy == 0.0, zero, torch.where(y1 > y0, one, -one))
+    inf = torch.full_like(dx, float("inf"))
+    err_x = torch.where(dx == 0.0, inf,
+                        torch.where(x1 > x0, (fx0 + 1.0 - x0) * dy,
+                                    (x0 - fx0) * dy))
+    err_y = torch.where(dy == 0.0, inf,
+                        torch.where(y1 > y0, (fy0 + 1.0 - y0) * dx,
+                                    (y0 - fy0) * dx))
+    error = err_x - err_y
+
+    xs, ys, masks = [], [], []
+    alive = torch.ones_like(x, dtype=torch.bool)
+    for _ in range(max_steps):
+        emit = (alive & (n > 0) & (x >= 0) & (x < cols) & (y >= 0)
+                & (y < rows))  # ray.rs:85-90
+        xs.append(x)
+        ys.append(y)
+        masks.append(emit)
+        # advance (ray.rs:96-102): move in y when error > 0, else in x
+        go_y = error > 0.0
+        x = torch.where(go_y, x, x + x_inc)
+        y = torch.where(go_y, y + y_inc, y)
+        error = torch.where(go_y, error - dx, error + dy)
+        n = n - 1
+        alive = emit
+    xs = torch.stack(xs, dim=-1)
+    ys = torch.stack(ys, dim=-1)
+    mask = torch.stack(masks, dim=-1)
+    centers = torch.stack([xs.to(torch.float32) + 0.5,
+                           ys.to(torch.float32) + 0.5], dim=-1)
+    return xs, ys, centers, mask
+
+
+def inverse_sensor_model_log_odds(distance: Tensor, measured_distance: Tensor,
+                                  was_hit: Tensor,
+                                  tolerance: float = TOLERANCE_CELLS
+                                  ) -> Tensor:
+    """Log-odds increment for a visited cell (map.rs:148-172); distances
+    in cells, ``was_hit`` the beam's valid flag."""
+    half = tolerance / 2.0
+    hit_val = torch.where(
+        distance < measured_distance - half, L_FREE,
+        torch.where(distance > measured_distance + half, L_PRIOR,
+                    L_OCCUPIED))
+    miss_val = torch.where(distance < measured_distance, L_FREE, L_PRIOR)
+    return torch.where(was_hit, hit_val, miss_val).to(torch.float32)
+
+
+def scan_endpoints(pose: Tensor, angles: Tensor, distances: Tensor) -> Tensor:
+    """World-frame beam endpoints ``pose.xy + R(theta) polar(angle,
+    dist)``: pose ``f32[..., 3]``, angles/distances ``f32[..., B]`` ->
+    ``f32[..., B, 2]``."""
+    a = pose[..., 2:3] + angles
+    ex = pose[..., 0:1] + torch.cos(a) * distances
+    ey = pose[..., 1:2] + torch.sin(a) * distances
+    return torch.stack([ex, ey], dim=-1)
+
+
+def grid_integrate(grid: Tensor, spec: GridSpec2D, pose: Tensor,
+                   angles: Tensor, distances: Tensor, valid: Tensor,
+                   present: Tensor, max_steps: int) -> Tensor:
+    """Integrate one scan into each particle's map (map.rs:71-106): every
+    present beam (valid or not) walks the DDA from the robot's cell to its
+    endpoint cell (+2 overshoot) and adds the inverse-sensor-model
+    log-odds; invalid beams mark free space only.
+
+    grid ``f32[P, H, W]``; pose ``f32[P, 3]``; the scan ``[B]`` lanes;
+    ``max_steps`` the static DDA bound (``spec.max_ray_steps(range)``).
+    Returns the updated maps in a new tensor.
+    """
+    p, h, w = grid.shape
+    start = spec.world_to_grid(pose[..., 0:2])  # [P, 2]
+    ends = spec.world_to_grid(scan_endpoints(pose, angles,
+                                             distances))  # [P, B, 2]
+    measured = distances / _f32_scalar(spec.resolution,
+                                       distances.device)  # [B]
+    sx, sy = start[:, 0:1], start[:, 1:2]
+    xs, ys, centers, mask = traverse_ray(sx, sy, ends[..., 0], ends[..., 1],
+                                         spec.cols, spec.rows, max_steps)
+    mask = mask & present[:, None]  # [P, B, T]
+    ddx = centers[..., 0] - sx[..., None]
+    ddy = centers[..., 1] - sy[..., None]
+    d = torch.sqrt(ddx * ddx + ddy * ddy)
+    vals = inverse_sensor_model_log_odds(d, measured[:, None],
+                                         valid[:, None])
+    vals = torch.where(mask, vals, 0.0)
+    cell = torch.where(mask, ys.long() * w + xs.long(), 0)
+    flat = cell + (torch.arange(p, device=grid.device) * (h * w))[:, None,
+                                                                   None]
+    out = grid.clone(memory_format=torch.contiguous_format)
+    out.view(-1).index_put_((flat.reshape(-1),), vals.reshape(-1),
+                            accumulate=True)
+    return out
+
+
+def grid_integrate_dense(grid: Tensor, spec: GridSpec2D, pose: Tensor,
+                         angles: Tensor, distances: Tensor, valid: Tensor,
+                         present: Tensor, window: int,
+                         multiplicity: bool = True) -> Tensor:
+    """Scatter-free scan integration (``slamrs_tpu/ops/grid.py:253-350``).
+
+    Every cell of a ``window x window`` region around each particle's pose
+    (the whole grid when ``window^2 * 2 >= rows * cols``) takes its polar
+    coordinates relative to the pose, looks up the covering beam of the
+    uniform angle table (spacing ``angles[1] - angles[0]``), and applies
+    the inverse sensor model; with ``multiplicity`` the increment is
+    scaled by ``max(1, 1 / (r * dphi))``, the DDA's beam visits per cell
+    near the robot.  The window origin is per particle, clipped to the
+    grid.  Returns the updated maps in a new tensor.
+    """
+    p, rows, cols = grid.shape
+    dev = grid.device
+    b = angles.shape[-1]
+    dphi = (angles[1] - angles[0] if b > 1
+            else _f32_scalar(_TWO_PI, dev))
+    start = spec.world_to_grid(pose[..., 0:2])  # [P, 2]
+    sx, sy = start[:, 0, None, None], start[:, 1, None, None]
+
+    full = window * window * 2 >= spec.rows * spec.cols
+    wh, ww = (spec.rows, spec.cols) if full else (window, window)
+    if full:
+        ox = torch.zeros(p, dtype=torch.int32, device=dev)
+        oy = torch.zeros(p, dtype=torch.int32, device=dev)
+    else:
+        ox = torch.clamp(torch.floor(start[:, 0]).to(torch.int32) - ww // 2,
+                         0, max(spec.cols - ww, 0))
+        oy = torch.clamp(torch.floor(start[:, 1]).to(torch.int32) - wh // 2,
+                         0, max(spec.rows - wh, 0))
+    wy = torch.arange(wh, dtype=torch.int32, device=dev)[None, :, None]
+    wx = torch.arange(ww, dtype=torch.int32, device=dev)[None, None, :]
+    cx = (ox[:, None, None] + wx).to(torch.float32) + 0.5  # [P, 1, ww]
+    cy = (oy[:, None, None] + wy).to(torch.float32) + 0.5  # [P, wh, 1]
+    dx = cx - sx
+    dy = cy - sy
+    r = torch.sqrt(dx * dx + dy * dy)  # [P, wh, ww], cell units
+
+    # beam lookup: the cell's angle relative to the first beam, wrapped
+    # to [0, 2 pi); cells past the last beam wrap to beam 0 (full-circle
+    # tables) or fall outside the swept sector (absent)
+    phi = torch.atan2(dy, dx) - pose[:, 2, None, None]
+    rel = phi - angles[0]
+    rel = rel - _TWO_PI * torch.floor(rel / _f32_scalar(_TWO_PI, dev))
+    beam_f = torch.round(rel / dphi)
+    # a tensor numerator: ``float / tensor`` is reciprocal-then-multiply
+    wrap = beam_f >= _f32_scalar(_TWO_PI, dev) / dphi - 0.5
+    in_sector = wrap | (beam_f <= b - 1)
+    beam = torch.where(wrap | ~in_sector, 0.0, beam_f).long()
+    d_meas = (distances / _f32_scalar(spec.resolution, dev))[beam]
+    pres = present[beam] & in_sector
+
+    inc = inverse_sensor_model_log_odds(r, d_meas, valid[beam])
+    if multiplicity:
+        inc = inc * torch.clamp_min(
+            1.0 / (torch.clamp_min(r, 0.5) * dphi), 1.0)
+    inc = torch.where(pres, inc, 0.0)
+
+    if full:
+        return grid + inc
+    pidx = torch.arange(p, device=dev)[:, None, None]
+    ri = (oy.long()[:, None] + torch.arange(wh, device=dev))[:, :, None]
+    ci = (ox.long()[:, None] + torch.arange(ww, device=dev))[:, None, :]
+    out = grid.clone()
+    out[pidx, ri, ci] = grid[pidx, ri, ci] + inc
+    return out
+
+
+def dense_window_for(spec: GridSpec2D, max_range_m: float,
+                     align: int = 8) -> int:
+    """Static window size covering the scan range (+tolerance) each side."""
+    cells = int(pymath.ceil(max_range_m / spec.resolution)) \
+        + ADDITIONAL_STEPS + 2
+    w = min(2 * cells + 1, min(spec.rows, spec.cols))
+    return max((w + align - 1) // align * align, align)
+
+
+def grid_log_likelihood(grid: Tensor, spec: GridSpec2D, pose: Tensor,
+                        angles: Tensor, distances: Tensor, valid: Tensor,
+                        present: Tensor) -> Tensor:
+    """log p(z | m, x) per particle (map.rs:113-145): for each valid beam
+    whose endpoint lies in the grid, the log of ``Z_HIT * p + (1 - Z_HIT)
+    / maxdist``, or of the uniform ``1 / maxdist`` where the cell is
+    untouched (log-odds exactly 0), summed over the beams.
+
+    grid ``f32[P, H, W]``, pose ``f32[P, 3]`` -> ``f32[P]``.
+    """
+    p, h, w = grid.shape
+    ends = spec.world_to_grid(scan_endpoints(pose, angles,
+                                             distances))  # [P, B, 2]
+    gx, gy = ends[..., 0], ends[..., 1]
+    in_bounds = (gx >= 0.0) & (gy >= 0.0) & (gx < spec.cols) \
+        & (gy < spec.rows)
+    use = valid & present & in_bounds
+    # astype(int32) truncates toward zero, then the clip
+    xi = torch.clamp(gx.to(torch.int32), 0, spec.cols - 1).long()
+    yi = torch.clamp(gy.to(torch.int32), 0, spec.rows - 1).long()
+    odds = torch.gather(grid.reshape(p, h * w), 1, yi * w + xi)
+    prob = 1.0 - 1.0 / (1.0 + torch.exp(odds))
+    mixture = Z_HIT * prob + (1.0 - Z_HIT) / SENSOR_MAXDIST
+    factor = torch.where(odds == 0.0,
+                         torch.full_like(odds, 1.0 / SENSOR_MAXDIST), mixture)
+    return torch.sum(torch.where(use, torch.log(factor), 0.0), dim=-1)

@@ -10,7 +10,9 @@ final maps' flip fraction (|diff| > 0.01) below 1e-3 (atan2 bin flips of
 the TPU kernel's polynomial).  Also: the same through ``make_fused``
 (static beam spacing), a rollout continued by both packages from the
 JAX package's state carried over by ``slamrs_tpu_torch.convert``, the
-YAML parse, the CLI, and import hygiene.
+YAML parse, the CLI, and import hygiene.  The repo's default preset,
+``configs/grid_slam.yaml`` (the dda integrator, 10 particles at 0.02 m),
+for 3 scan frames at the same gates, and through the CLI on the CPU.
 
 The ICP and EKF worlds (``make_fused`` with the JAX package's default
 scene, 90 ticks): the ICP mapper's pose per frame within 1e-4 m of the
@@ -53,6 +55,7 @@ from slamrs_tpu_torch.models import icp_mapper as tmap  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 YAML = str(ROOT / "configs" / "grid_slam_fused.yaml")
+GRID_YAML = str(ROOT / "configs" / "grid_slam.yaml")
 ICP_YAML = str(ROOT / "configs" / "icp_test.yaml")
 EKF_YAML = str(ROOT / "configs" / "landmarks.yaml")
 P = 16
@@ -197,16 +200,27 @@ def test_compile_world_carries_resample_cow_tiled():
 
 
 def test_unported_nodes_raise():
-    """Grid SLAM's dda and dense integrators are the paths of the world
-    still to port: a world that asks for one raises when it is built."""
+    """Grid SLAM's dda integrator, asked for by a node, builds and inits
+    as the JAX package's does (unpadded f32 maps); an unknown integrator
+    raises when the world is initialized."""
+    from slamrs_tpu.graph.config import parse_config as jparse
     from slamrs_tpu_torch.graph.config import parse_config
 
     text = Path(YAML).read_text().replace('integrate: "fused"',
                                           'integrate: "dda"')
     assert text != Path(YAML).read_text()
     fw = tcompile.compile_world(parse_config(text), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fw.init()
+    jw = jcompile.compile_world(jparse(text))
+    assert dataclasses.asdict(fw.grid_config) == \
+        dataclasses.asdict(jw.grid_config)
+    st, jst = fw.init().grid, jw.init().grid
+    assert tuple(st.grids.shape) == jst.grids.shape == (1024, 80, 80)
+    assert st.grids.dtype == torch.float32 and jst.grids.dtype == jnp.float32
+    bad = tcompile.compile_world(
+        parse_config(text.replace('integrate: "dda"', 'integrate: "ray"')),
+        device="cpu")
+    with pytest.raises(ValueError, match="integrate"):
+        bad.init()
 
 
 def test_rollout_and_cadence_agree_without_noise():
@@ -398,3 +412,31 @@ def test_cli_reports_icp_and_ekf_rmse(yaml, key, capsys):
     report = json.loads(capsys.readouterr().out)
     assert report["scans"] == 2 and np.isfinite(report[key])
     assert "grid_pose_rmse_xy" not in report
+
+
+def test_grid_slam_yaml_matches_jax():
+    """The repo's default preset, ``configs/grid_slam.yaml`` (dda, 10
+    particles at 0.02 m), through ``compile_world`` in both packages: the
+    same config, then 3 scan frames (95 ticks) with the JAX rollout's draws
+    injected, held to ``_check``'s gates."""
+    jw = jcompile.compile_world(jload(GRID_YAML))
+    tw = tcompile.compile_world(tload(GRID_YAML), device="cpu")
+    assert tw.grid_config.integrate == "dda"
+    assert dataclasses.asdict(tw.grid_config) == \
+        dataclasses.asdict(jw.grid_config)
+    js0 = jw.init()
+    jst, jo = jw.rollout_cadence(js0, 95, seed=0, initial_timer=0.0)
+    noise = _jax_noise(jw, js0, 95, 0, 0.0)
+    assert len(noise[0]) == 3
+    tst, to = tw.rollout_cadence(tw.init(), 95, seed=0, initial_timer=0.0,
+                                 noise=noise)
+    assert tst.grid.grids.shape == (10, 200, 200)
+    _check(jst, jo, tst, to)
+
+
+def test_cli_rollout_grid_slam_yaml_on_cpu(capsys):
+    cli_main(["rollout", GRID_YAML, "--steps", "61", "--device", "cpu"])
+    report = json.loads(capsys.readouterr().out)
+    assert report["steps"] == 61 and report["scans"] == 2
+    assert report["device"] == "cpu"
+    assert np.isfinite(report["grid_pose_rmse_xy"])
