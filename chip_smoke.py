@@ -130,7 +130,47 @@ dense integrators, plain PyTorch with no kernel of their own:
     ``torch.cuda.set_sync_debug_mode("error")``;
 23. times: warm 300-tick dda, dense and ``grid_slam.yaml`` runs (ticks/s,
     peak memory) and a profiled 300-tick dda run (device busy time, idle
-    share, launches per tick).
+    share, launches per tick);
+
+then fleets, batched worlds on one card (BASELINE config 5, bench.py's
+``fleet`` cell: 256 worlds x 10 particles on 4 x 4 m maps at 0.02 m,
+f32 ``[256, 10, 200, 256]``, ``integrate="fused"``):
+
+24. K1 with the world axis against its plain version at
+    ``[2560, 200, 256]`` f32: 256 per-world scans from the simulator at
+    random per-world poses (six on the edges), a third of the beams out
+    to 5 m in a quarter of the worlds; in place and in lineage mode with
+    block-diagonal ancestors, static and traced spacing.  Gates: maps
+    equal by value, likelihood rtol 1e-5 / atol 1e-4, one launch for the
+    fleet; a one-world call bitwise equal to the single-world call;
+25. K2 on the flattened 2,560-map plan of a fleet resample against its
+    plain version, bitwise, every copy inside its world block, with its
+    time;
+26. the main path of this slice: ``make_fused`` with bench.py's fleet
+    values, 300 ticks of ``rollout_cadence`` at 256 worlds: K1 once per
+    scan frame (in place), K2 at most once, finite outputs, every world's
+    weights summing to 1, best-pose RMSE over every world and frame
+    <= 0.15 m (``grid_slam.yaml``'s gate for 10 particles), the worst
+    world printed beside it;
+27. a 4-world fleet for 60 ticks under the same numpy draws on the card
+    and on the CPU: best poses within 0.04 m RMSE, the frames whose
+    ancestors differ printed;
+28. other fleets: a tiled fleet (4 worlds x 64 particles, 6.4 x 12.8 m,
+    K3 once per world a frame), ``grid_slam.yaml`` at 16 worlds (dda, no
+    kernel), ``icp_test.yaml`` at 8 worlds (K4 once an iteration for all
+    worlds; the worlds bitwise equal to each other, and within 2e-3 m of
+    the single-world run of phase 14: batched products sum in another
+    order) and ``landmarks.yaml`` at 8 worlds;
+29. one copy-on-write and one whole-set-gather fleet update at 256 x 10
+    under ``torch.cuda.set_sync_debug_mode("error")``;
+30. times: K1 in place at the fleet shape (kernel, plain version, bound
+    over the scan discs' cells), a warm 300-tick fleet run (world-ticks/s,
+    bench.py's unit, and peak memory) and a profiled one (device busy
+    time, idle share, launches per tick).
+
+The ``kernels`` line's entries carry the fleet runs' launches
+(``fleet_launches``) and, for K1 and K2, their times at the fleet's
+shapes (``fleet_ms``, ``fleet_plain_ms``, ``fleet_bound_ms``).
 
 Every kernel's bound is the larger of the bytes it must move at
 3.35 TB/s and its float32 operations at 67 TFLOP/s (the published H100
@@ -885,16 +925,16 @@ def time_config3_rollouts(torch):
         del state, outs
 
 
-def profile_rollout(torch, fw, label, n_steps=300, kernel=None):
-    """Device busy time, idle share and launches of a profiled run; with
-    ``kernel``, the device time and launches of the kernels whose name
-    holds it."""
+def profile_rollout(torch, fw, label, n_steps=300, kernel=None, worlds=()):
+    """Device busy time, idle share and launches of a profiled run (of
+    ``worlds`` worlds); with ``kernel``, the device time and launches of
+    the kernels whose name holds it."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        _, outs = fw.rollout_cadence(fw.init(), n_steps, seed=1)
+        _, outs = fw.rollout_cadence(fw.init(worlds), n_steps, seed=1)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     device = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
@@ -1450,9 +1490,10 @@ def recording_ancestors(gs):
     return kept, restore
 
 
-def injected_grid_noise(fw, n_steps, seed):
+def injected_grid_noise(fw, n_steps, seed, worlds=()):
     """Per-frame grid-SLAM draws from numpy for ``n_steps`` ticks of a
-    fresh world: (eps_c [F, P], eps_t [F, P], u01 [F, 1])."""
+    fresh world (or fleet of ``worlds``): (eps_c [F, *worlds, P],
+    eps_t [F, *worlds, P], u01 [F, *worlds, 1])."""
     import numpy as np
 
     period = np.float32(fw.params.update_period)
@@ -1464,9 +1505,9 @@ def injected_grid_noise(fw, n_steps, seed):
             timer = np.float32(timer - period)
     rng = np.random.default_rng(seed)
     p = fw.grid_config.n_particles
-    return (rng.standard_normal((frames, p)).astype(np.float32),
-            rng.standard_normal((frames, p)).astype(np.float32),
-            rng.random((frames, 1)).astype(np.float32))
+    return (rng.standard_normal((frames, *worlds, p)).astype(np.float32),
+            rng.standard_normal((frames, *worlds, p)).astype(np.float32),
+            rng.random((frames, *worlds, 1)).astype(np.float32))
 
 
 def check_grid_slam_yaml(torch):
@@ -1640,6 +1681,390 @@ def time_nonfused_rollouts(torch, grid_slam_world):
     profile_rollout(torch, runs[0][1], "dda_0.05m_300")
 
 
+# --- fleets: batched worlds on one card (BASELINE config 5) ---
+
+FLEET_WORLDS, FLEET_PARTICLES = 256, 10  # bench.py:151-167
+FLEET_CPU_WORLDS, FLEET_CPU_TICKS = 4, 60
+
+
+def fleet_world(torch, device="cuda", **grid_kw):
+    """``make_fused`` with bench.py's ``fleet`` values (``bench.py:151-167``):
+    10 particles on 4 x 4 m maps at 0.02 m (f32 ``[W, 10, 200, 256]``),
+    ``integrate="fused"``, N_eff gate 0.5, a scan every 0.2 s, the default
+    scene and command."""
+    from slamrs_tpu_torch.graph.compile import make_fused
+    from slamrs_tpu_torch.models.gridslam import GridSlamConfig
+    from slamrs_tpu_torch.models.simulator import SimParams
+
+    kw = dict(position_x=-2.0, position_y=-2.0, width=4.0, height=4.0,
+              resolution=0.02, n_particles=FLEET_PARTICLES,
+              max_scan_range=1.0, resample_neff_frac=0.5, integrate="fused")
+    kw.update(grid_kw)
+    return make_fused(params=SimParams.make(update_period=0.2),
+                      grid_config=GridSlamConfig(**kw), device=device)
+
+
+def fleet_kernel_case(torch, spec, worlds, p, seed, static, far=True):
+    """K1's inputs for a fleet, made on the card: one 360-beam scan per
+    world from the simulator at a random per-world pose (six worlds on
+    the grid's edges), with ``far`` a third of the beams out to 5 m in a
+    quarter of the worlds; a first-beam angle per world; each world's
+    particles within 0.05 m of its pose; maps of random log-odds (~30 %
+    exact zeros); block-diagonal lineage."""
+    from slamrs_tpu_torch.models.simulator import Scene, lidar_scan
+
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(seed)
+    scene = Scene.build(rects=YAML_RECTS, lines=YAML_LINES, device=dev)
+    lo = torch.tensor([-1.3, -1.3, -math.pi], device=dev)
+    hi = torch.tensor([1.3, 1.3, math.pi], device=dev)
+    centers = lo + (hi - lo) * torch.rand(worlds, 3, generator=g, device=dev)
+    if worlds >= 6:
+        edge_poses(centers, spec)
+    scan = lidar_scan(centers, scene, 1.0, 360)
+    dist = scan.distances.clone()
+    if far:
+        far_beams(torch, dist[: max(worlds // 4, 1)].view(-1), g)
+    poses = (centers[:, None, :] + 0.05 * torch.randn(
+        worlds, p, 3, generator=g, device=dev)).reshape(-1, 3).contiguous()
+    rows, cols = spec.rows, (spec.cols + 127) // 128 * 128
+    grids = torch.randn(worlds * p, rows, cols, generator=g, device=dev) * 2.0
+    grids[torch.rand(grids.shape, generator=g, device=dev) < 0.3] = 0.0
+    anc = (torch.randint(0, p, (worlds, p), generator=g, device=dev)
+           + p * torch.arange(worlds, device=dev)[:, None]).reshape(-1)
+    a0 = 0.1 * torch.rand(worlds, generator=g, device=dev)
+    dphi = math.radians(1.0) if static else torch.full(
+        (worlds,), math.radians(1.0), device=dev)
+    return (grids, poses, a0, dist, scan.valid, scan.present, spec, 360,
+            1.0), dict(ancestors=anc.to(torch.int32), dphi=dphi)
+
+
+def check_k1_fleet(torch, spec):
+    """K1 with the world axis against its plain version at the fleet's
+    ``[2560, 200, 256]`` f32, in place and in lineage mode (block-diagonal
+    ancestors), static and traced spacing: maps equal by value,
+    likelihood rtol 1e-5 / atol 1e-4, one launch for the fleet.  Then a
+    one-world call against the single-world call, bitwise.  Returns the
+    worst absolute error."""
+    from slamrs_tpu_torch.ops import fused
+
+    worst = 0.0
+    w, p = FLEET_WORLDS, FLEET_PARTICLES
+    for mode in ("in_place", "lineage"):
+        for static in (True, False):
+            args, kw = fleet_kernel_case(torch, spec, w, p, 91, static)
+            if mode == "in_place":
+                kw = dict(dphi=kw["dphi"], in_place=True)
+                g_p, l_p = fused.fused_update_reference(args[0].clone(),
+                                                        *args[1:], **kw)
+            else:
+                g_p, l_p = fused.fused_update_reference(*args, **kw)
+            before = fused.fused_update.launches
+            g_k, l_k = fused.fused_update(*args, **kw)
+            torch.cuda.synchronize()
+            launched = fused.fused_update.launches - before
+            flip, err = compare_dense(g_k, g_p)
+            lik_err = float((l_k - l_p).abs().max())
+            ok = (err == 0.0 and launched == 1 and bool(torch.allclose(
+                l_k, l_p, rtol=LIK_RTOL, atol=LIK_ATOL)))
+            worst = max(worst, err, lik_err)
+            emit({"phase": "kernel_vs_plain_k1_fleet", "mode": mode,
+                  "dphi": "static" if static else "traced",
+                  "shape": list(g_k.shape), "worlds": w,
+                  "launches": launched, "flip_fraction": flip,
+                  "grid_max_abs_err": err, "lik_max_abs_err": lik_err})
+            if not ok:
+                raise AssertionError(f"K1 over worlds disagrees with its "
+                                     f"plain version ({mode}, static="
+                                     f"{static}) or launched {launched}")
+            del g_k, g_p, args
+    args, kw = fleet_kernel_case(torch, spec, 1, w * p, 92, True)
+    grids, poses, a0, dist, valid, present = args[:6]
+    one = fused.fused_update(*args, **kw)
+    single = fused.fused_update(grids, poses, a0[0], dist[0], valid[0],
+                                present[0], *args[6:], **kw)
+    equal = bool(torch.equal(one[0], single[0])
+                 and torch.equal(one[1], single[1]))
+    emit({"phase": "k1_one_world_vs_single_world", "shape":
+          list(grids.shape), "bitwise_equal": equal})
+    if not equal:
+        raise AssertionError("a one-world K1 call differs from the "
+                             "single-world call")
+    return worst
+
+
+def fleet_cow_plan(torch, seed=5):
+    """The flattened plan of one fleet resample: per-world systematic
+    resamples of peaked weights, ancestors offset by ``w * P``."""
+    from slamrs_tpu_torch.ops import cow, resample
+
+    w, p = FLEET_WORLDS, FLEET_PARTICLES
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    weights = torch.softmax(torch.randn(w, p, generator=g, device="cuda")
+                            * 3.0, -1)
+    anc = resample.systematic_resample(
+        weights, torch.rand(w, 1, generator=g, device="cuda"))
+    flat = (anc + p * torch.arange(w, dtype=torch.int32,
+                                   device="cuda")[:, None]).reshape(-1)
+    return cow.cow_plan(flat)
+
+
+def check_cow_fleet(torch):
+    """K2 on the flattened 2,560-map plan of a fleet resample against its
+    plain version, bitwise; every copy's source and destination in one
+    world block.  Returns the kernels-line numbers of K2 at this plan."""
+    from slamrs_tpu_torch.ops import cow
+
+    p = FLEET_PARTICLES
+    src, dst, n = fleet_cow_plan(torch)
+    live = torch.arange(src.shape[0], device="cuda") < n
+    in_world = bool(((src // p) == (dst // p))[live].all())
+    g = torch.Generator(device="cuda").manual_seed(8)
+    grids = torch.randn(src.shape[0], 200, 256, generator=g, device="cuda")
+    before = cow.cow_copy.launches
+    g_k = cow.cow_copy(grids.clone(), src, dst, n)
+    torch.cuda.synchronize()
+    launched = cow.cow_copy.launches - before
+    g_p = cow.cow_copy_reference(grids.clone(), src, dst, n)
+    equal = bool(torch.equal(g_k, g_p))
+    n_host = n.cpu()
+    nbytes = cow_bytes(torch, grids, src, n)
+    ms = time_call(torch, lambda: cow.launch_kernel(grids, src, dst, n))
+    plain_ms = time_call(torch, lambda: cow.cow_copy_reference(
+        grids, src, dst, n_host))
+    s_l, d_l = src.long(), dst.long()
+    lib_ms = time_call(torch, lambda: grids.index_copy_(
+        0, d_l, grids.index_select(0, s_l)))
+    bound = nbytes / PEAK_BYTES_PER_S * 1e3
+    emit({"phase": "cow_fleet_plan", "maps": list(grids.shape),
+          "n_copies": int(n), "copies_in_their_world": in_world,
+          "bitwise_equal": equal, "launches": launched, "bytes": nbytes,
+          "kernel_ms": ms, "plain_ms": plain_ms, "index_copy_ms": lib_ms,
+          "bound_ms": bound})
+    if not (equal and in_world and launched == 1):
+        raise AssertionError("K2 on the fleet plan disagrees with its plain "
+                             "version or copies across worlds")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
+                bound_by="bytes")
+
+
+def check_fleet_rollout(torch, fw, worlds, n_steps, label, est="grid_pose",
+                        rmse_gate=None, expect=None, at_most=None):
+    """Drive a fleet's ``rollout_cadence`` with every launch count set to
+    0 just before and read just after.  ``expect`` maps counter names to
+    a count, ``"frames"`` or ``"world_frames"``; ``at_most`` the same as
+    upper bounds.  Gates: finite outputs, each world's weights summing to
+    1, the RMSE of ``est`` over every world and frame."""
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, outs = fw.rollout_cadence(fw.init((worlds,)), n_steps, seed=0)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    frames = int(outs.fired.shape[0])
+    sq = ((getattr(outs, est)[..., :2].float()
+           - outs.pose[..., :2].float()) ** 2)
+    rmse = float(torch.sqrt(sq.mean()))
+    per_world = torch.sqrt(sq.mean(dim=(0, 2)))
+    tensors = [outs.pose, getattr(outs, est)]
+    wsum_err = 0.0
+    if state.grid is not None:
+        tensors += [outs.n_eff, state.grid.weights, state.grid.poses,
+                    state.grid.grids]
+        wsum_err = float((state.grid.weights.sum(-1) - 1.0).abs().max())
+    finite = all(bool(torch.isfinite(t.float()).all()) for t in tensors)
+    emit({"phase": f"rollout_fleet_{label}", "worlds": worlds,
+          "ticks": n_steps, "frames": frames, "launch_counts": counts,
+          f"{est}_rmse_xy_m": rmse,
+          "worst_world_rmse_xy_m": float(per_world.max()),
+          "worst_world": int(per_world.argmax()),
+          "weights_sum_max_err": wsum_err, "finite": finite,
+          "seconds": seconds, "world_ticks_per_s": worlds * n_steps / seconds})
+
+    def want(v):
+        return {"frames": frames, "world_frames": worlds * frames}.get(v, v)
+
+    for name, v in (expect or {}).items():
+        if counts[name] != want(v):
+            raise AssertionError(f"fleet {label}: {counts[name]} {name} "
+                                 f"launches, expected {want(v)}")
+    for name, v in (at_most or {}).items():
+        if counts[name] > want(v):
+            raise AssertionError(f"fleet {label}: {counts[name]} {name} "
+                                 f"launches, more than {want(v)}")
+    if not finite or wsum_err > 1e-5:
+        raise AssertionError(f"fleet {label}: non-finite outputs or weights "
+                             "not normalized")
+    if rmse_gate is not None and not rmse <= rmse_gate:
+        raise AssertionError(f"fleet {label}: RMSE {rmse} m > {rmse_gate} m")
+    return counts, outs, state
+
+
+def check_fleet_card_vs_cpu(torch):
+    """A 4-world fleet at bench.py's fleet values for 60 ticks under the
+    same numpy draws on the card and on the CPU: best poses within
+    ``GRID_SLAM_CPU_GATE_M`` RMSE; the frames whose ancestors differ are
+    printed."""
+    from slamrs_tpu_torch.models import gridslam as gs
+
+    w = (FLEET_CPU_WORLDS,)
+    fw, cpu = fleet_world(torch), fleet_world(torch, device="cpu")
+    noise = injected_grid_noise(fw, FLEET_CPU_TICKS, 9, w)
+    kept, restore = recording_ancestors(gs)
+    try:
+        _, outs = fw.rollout_cadence(fw.init(w), FLEET_CPU_TICKS, seed=0,
+                                     noise=noise)
+        card_anc = [a.cpu() for a in kept]
+        kept.clear()
+        _, cpu_outs = cpu.rollout_cadence(cpu.init(w), FLEET_CPU_TICKS,
+                                          seed=0, noise=noise)
+        cpu_anc = list(kept)
+    finally:
+        restore()
+    gap = pose_rmse(torch, outs.grid_pose.cpu().reshape(-1, 3),
+                    cpu_outs.grid_pose.reshape(-1, 3))
+    differ = [f for f, (a, b) in enumerate(zip(card_anc, cpu_anc))
+              if not torch.equal(a, b)]
+    emit({"phase": "fleet_card_vs_cpu", "worlds": w[0],
+          "ticks": FLEET_CPU_TICKS, "frames": int(outs.fired.shape[0]),
+          "card_vs_cpu_best_pose_rmse_m": gap,
+          "frames_where_ancestors_differ": differ})
+    if not gap <= GRID_SLAM_CPU_GATE_M:
+        raise AssertionError(f"fleet card and CPU best poses differ by {gap} "
+                             f"m RMSE")
+
+
+def check_other_fleets(torch, icp_single_outs):
+    """A small tiled fleet (K3 once per world a frame), ``grid_slam.yaml``
+    at 16 worlds (dda, no kernel), ``icp_test.yaml`` at 8 worlds (K4 once
+    an iteration for all worlds; the worlds, which draw nothing and see
+    the same scans, bitwise equal, and within ``ICP_CPU_GATE_M`` of the
+    single-world run) and ``landmarks.yaml`` at 8 worlds.  Returns the
+    launch counts of the tiled and ICP fleets."""
+    tiled = fleet_world(torch, position_x=-3.2, position_y=-6.4, width=6.4,
+                        height=12.8, resolution=0.05, n_particles=64,
+                        grid_dtype="bfloat16", resample_cow="tiled")
+    tiled_counts, _, state = check_fleet_rollout(
+        torch, tiled, 4, 60, "tiled_4x64_60", rmse_gate=RMSE_GATE_M,
+        expect={"fused_update_tiled": "world_frames", "fused_update": 0,
+                "cow_copy": 0})
+    if state.grid.tile_table is None or state.grid.tile_table.dim() != 3:
+        raise AssertionError("the tiled fleet holds no per-world tables")
+    check_fleet_rollout(torch, preset_world(torch, "grid_slam.yaml"), 16, 300,
+                        "grid_slam_yaml_16_300",
+                        rmse_gate=GRID_SLAM_RMSE_GATE_M, expect=NO_KERNELS)
+    icp_fw = preset_world(torch, "icp_test.yaml")
+    icp_counts, outs, _ = check_fleet_rollout(
+        torch, icp_fw, 8, 300, "icp_8_300", est="icp_pose",
+        rmse_gate=ICP_RMSE_GATE_M,
+        expect={"fused_update": 0, "fused_update_tiled": 0, "cow_copy": 0})
+    if icp_counts["nn_argmin"] != icp_fw.icp_config.iterations \
+            * outs.fired.shape[0]:
+        raise AssertionError("the ICP fleet did not launch K4 once an "
+                             "iteration for all worlds")
+    # every world runs the same scans: the worlds agree bit for bit, and
+    # with the single-world run up to the order of the batched products'
+    # sums (cuBLAS picks other kernels for a batch), as the card and the
+    # CPU do
+    n = outs.icp_pose.shape[0]
+    same = bool((outs.icp_pose == outs.icp_pose[:, :1]).all())
+    gap = (outs.icp_pose - icp_single_outs.icp_pose[:n, None]).abs().amax(
+        dim=(1, 2))
+    emit({"phase": "icp_fleet_vs_single_world", "worlds": 8, "frames": n,
+          "worlds_bitwise_equal": same, "max_pose_diff_m": float(gap.max()),
+          "first_frame_diff_m": float(gap[0]),
+          "per_frame_max_diff_m": [float(x) for x in gap[::8]]})
+    if not (same and float(gap.max()) <= ICP_CPU_GATE_M):
+        raise AssertionError(f"ICP fleet worlds differ from each other or "
+                             f"from the single world by {float(gap.max())} m")
+    check_fleet_rollout(torch, preset_world(torch, "landmarks.yaml"), 8, 300,
+                        "ekf_8_300", est="ekf_pose",
+                        rmse_gate=EKF_RMSE_GATE_M)
+    return tiled_counts, icp_counts
+
+
+def check_fleet_no_host_sync(torch):
+    """One copy-on-write and one whole-set-gather fleet update at 256 x 10
+    never wait for the card."""
+    from slamrs_tpu_torch.core.types import OdometryReading
+    from slamrs_tpu_torch.models import gridslam as gs
+    from slamrs_tpu_torch.models.simulator import lidar_scan
+
+    w = FLEET_WORLDS
+    for label, kw in (("cow", {}), ("gather", {"fleet_resample": "gather"})):
+        fw = fleet_world(torch, **kw)
+        st = fw.init((w,)).grid
+        pose = torch.zeros(w, 3, device="cuda")
+        pose[:, 0] = torch.linspace(-0.5, 0.5, w, device="cuda")
+        scan = lidar_scan(pose, fw.scene, 1.0, 360)
+        odo = OdometryReading(torch.full((w,), 0.01, device="cuda"),
+                              torch.full((w,), 0.012, device="cuda"),
+                              fw.params.wheel_base)
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            st, out = gs.update_fleet(st, scan, odo, fw.grid_config,
+                                      generator=gen)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        emit({"phase": f"no_host_sync_fleet_{label}", "ok": True,
+              "pose_finite": bool(torch.isfinite(out.pose).all())})
+
+
+def time_fleet(torch, spec):
+    """K1 at the fleet shape (in place, the main path's mode): kernel,
+    plain version and bound, the bound counting the scan discs' cells
+    read and written once; then a warm 300-tick fleet run (world-ticks/s,
+    peak memory) and a profiled one.  Returns K1's kernels-line
+    numbers."""
+    from slamrs_tpu_torch.ops import fused
+
+    args, kw = fleet_kernel_case(torch, spec, FLEET_WORLDS, FLEET_PARTICLES,
+                                 93, True, far=False)
+    grids, poses, a0, dist, valid, present = args[:6]
+    prep = fused.prepare(grids.shape[1], grids.shape[2], poses, a0, dist,
+                         valid, present, spec, 360, 1.0, kw["dphi"])
+    ms = time_call(torch, lambda: fused.launch_kernel(grids, None, prep,
+                                                       spec, 360))
+    plain_ms = time_call(torch, lambda: fused.plain_update(grids, prep, spec,
+                                                           360))
+    el = grids.element_size()
+    cells = disc_cells(torch, spec, prep, grids.shape[2])
+    bound, by = fused_bound(2 * cells * el, cells)
+    box = box_cells(torch, prep, grids.shape[2], el)
+    window = grids.shape[0] * prep.wr * grids.shape[2]
+    emit({"phase": "kernel_time_k1_fleet", "shape": list(grids.shape),
+          "worlds": FLEET_WORLDS, "mode": "in_place", "kernel_ms": ms,
+          "plain_ms": plain_ms, "disc_cells": cells, "bound_ms": bound,
+          "bound_by": by, "window_cells": window, "box_cells": box,
+          "box_design_cost_ms": fused_bound(2 * box * el, box)[0],
+          "g_box_cells_per_s": box / ms / 1e6})
+    del grids, args
+
+    fw = fleet_world(torch)
+    w = (FLEET_WORLDS,)
+    fw.rollout_cadence(fw.init(w), 30, seed=2)  # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, outs = fw.rollout_cadence(fw.init(w), 300, seed=0)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    emit({"phase": "rollout_time_fleet_256x10_0.02m_300", "ticks": 300,
+          "worlds": w[0], "frames": int(outs.fired.shape[0]),
+          "seconds": seconds, "world_ticks_per_s": w[0] * 300 / seconds,
+          "grid_pose_rmse_xy_m": pose_rmse(torch,
+                                           outs.grid_pose.reshape(-1, 3),
+                                           outs.pose.reshape(-1, 3)),
+          "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()})
+    del outs
+    profile_rollout(torch, fw, "fleet_256x10_0.02m_300", kernel="fused",
+                    worlds=w)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+
 
 def _spec(geom):
     from slamrs_tpu_torch.ops.grid import GridSpec2D
@@ -1758,7 +2183,7 @@ def main() -> int:
 
     # ICP odometry and EKF landmark SLAM: K4 on the card
     nn_err = check_nn(torch)
-    icp_counts, _, icp_state = check_icp_world(torch)
+    icp_counts, icp_outs, icp_state = check_icp_world(torch)
     ekf_world, ekf_state = check_ekf_world(torch)
     check_icp_ekf_no_host_sync(torch, icp_state.icp, ekf_world,
                                ekf_state.ekf)
@@ -1778,6 +2203,23 @@ def main() -> int:
     check_nonfused_no_host_sync(torch)
     time_nonfused_rollouts(torch, grid_slam_world)
 
+    # fleets: batched worlds on one card (BASELINE config 5, bench.py's
+    # fleet cell), K1 over a world axis and one flattened K2 pass
+    spec_fleet = GridSpec2D(-2.0, -2.0, 4.0, 4.0, 0.02)
+    worst = max(worst, check_k1_fleet(torch, spec_fleet))
+    cow_fleet = check_cow_fleet(torch)
+    fleet_counts, _, _ = check_fleet_rollout(
+        torch, fleet_world(torch), FLEET_WORLDS, 300, "256x10_0.02m_300",
+        rmse_gate=GRID_SLAM_RMSE_GATE_M,
+        expect={"fused_update": "frames", "fused_update_in_place": "frames",
+                "fused_update_tiled": 0, "nn_argmin": 0},
+        at_most={"cow_copy": "frames"})
+    check_fleet_card_vs_cpu(torch)
+    tiled_fleet_counts, icp_fleet_counts = check_other_fleets(torch,
+                                                              icp_outs)
+    check_fleet_no_host_sync(torch)
+    t_fleet = time_fleet(torch, spec_fleet)
+
     k1_ms, k1_plain, k1_bound, k1_by = times["0.05m"]
     emit({"kernels": [
         {"name": "fused_update", "route": "cuda",
@@ -1785,22 +2227,27 @@ def main() -> int:
          "replaces": "slamrs_tpu/ops/fused.py:1619",
          "launches": launches, "max_abs_err": worst,
          "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bound,
-         "bound_by": k1_by, "library_ms": None},
+         "bound_by": k1_by, "library_ms": None,
+         "fleet_launches": fleet_counts["fused_update"],
+         **{f"fleet_{k}": v for k, v in t_fleet.items()}},
         {"name": "cow_copy", "route": "cuda",
          "source": "slamrs_tpu_torch/csrc/cow_copy.cu",
          "replaces": "slamrs_tpu/ops/cow.py:187",
          "launches": cow_counts["cow_copy"], "max_abs_err": cow_err,
-         **t3["cow_copy"]},
+         **t3["cow_copy"], "fleet_launches": fleet_counts["cow_copy"],
+         **{f"fleet_{k}": v for k, v in cow_fleet.items()}},
         {"name": "fused_update_tiled", "route": "cuda",
          "source": "slamrs_tpu_torch/csrc/fused_update_tiled.cu",
          "replaces": "slamrs_tpu/ops/tiles.py:533",
          "launches": tiled_counts["fused_update_tiled"],
-         "max_abs_err": tiled_err, **t3["fused_update_tiled"]},
+         "max_abs_err": tiled_err, **t3["fused_update_tiled"],
+         "fleet_launches": tiled_fleet_counts["fused_update_tiled"]},
         {"name": "nn_argmin", "route": "cuda",
          "source": "slamrs_tpu_torch/csrc/nn_argmin.cu",
          "replaces": "slamrs_tpu/ops/icp.py:111",
          "launches": icp_counts["nn_argmin"], "max_abs_err": nn_err,
-         **t4["mapper_1x360x16384_qc10000"]}]})
+         **t4["mapper_1x360x16384_qc10000"],
+         "fleet_launches": icp_fleet_counts["nn_argmin"]}]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

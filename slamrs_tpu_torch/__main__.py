@@ -1,11 +1,12 @@
 """CLI: ``python -m slamrs_tpu_torch rollout <config.yaml> [--steps N]
-[--seed S] [--device cuda]``.
+[--worlds W] [--seed S] [--device cuda]``.
 
-Runs the fused world of a YAML node graph through ``rollout_cadence`` and
-prints one JSON report: steps, scans, final ground-truth pose, and, for
-each filter the world runs (grid SLAM's best particle, the ICP mapper,
-the EKF), the RMSE of its pose against ground truth over the scan
-frames.
+Runs the fused world of a YAML node graph through ``rollout_cadence``,
+as one world or as a fleet of ``W`` worlds on one device, and prints one
+JSON report: steps, worlds, scans, final ground-truth pose (one per
+world for a fleet), and, for each filter the world runs (grid SLAM's
+best particle, the ICP mapper, the EKF), the RMSE of its pose against
+ground truth over every world and scan frame.
 The device defaults to ``cuda`` and nothing falls back: without CUDA it
 stops with an error, and ``--device cpu`` must be asked for.
 """
@@ -26,12 +27,17 @@ def cmd_rollout(args) -> dict:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("error: --device cuda but CUDA is not available "
                          "(pass --device cpu to run the plain versions)")
+    if args.worlds < 1:
+        raise SystemExit(f"error: --worlds must be at least 1, got "
+                         f"{args.worlds}")
     fw = compile_world(load_config(args.config), device=device)
-    state, outs = fw.rollout_cadence(fw.init(), args.steps, seed=args.seed)
+    worlds = (args.worlds,) if args.worlds > 1 else ()
+    state, outs = fw.rollout_cadence(fw.init(worlds), args.steps,
+                                     seed=args.seed)
     pose = outs.pose.cpu()
     report = {
         "steps": args.steps,
-        "worlds": 1,
+        "worlds": args.worlds,
         "scans": int(outs.fired.sum()),
         "final_pose": state.pose.cpu().tolist(),
         "device": str(device),
@@ -39,7 +45,7 @@ def cmd_rollout(args) -> dict:
     for name in ("grid_pose", "icp_pose", "ekf_pose"):
         est = getattr(outs, name)
         if est is not None:
-            err = est.cpu()[:, :2] - pose[:, :2]
+            err = est.cpu()[..., :2] - pose[..., :2]
             report[f"{name}_rmse_xy"] = float(torch.sqrt((err ** 2).mean()))
     return report
 
@@ -50,6 +56,7 @@ def main(argv=None) -> None:
     ro = sub.add_parser("rollout", help="fused-world rollout")
     ro.add_argument("config")
     ro.add_argument("--steps", type=int, default=900)
+    ro.add_argument("--worlds", type=int, default=1)
     ro.add_argument("--seed", type=int, default=0)
     ro.add_argument("--device", default="cuda")
     ro.set_defaults(fn=cmd_rollout)

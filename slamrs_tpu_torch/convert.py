@@ -12,7 +12,9 @@ JAX package does, so a carried-over state goes on in the same slot
 order).  Each function takes numpy arrays, for example
 ``np.asarray`` of the JAX package's state, and returns the port's tuple
 on ``device``.  A bf16 map arrives as an ``ml_dtypes.bfloat16`` array and
-goes through float32 to ``torch.bfloat16``, which is lossless.
+goes through float32 to ``torch.bfloat16``, which is lossless.  A fleet's
+arrays carry their leading ``[W]`` axis through unchanged (a tiled
+fleet: one pool and table per world).
 """
 
 from __future__ import annotations
@@ -42,10 +44,11 @@ def _bool(a, device) -> torch.Tensor:
 def grid_state_from_numpy(poses, grids, weights, best_pose, best_idx,
                           ancestors, device, tile_table=None
                           ) -> GridSlamState:
-    """A :class:`GridSlamState` from numpy arrays.  ``grids`` keeps its
-    storage type: bf16 (``ml_dtypes.bfloat16``) stays bf16, else f32.
-    For tiled maps ``grids`` is the tile pool ``[n_phys, hb, Wp]`` and
-    ``tile_table`` its ``i32[P, nb]`` band table."""
+    """A :class:`GridSlamState` from numpy arrays, one world's or a
+    fleet's.  ``grids`` keeps its storage type: bf16
+    (``ml_dtypes.bfloat16``) stays bf16, else f32.  For tiled maps
+    ``grids`` is the tile pool ``[n_phys, hb, Wp]`` and ``tile_table``
+    its ``i32[P, nb]`` band table (``[W, ...]`` each for a fleet)."""
     grids = np.asarray(grids)
     dtype = torch.bfloat16 if grids.dtype.name == "bfloat16" \
         else torch.float32
@@ -54,8 +57,8 @@ def grid_state_from_numpy(poses, grids, weights, best_pose, best_idx,
         grids=_f32(grids, device).to(dtype),
         weights=_f32(weights, device),
         best_pose=_f32(best_pose, device),
-        best_idx=torch.tensor(int(np.asarray(best_idx)), dtype=torch.int64,
-                              device=device),
+        best_idx=torch.from_numpy(np.asarray(best_idx, np.int64).copy()
+                                  ).to(device),
         ancestors=_i32(ancestors, device),
         tile_table=None if tile_table is None else _i32(tile_table, device))
 

@@ -55,6 +55,14 @@
 // The likelihood, the box and the cell pass are the shared device code of
 // fused_common.cuh, which K3 (fused_update_tiled.cu) runs too.
 //
+// Worlds.  A fleet of W worlds is one launch over its W*P particles, maps
+// flattened world by world: each world has its own scan, so the beam
+// table is [W, 8, kBeamPad] and CTA i reads the table of its world,
+// i / per_world (the JAX package vmaps its kernel over worlds,
+// slamrs_tpu/parallel/shard.py).  Staging row 0, the likelihood and the
+// box's dmax all read that table, so each world's box follows its own
+// scan.  One world is the same launch with per_world = P.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        --fmad=false -Xcompiler -fPIC -c, then linked -shared with the
 //        other sources (slamrs_tpu_torch/kernels).
@@ -75,13 +83,16 @@ struct Args {
   const int* r0;         // [P] window row offsets
   float* lik;            // [P]
   int rows;
+  int per_world;         // particles a world; c.table is world 0's table
   ScanConsts c;
 };
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads) fused_update_kernel(Args a) {
   const int i = blockIdx.x;
-  const int cols = a.c.cols;
+  ScanConsts c = a.c;  // this particle's world's beam table
+  c.table += static_cast<size_t>(i / a.per_world) * 8 * kBeamPad;
+  const int cols = c.cols;
   const size_t map = static_cast<size_t>(a.rows) * cols;
   const int from = a.anc ? a.anc[i] : i;
   // not __restrict__: in place, src and dst are the same map
@@ -91,13 +102,13 @@ __global__ void __launch_bounds__(kThreads) fused_update_kernel(Args a) {
 
   __shared__ float s_denc[kBeamPad];
   __shared__ float s_red[2 * kThreads / 32];
-  const float dmax_part = stage_denc(a.c, s_denc);
+  const float dmax_part = stage_denc(c, s_denc);
 
   // 1. endpoint likelihood on the pre-update map (its barrier also
   //    publishes s_denc and reduces dmax)
   const T* win = src + static_cast<size_t>(q.r0) * cols;
   const float dmax = block_likelihood(
-      a.c, q,
+      c, q,
       [&](int wy, int wx) {
         return load_cell(win + static_cast<size_t>(wy) * cols + wx);
       },
@@ -105,7 +116,7 @@ __global__ void __launch_bounds__(kThreads) fused_update_kernel(Args a) {
 
   // 2. the box; its columns are whole 16-byte words
   constexpr int kPerWord = 16 / sizeof(T);
-  const Box box = cell_box(a.c, q, dmax, kPerWord);
+  const Box box = cell_box(c, q, dmax, kPerWord);
 
   // 3. lineage mode only: the map outside the box, 16-byte copies
   //    (cols % 128 == 0, so every row is a whole number of uint4)
@@ -117,7 +128,7 @@ __global__ void __launch_bounds__(kThreads) fused_update_kernel(Args a) {
   }
 
   // 4. inverse-sensor-model pass over the box
-  box_pass(a.c, make_cell_pass(a.c, q), s_denc, box,
+  box_pass(c, make_cell_pass(c, q), s_denc, box,
            [&](int wy, int wx, float inc) {
              const size_t off = static_cast<size_t>(q.r0 + wy) * cols + wx;
              store_cell(dst + off, load_cell(src + off) + inc);
@@ -129,18 +140,20 @@ __global__ void __launch_bounds__(kThreads) fused_update_kernel(Args a) {
 // Launches the kernel on `stream` and returns cudaGetLastError() (0 when
 // the launch was accepted).  Pointers are device pointers of contiguous
 // tensors; the caller has validated shapes and dtypes.  In place:
-// grids_out == grids_in and anc == nullptr.
+// grids_out == grids_in and anc == nullptr.  `table` holds p / per_world
+// tables of 8 x kBeamPad floats, one per world.
 extern "C" int slamrs_fused_update(const void* grids_in, void* grids_out,
                                    const void* anc, const void* pp,
                                    const void* r0, const void* table, void* lik,
-                                   int p, int rows, int cols, int wr,
+                                   int p, int per_world, int rows, int cols,
+                                   int wr,
                                    int logical_rows, int logical_cols,
                                    int num_beams, int is_bf16, int static_bins,
                                    float inv_s, float nbf, float inv_nbf,
                                    void* stream) {
   Args a{grids_in, grids_out, static_cast<const int*>(anc),
          static_cast<const float*>(pp), static_cast<const int*>(r0),
-         static_cast<float*>(lik), rows,
+         static_cast<float*>(lik), rows, per_world,
          ScanConsts{static_cast<const float*>(table), wr, cols, logical_rows,
                     logical_cols, num_beams, static_bins, inv_s, nbf, inv_nbf}};
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -17,6 +17,18 @@ landmark sensor's bearing noise, then its range noise
 (``models/simulator.landmark_scan``).  ICP draws nothing.  So
 :meth:`FusedWorld.rollout` and :meth:`FusedWorld.rollout_cadence` draw
 the same numbers for the same seed.
+
+Fleets: :meth:`FusedWorld.init` with ``worlds=(W,)`` gives ``W`` worlds
+on one device, every state field with a leading ``[W]`` axis, as the JAX
+package's.  The scan timer stays one shared host scalar and every world
+gets the same command, so all worlds scan on the same ticks.  A fleet's
+scan tick draws, from the one generator and in this order: grid SLAM's
+``eps_c [W, P]``, ``eps_t [W, P]`` and ``u01 [W, 1]``
+(``models/gridslam.update_fleet``), then the landmark bearing noise
+``[W, L]``, then the range noise ``[W, L]``.  The ``noise=`` and
+``landmark_noise=`` arguments take the same shapes behind a leading
+frame axis.  Grid SLAM runs through ``update_fleet`` (one fused kernel
+launch for the fleet); ICP and the EKF take the worlds as a batch axis.
 """
 
 from __future__ import annotations
@@ -45,6 +57,9 @@ Tensor = torch.Tensor
 
 
 class WorldState(NamedTuple):
+    """One world's state, or a fleet's with a leading ``[W]`` axis on
+    every tensor (the timer and scan counter are shared)."""
+
     pose: Tensor  # f32[3] ground-truth robot pose
     accum_left: Tensor  # f32[] wheel travel since the last scan
     accum_right: Tensor  # f32[]
@@ -57,8 +72,9 @@ class WorldState(NamedTuple):
 
 class WorldOutputs(NamedTuple):
     """Per-tick (:meth:`FusedWorld.rollout`) or per-scan-frame
-    (:meth:`FusedWorld.rollout_cadence`) outputs, stacked on dim 0; a
-    filter's field is None when the world does not run it."""
+    (:meth:`FusedWorld.rollout_cadence`) outputs, stacked on dim 0 (a
+    fleet's: ``[T, W, ...]``); a filter's field is None when the world
+    does not run it."""
 
     fired: Tensor  # bool[T]
     pose: Tensor  # f32[T, 3] ground truth
@@ -106,17 +122,21 @@ class FusedWorld:
     icp_config: Optional[icp_model.IcpMapConfig] = None
     ekf_config: Optional[ekf_model.EkfConfig] = None
 
-    def init(self) -> WorldState:
-        z = torch.zeros((), dtype=torch.float32, device=self.device)
+    def init(self, worlds: tuple[int, ...] = ()) -> WorldState:
+        """A fresh state; ``worlds=(W,)`` gives a fleet of W worlds."""
+        w = tuple(worlds)
+        z = torch.zeros(w, dtype=torch.float32, device=self.device)
         return WorldState(
-            pose=torch.zeros(3, dtype=torch.float32, device=self.device),
+            pose=torch.zeros((*w, 3), dtype=torch.float32,
+                             device=self.device),
             accum_left=z, accum_right=z.clone(), scan_timer=0.0,
             scan_counter=0,
-            grid=(gs_model.GridSlamState.init(self.grid_config, self.device)
+            grid=(gs_model.GridSlamState.init(self.grid_config, self.device,
+                                              w)
                   if self.grid_config else None),
-            icp=(icp_model.IcpMapState.init(self.icp_config, self.device)
+            icp=(icp_model.IcpMapState.init(self.icp_config, self.device, w)
                  if self.icp_config else None),
-            ekf=(ekf_model.EkfState.init(self.ekf_config, self.device)
+            ekf=(ekf_model.EkfState.init(self.ekf_config, self.device, w)
                  if self.ekf_config else None))
 
     def _scan_update(self, state: WorldState, generator, noise,
@@ -134,9 +154,10 @@ class FusedWorld:
                                         self.params.scanner_range,
                                         self.num_beams)
         if grid is not None:
-            grid, gout = gs_model.update(grid, scan, odometry,
-                                         self.grid_config,
-                                         generator=generator, noise=noise)
+            upd = gs_model.update_fleet if state.pose.dim() > 1 \
+                else gs_model.update
+            grid, gout = upd(grid, scan, odometry, self.grid_config,
+                             generator=generator, noise=noise)
             grid_pose, n_eff = gout.pose, gout.n_eff
         if icp is not None:
             icp, iout = icp_model.update(icp, scan, self.icp_config)
@@ -158,10 +179,11 @@ class FusedWorld:
              landmark_noise: tuple[Tensor, Tensor] | None = None):
         """One dt tick: motion always; the scan tick's filter updates when
         the timer fires (or ``force_fire``).  ``cmd`` holds 0-dim speed
-        tensors; ``noise`` and ``landmark_noise`` (``(noise_a,
-        noise_d)``) replace the generator's draws for grid SLAM and the
-        landmark sensor.  Returns ``(state, row)`` with ``row`` the
-        tick's ``(fired, pose, grid_pose, icp_pose, ekf_pose, n_eff)``."""
+        tensors, the same for every world of a fleet; ``noise`` and
+        ``landmark_noise`` (``(noise_a, noise_d)``) replace the
+        generator's draws for grid SLAM and the landmark sensor.  Returns
+        ``(state, row)`` with ``row`` the tick's ``(fired, pose,
+        grid_pose, icp_pose, ekf_pose, n_eff)``."""
         dt = np.float32(self.dt)
         sl = cmd.speed_left * float(dt)
         sr = cmd.speed_right * float(dt)
@@ -187,10 +209,11 @@ class FusedWorld:
         else:  # carry each filter's previous estimate
             grid_pose = grid.best_pose if grid is not None else None
             icp_pose = icp.pose if icp is not None else None
-            ekf_pose = ekf.mean[0:3] if ekf is not None else None
+            ekf_pose = ekf.mean[..., 0:3] if ekf is not None else None
             n_eff = None
         if n_eff is None:
-            n_eff = torch.zeros((), dtype=torch.float32, device=self.device)
+            n_eff = torch.zeros(pose.shape[:-1], dtype=torch.float32,
+                                device=self.device)
         new_state = WorldState(pose=pose, accum_left=accum_l,
                                accum_right=accum_r, scan_timer=float(timer),
                                scan_counter=state.scan_counter + int(fired),

@@ -87,7 +87,7 @@ def library() -> ctypes.CDLL:
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn = lib.slamrs_fused_update
     fn.argtypes = [vp, vp, vp, vp, vp, vp, vp,  # buffers
-                   ci, ci, ci, ci, ci, ci, ci, ci, ci,  # shapes and flags
+                   ci, ci, ci, ci, ci, ci, ci, ci, ci, ci,  # shapes, flags
                    cf, cf, cf,  # static bin-units constants
                    vp]  # stream
     fn.restype = ci

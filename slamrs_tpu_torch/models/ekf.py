@@ -20,6 +20,12 @@ tensors: indexing by a 0-dim tensor would read it on the host, a sync.
 Constants are added to the covariance as Python floats for the same
 reason (a tensor built from Python values on the card is a synchronous
 host copy).
+
+A fleet is a state with a leading ``[W]`` axis and ``[W, L]``
+observations: the lanes are still taken one at a time, each lane's
+correction over every world at once (batched products), as the JAX
+package's ``vmap(update)``.  Landmark rows are gathered and scattered
+along the last axis, per world.
 """
 
 from __future__ import annotations
@@ -56,20 +62,24 @@ class EkfConfig:
 
 
 class EkfState(NamedTuple):
+    """One world's filter, or a fleet's with a leading ``[W]`` axis."""
+
     mean: Tensor  # f32[D]
     cov: Tensor  # f32[D, D]
     seen: Tensor  # bool[N]
 
     @staticmethod
-    def init(config: EkfConfig, device) -> "EkfState":
+    def init(config: EkfConfig, device,
+             worlds: tuple[int, ...] = ()) -> "EkfState":
         d = config.dim
+        w = tuple(worlds)
         cov = torch.eye(d, dtype=torch.float32, device=device) \
             * config.initial_landmark_variance
         cov[:3, :3] = 0.0
         return EkfState(
-            mean=torch.zeros(d, dtype=torch.float32, device=device),
-            cov=cov,
-            seen=torch.zeros(config.num_landmarks, dtype=torch.bool,
+            mean=torch.zeros((*w, d), dtype=torch.float32, device=device),
+            cov=cov.expand(*w, d, d).contiguous(),
+            seen=torch.zeros((*w, config.num_landmarks), dtype=torch.bool,
                              device=device))
 
 
@@ -120,96 +130,113 @@ def _motion_prediction(mean: Tensor, odometry: OdometryReading
     return g, gx
 
 
+def _matvec(a: Tensor, v: Tensor) -> Tensor:
+    """``a @ v`` over leading batch axes (one world: the plain product)."""
+    return a @ v if v.dim() == 1 else (a @ v[..., None])[..., 0]
+
+
+def _mat2(a, b, c, d) -> Tensor:
+    """``[[a, b], [c, d]]`` over the entries' batch axes."""
+    return torch.stack([torch.stack([a, b], -1), torch.stack([c, d], -1)],
+                       -2)
+
+
 def update(state: EkfState, observation: LandmarkScan,
            odometry: OdometryReading, config: EkfConfig
            ) -> tuple[EkfState, EkfOutputs]:
     """One EKF update (prediction, then one correction per observation
-    lane) of a single world."""
+    lane) of a single world, or of every world of a fleet (leading
+    ``[W]`` axes on ``state``, ``observation`` and the odometry)."""
     d = config.dim
     n = config.num_landmarks
     dev = state.mean.device
+    batch = state.mean.shape[:-1]
     eye = torch.eye(d, dtype=torch.float32, device=dev)
 
     # ---- prediction
     g, gx = _motion_prediction(state.mean, odometry)
     mu = state.mean
-    mu = torch.cat([mu[0:2] + g[0:2], m.wrap_angle(mu[2] + g[2])[None],
-                    mu[3:]])
-    big_g = eye.clone()
-    big_g[0:3, 0:3] = gx
-    sigma = big_g @ state.cov @ big_g.T
+    mu = torch.cat([mu[..., 0:2] + g[..., 0:2],
+                    m.wrap_angle(mu[..., 2] + g[..., 2])[..., None],
+                    mu[..., 3:]], -1)
+    big_g = eye.expand(*batch, d, d).clone()
+    big_g[..., 0:3, 0:3] = gx
+    sigma = big_g @ state.cov @ big_g.transpose(-1, -2)
     for i, var in enumerate((config.motion_std_x ** 2,
                              config.motion_std_y ** 2,
                              _var_deg(config.motion_std_theta_deg))):
-        sigma[i, i] += float(np.float32(var))
+        sigma[..., i, i] += float(np.float32(var))
     obs_var = (float(np.float32(config.obs_std_distance ** 2)),
                _var_deg(config.obs_std_angle_deg))
 
     # ---- correction: one observation lane at a time
     seen = state.seen
     for lane in range(observation.num_lanes):
-        angle = observation.angles[lane]
-        dist = observation.distances[lane]
-        valid = observation.valid[lane]
-        idx = torch.clamp(observation.association[lane], 0, n - 1).long()
-        idx = idx.reshape(1)
-        rows = torch.cat([3 + 2 * idx, 4 + 2 * idx])  # the landmark's x, y
+        angle = observation.angles[..., lane]
+        dist = observation.distances[..., lane]
+        valid = observation.valid[..., lane]
+        idx = torch.clamp(observation.association[..., lane], 0,
+                          n - 1).long()[..., None]
+        rows = torch.cat([3 + 2 * idx, 4 + 2 * idx], -1)  # landmark x, y
 
         # first sighting: initialize at the expected position
-        seen_i = seen.index_select(0, idx)
-        first = valid & ~seen_i
-        init = torch.stack([mu[0] + dist * torch.cos(mu[2] + angle),
-                            mu[1] + dist * torch.sin(mu[2] + angle)])
-        mu = mu.index_copy(0, rows,
-                           torch.where(first, init, mu.index_select(0, rows)))
-        seen = seen.index_copy(0, idx, seen_i | valid)
+        seen_i = seen.gather(-1, idx)
+        first = valid[..., None] & ~seen_i
+        init = torch.stack([mu[..., 0] + dist * torch.cos(mu[..., 2] + angle),
+                            mu[..., 1] + dist * torch.sin(mu[..., 2] + angle)],
+                           -1)
+        mu = mu.scatter(-1, rows, torch.where(first, init,
+                                              mu.gather(-1, rows)))
+        seen = seen.scatter(-1, idx, seen_i | valid[..., None])
 
-        lm = mu.index_select(0, rows)
-        dx = lm[0] - mu[0]
-        dy = lm[1] - mu[1]
+        lm = mu.gather(-1, rows)
+        dx = lm[..., 0] - mu[..., 0]
+        dy = lm[..., 1] - mu[..., 1]
         q = dx * dx + dy * dy
         sqrt_q = torch.sqrt(q)
-        z_bar = torch.stack([sqrt_q, torch.atan2(dy, dx) - mu[2]])
-        z = torch.stack([dist, angle])
+        z_bar = torch.stack([sqrt_q, torch.atan2(dy, dx) - mu[..., 2]], -1)
+        z = torch.stack([dist, angle], -1)
 
         # H = h_low lifted to [2, D]; scale 1/q (textbook) or 1 (reference)
         scale = 1.0 if config.reference_jacobian else 1.0 / q
         zero = torch.zeros_like(q)
         h = torch.cat([
             torch.stack([torch.stack([scale * -sqrt_q * dx,
-                                      scale * -sqrt_q * dy, zero]),
+                                      scale * -sqrt_q * dy, zero], -1),
                          torch.stack([scale * dy, scale * -dx,
-                                      scale * -q])]),
-            torch.zeros((2, d - 3), dtype=torch.float32, device=dev)], dim=1)
-        h_lm = torch.stack([torch.stack([scale * sqrt_q * dx,
-                                         scale * sqrt_q * dy]),
-                            torch.stack([scale * -dy, scale * dx])])
-        h = h.index_copy(1, rows, h_lm)
+                                      scale * -q], -1)], -2),
+            torch.zeros((*batch, 2, d - 3), dtype=torch.float32,
+                        device=dev)], dim=-1)
+        h_lm = _mat2(scale * sqrt_q * dx, scale * sqrt_q * dy,
+                     scale * -dy, scale * dx)
+        h = h.scatter(-1, rows[..., None, :].expand(*batch, 2, 2), h_lm)
 
-        s_mat = h @ sigma @ h.T
-        s_mat[0, 0] += obs_var[0]
-        s_mat[1, 1] += obs_var[1]
-        det = s_mat[0, 0] * s_mat[1, 1] - s_mat[0, 1] * s_mat[1, 0]
-        inv = torch.stack([torch.stack([s_mat[1, 1], -s_mat[0, 1]]),
-                           torch.stack([-s_mat[1, 0], s_mat[0, 0]])]) / det
-        k = sigma @ h.T @ inv  # [D, 2]
+        h_t = h.transpose(-1, -2)
+        s_mat = h @ sigma @ h_t
+        s_mat[..., 0, 0] += obs_var[0]
+        s_mat[..., 1, 1] += obs_var[1]
+        det = s_mat[..., 0, 0] * s_mat[..., 1, 1] \
+            - s_mat[..., 0, 1] * s_mat[..., 1, 0]
+        inv = _mat2(s_mat[..., 1, 1], -s_mat[..., 0, 1],
+                    -s_mat[..., 1, 0], s_mat[..., 0, 0]) / det[..., None, None]
+        k = sigma @ h_t @ inv  # [D, 2]
 
         diff = z - z_bar
-        diff = torch.stack([diff[0], m.wrap_angle(diff[1])])
-        mu_new = mu + k @ diff
-        mu_new = torch.cat([mu_new[0:2], m.wrap_angle(mu_new[2])[None],
-                            mu_new[3:]])
+        diff = torch.stack([diff[..., 0], m.wrap_angle(diff[..., 1])], -1)
+        mu_new = mu + _matvec(k, diff)
+        mu_new = torch.cat([mu_new[..., 0:2],
+                            m.wrap_angle(mu_new[..., 2])[..., None],
+                            mu_new[..., 3:]], -1)
         sigma_new = (eye - k @ h) @ sigma
 
-        mu = torch.where(valid, mu_new, mu)
-        sigma = torch.where(valid, sigma_new, sigma)
+        mu = torch.where(valid[..., None], mu_new, mu)
+        sigma = torch.where(valid[..., None, None], sigma_new, sigma)
 
     lm_rows = 3 + 2 * torch.arange(n, device=dev)
-    lm_covs = torch.stack(
-        [torch.stack([sigma[lm_rows, lm_rows], sigma[lm_rows, lm_rows + 1]],
-                     -1),
-         torch.stack([sigma[lm_rows + 1, lm_rows],
-                      sigma[lm_rows + 1, lm_rows + 1]], -1)], -2)
+    lm_covs = _mat2(sigma[..., lm_rows, lm_rows],
+                    sigma[..., lm_rows, lm_rows + 1],
+                    sigma[..., lm_rows + 1, lm_rows],
+                    sigma[..., lm_rows + 1, lm_rows + 1])
     return EkfState(mean=mu, cov=sigma, seen=seen), EkfOutputs(
-        pose=mu[0:3], landmark_means=mu[3:].reshape(n, 2),
+        pose=mu[..., 0:3], landmark_means=mu[..., 3:].reshape(*batch, n, 2),
         landmark_covs=lm_covs, seen=seen)

@@ -43,6 +43,18 @@ slot, so the port copies the JAX package's choice even where its reasons
 H100.  In the fused path's ``tiled``, ``cow`` and ``gather`` mechanisms
 the update writes the input state's map storage in place: the old state
 must not be used again.
+
+Fleets (batched worlds, :func:`update_fleet`): a state with a leading
+worlds axis, ``[W, P, ...]``, one scan and odometry reading per world,
+on one device, routed as the JAX package's ``update_fleet(mesh=None)``
+routes them: the fused integrator updates all ``W*P`` maps with one
+kernel launch, then resamples by one copy on write over the flattened
+maps (block-diagonal ancestors, world ``w``'s offset by ``w*P``), or by
+the whole-set gather or the deferred lineage where the config asks for
+the JAX package's slot-exact fallback; the dda and dense integrators run
+as one batched call over ``W*P`` particles; tiled pools run the tiled
+update once per world, as the JAX package does.  The device mesh
+(sharded fleets) is not ported.
 """
 
 from __future__ import annotations
@@ -79,7 +91,9 @@ class GridSlamConfig:
     ``fused_resident`` picks TPU VMEM residency, which has no counterpart
     here, but it still selects the resample mechanism and so the slot
     order (:func:`resample_mechanism`).  ``fleet_resample`` applies to
-    batched worlds, which are not ported yet.
+    batched worlds (:func:`update_fleet`): ``"gather"`` asks for the
+    slot-exact whole-set gather, any other value for the flattened copy
+    on write; its mesh-local relabel has no counterpart on one device.
     """
 
     position_x: float = -2.0
@@ -155,6 +169,9 @@ def auto_tiled(config: GridSlamConfig) -> bool:
 
 
 class GridSlamState(NamedTuple):
+    """One world's filter, or a fleet's with a leading ``[W]`` axis on
+    every field (a tiled fleet holds one pool and table per world)."""
+
     poses: Tensor  # f32[P, 3]
     # log-odds: fused [P, H, Wp] f32 or bf16; dda and dense f32[P, H, W]
     grids: Tensor
@@ -169,28 +186,35 @@ class GridSlamState(NamedTuple):
     tile_table: Tensor | None = None  # i32[P, nb]
 
     @staticmethod
-    def init(config: GridSlamConfig, device) -> "GridSlamState":
+    def init(config: GridSlamConfig, device,
+             worlds: tuple[int, ...] = ()) -> "GridSlamState":
+        """A fresh state; ``worlds=(W,)`` gives a fleet of W worlds."""
         check_supported(config)
+        w = tuple(worlds)
         p = config.n_particles
         spec = config.grid_spec
         f32 = torch.float32
         tile_table = None
         if config.integrate != "fused":
-            grids = torch.zeros((p, spec.rows, spec.cols), dtype=f32,
+            grids = torch.zeros((*w, p, spec.rows, spec.cols), dtype=f32,
                                 device=device)
         elif config.resample_cow == "tiled" or auto_tiled(config):
             grids, tile_table = init_tiled(p, spec, config.max_scan_range,
                                            config.torch_dtype, device=device)
+            # one pool and table per world (gridslam.py:185-191)
+            grids = grids.expand(*w, *grids.shape).contiguous()
+            tile_table = tile_table.expand(*w, *tile_table.shape).contiguous()
         else:
-            grids = torch.zeros((p, spec.rows, config.padded_cols),
+            grids = torch.zeros((*w, p, spec.rows, config.padded_cols),
                                 dtype=config.torch_dtype, device=device)
         return GridSlamState(
-            poses=torch.zeros((p, 3), dtype=f32, device=device),
+            poses=torch.zeros((*w, p, 3), dtype=f32, device=device),
             grids=grids,
-            weights=torch.full((p,), 1.0 / p, dtype=f32, device=device),
-            best_pose=torch.zeros(3, dtype=f32, device=device),
-            best_idx=torch.zeros((), dtype=torch.int64, device=device),
-            ancestors=torch.arange(p, dtype=torch.int32, device=device),
+            weights=torch.full((*w, p), 1.0 / p, dtype=f32, device=device),
+            best_pose=torch.zeros((*w, 3), dtype=f32, device=device),
+            best_idx=torch.zeros(w, dtype=torch.int64, device=device),
+            ancestors=torch.arange(p, dtype=torch.int32, device=device)
+            .expand(*w, p).contiguous(),
             tile_table=tile_table)
 
 
@@ -201,18 +225,21 @@ class GridSlamOutputs(NamedTuple):
 
 
 class UpdateNoise(NamedTuple):
-    """Pre-drawn randomness for one :func:`update` call."""
+    """Pre-drawn randomness for one :func:`update` call (a fleet's:
+    ``[W, P]``, ``[W, P]`` and ``[W, 1]``)."""
 
     eps_c: Tensor  # f32[P] motion center draws (standard normal)
     eps_t: Tensor  # f32[P] motion theta draws
     u01: Tensor  # f32[1] systematic-resample offset, U[0, 1)
 
 
-def draw_noise(generator: torch.Generator, p: int, device) -> UpdateNoise:
-    """One update's draws from ``generator`` (on ``device``)."""
-    eps_c = torch.randn(p, generator=generator, device=device)
-    eps_t = torch.randn(p, generator=generator, device=device)
-    u01 = torch.rand(1, generator=generator, device=device)
+def draw_noise(generator: torch.Generator, p: int, device,
+               worlds: tuple[int, ...] = ()) -> UpdateNoise:
+    """One update's draws from ``generator`` (on ``device``), in this
+    order: ``eps_c``, ``eps_t``, ``u01``, each over ``worlds``."""
+    eps_c = torch.randn((*worlds, p), generator=generator, device=device)
+    eps_t = torch.randn((*worlds, p), generator=generator, device=device)
+    u01 = torch.rand((*worlds, 1), generator=generator, device=device)
     return UpdateNoise(eps_c, eps_t, u01)
 
 
@@ -220,7 +247,8 @@ def _weigh_and_select(log_lik: Tensor, log_motion: Tensor,
                       prev_weights: Tensor, frac: float, p: int,
                       u01: Tensor):
     """Weight carry, normalization, argmax, N_eff, and the N_eff-gated
-    systematic resample (identity ancestors when it does not fire)."""
+    systematic resample (identity ancestors when it does not fire), per
+    world over any leading worlds axes."""
     log_w = torch.log(prev_weights) + log_lik + log_motion
     weights = _resample.normalize_log_weights(log_w)
     best_idx = torch.argmax(weights, dim=-1)
@@ -228,9 +256,9 @@ def _weigh_and_select(log_lik: Tensor, log_motion: Tensor,
     do_resample = n_eff <= frac * p
     ancestors = _resample.systematic_resample(weights, u01=u01)
     identity = torch.arange(p, dtype=torch.int32, device=weights.device)
-    ancestors = torch.where(do_resample, ancestors, identity)
-    weights = torch.where(do_resample, torch.full_like(weights, 1.0 / p),
-                          weights)
+    fire = do_resample[..., None]
+    ancestors = torch.where(fire, ancestors, identity)
+    weights = torch.where(fire, torch.full_like(weights, 1.0 / p), weights)
     return weights, ancestors, best_idx, n_eff, do_resample
 
 
@@ -361,13 +389,189 @@ def update(state: GridSlamState, scan: Scan, odometry: OdometryReading,
                                       resampled=do_resample)
 
 
+def _per_world(v):
+    """An odometry field of a fleet as ``[W, 1]`` (a world's value for
+    each of its particles); a scalar stays."""
+    return v[:, None] if isinstance(v, Tensor) and v.dim() else v
+
+
+def _world(tup, i: int):
+    """World ``i`` of a fleet's named tuple (a scalar field is shared)."""
+    return type(tup)(*(v[i] if isinstance(v, Tensor) and v.dim() else v
+                       for v in tup))
+
+
+def _take_particles(poses: Tensor, idx: Tensor) -> Tensor:
+    """``poses[w, idx[w, ...]]`` for ``poses [W, P, 3]``, ``idx [W, K]``."""
+    return torch.gather(poses, 1, idx.long()[..., None].expand(
+        *idx.shape, poses.shape[-1]))
+
+
+def update_fleet(state: GridSlamState, scan: Scan,
+                 odometry: OdometryReading, config: GridSlamConfig,
+                 generator: torch.Generator | None = None,
+                 noise: UpdateNoise | None = None
+                 ) -> tuple[GridSlamState, GridSlamOutputs]:
+    """One SLAM update of every world of a fleet on one device
+    (``slamrs_tpu/models/gridslam.py:493-652`` with ``mesh=None``).
+
+    ``state`` holds ``W`` worlds (:meth:`GridSlamState.init` with
+    ``worlds=(W,)``); ``scan`` is ``[W, B]``, one per world; odometry
+    ``[W]`` (or a scalar shared by every world).  Randomness comes from
+    ``noise`` (``[W, P]``, ``[W, P]``, ``[W, 1]``; tests inject the JAX
+    package's per-world draws) or else from ``generator``
+    (:func:`draw_noise`).  The routes, as the JAX package's:
+
+    - tiled pools: the tiled update once per world (its copy-on-write
+      plan is per pool);
+    - dda and dense: one call over the ``W*P`` particles, each world's
+      scan repeated for its particles, then the whole-set gather;
+    - fused with ``resample_cow=False``, ``fused_resident=True`` or
+      ``fleet_resample="gather"``: the JAX package's slot-exact fallback
+      (``resample_cow=False``, ``fused_resident`` False unless set): one
+      in-place kernel launch and the whole-set gather, or with
+      ``fused_resident=True`` the deferred lineage, read by the next
+      update's launch through the flattened block-diagonal ancestors;
+    - fused otherwise: one in-place kernel launch over the ``W*P`` maps,
+      then one copy on write over them (``cow_plan`` keeps every copy's
+      source and destination in one world block).
+
+    The fused launch covers the whole fleet; on a CUDA tensor it launches
+    or raises.  The fused and tiled routes update ``state``'s map storage
+    in place, as :func:`update` does."""
+    check_supported(config)
+    w, p = state.poses.shape[0], config.n_particles
+    dev = state.poses.device
+    if state.poses.shape != (w, p, 3):
+        raise ValueError(f"a fleet state has poses [W, {p}, 3], got "
+                         f"{list(state.poses.shape)}")
+    if noise is None:
+        if generator is None:
+            raise ValueError("update_fleet needs noise or a generator")
+        noise = draw_noise(generator, p, dev, worlds=(w,))
+    if state.tile_table is not None:
+        return _update_fleet_tiled(state, scan, odometry, config, noise)
+    if config.integrate != "fused":
+        cfg = config
+    elif (config.resample_cow is False or config.fused_resident is True
+            or config.fleet_resample == "gather"):
+        cfg = dataclasses.replace(
+            config, resample_cow=False,
+            fused_resident=(False if config.fused_resident is None
+                            else config.fused_resident))
+    else:
+        cfg = dataclasses.replace(config, resample_cow=True,
+                                  fused_resident=False)
+    # the JAX package decides per world (vmap traces one world's slice)
+    mechanism = resample_mechanism(cfg, state._replace(grids=state.grids[0]))
+
+    def flat(t):
+        return t.reshape(w * p, *t.shape[2:])
+
+    new_poses = motion.sample(
+        state.poses, _per_world(odometry.distance_left),
+        _per_world(odometry.distance_right), _per_world(odometry.wheel_base),
+        eps=(noise.eps_c, noise.eps_t))
+    offsets = (p * torch.arange(w, dtype=torch.int32, device=dev))[:, None]
+    grids = flat(state.grids)
+    nb = scan.angles.shape[-1]
+    if config.integrate == "fused":
+        if config.beam_spacing is not None:
+            dphi = config.beam_spacing
+        elif nb > 1:
+            dphi = scan.angles[:, 1] - scan.angles[:, 0]
+        else:
+            dphi = torch.full((), 2.0 * torch.pi, dtype=torch.float32,
+                              device=dev)
+        args = (flat(new_poses), scan.angles[:, 0], scan.distances,
+                scan.valid, scan.present, config.grid_spec, nb,
+                config.max_scan_range)
+        if mechanism == "deferred":
+            grids, log_lik = fused_update(
+                grids, *args, dphi=dphi,
+                ancestors=flat(state.ancestors + offsets))
+        else:
+            grids, log_lik = fused_update(grids, *args, dphi=dphi,
+                                          in_place=True)
+    else:
+        spec = config.grid_spec
+
+        def rows(t):  # each world's scan, once per particle
+            return flat(t[:, None].expand(w, p, *t.shape[1:]))
+
+        lik_args = (spec, flat(new_poses), rows(scan.angles),
+                    rows(scan.distances), rows(scan.valid),
+                    rows(scan.present))
+        log_lik = grid_log_likelihood(grids, *lik_args)
+        if config.integrate == "dense":
+            grids = grid_integrate_dense(
+                grids, *lik_args,
+                dense_window_for(spec, config.max_scan_range))
+        else:
+            grids = grid_integrate(grids, *lik_args, config.max_ray_steps)
+    log_motion = motion.log_prob(
+        state.poses, new_poses, _per_world(odometry.distance_left),
+        _per_world(odometry.distance_right), _per_world(odometry.wheel_base))
+
+    weights, ancestors, best_idx, n_eff, do_resample = _weigh_and_select(
+        log_lik.reshape(w, p), log_motion, state.weights,
+        config.resample_neff_frac, p, noise.u01)
+    best_pose = _take_particles(new_poses, best_idx[:, None])[:, 0]
+    identity = torch.arange(p, dtype=torch.int32, device=dev).expand(w, p)
+    pending = identity
+    if mechanism == "cow":
+        # one slot-preserving copy on write over the flattened maps
+        poses, grids = cow_resample(grids, flat(new_poses),
+                                    flat(ancestors + offsets))
+        new_poses = poses.reshape(w, p, 3)
+    elif mechanism == "gather":
+        new_poses = _take_particles(new_poses, ancestors)
+        grids = grids.index_select(0, flat(ancestors + offsets).long())
+    else:  # deferred: applied by the next update's launch
+        new_poses = _take_particles(new_poses, ancestors)
+        pending = ancestors
+    new_state = GridSlamState(
+        poses=new_poses, grids=grids.reshape(state.grids.shape),
+        weights=weights, best_pose=best_pose, best_idx=best_idx,
+        ancestors=pending.contiguous())
+    return new_state, GridSlamOutputs(pose=best_pose, n_eff=n_eff,
+                                      resampled=do_resample)
+
+
+def _update_fleet_tiled(state: GridSlamState, scan: Scan,
+                        odometry: OdometryReading, config: GridSlamConfig,
+                        noise: UpdateNoise
+                        ) -> tuple[GridSlamState, GridSlamOutputs]:
+    """A tiled fleet: :func:`update` once per world, as the JAX package's
+    world loop (``gridslam.py:655-694``).  Each world's update writes its
+    pool, a view into ``state.grids``, in place."""
+    states, outs = [], []
+    for i in range(state.poses.shape[0]):
+        st, out = update(_world(state, i), _world(scan, i),
+                         _world(odometry, i), config,
+                         noise=_world(noise, i))
+        states.append(st)
+        outs.append(out)
+    stacked = GridSlamState(*(
+        state.grids if name == "grids"
+        else torch.stack([getattr(st, name) for st in states])
+        for name in GridSlamState._fields))
+    return stacked, GridSlamOutputs(
+        *(torch.stack(v) for v in zip(*outs)))
+
+
 def estimated_probability_grid(state: GridSlamState,
                                config: GridSlamConfig | None = None
                                ) -> Tensor:
     """Occupancy probabilities of the best particle's map
-    (``gridslam.py:697-727``).  A tiled state gathers one map's tiles
-    through the pending lineage, ``tile_table[ancestors[best_idx]]``.
-    With ``config`` the padded rows and columns are sliced off."""
+    (``gridslam.py:697-727``), ``[W, H, W]`` for a fleet.  A tiled state
+    gathers one map's tiles through the pending lineage,
+    ``tile_table[ancestors[best_idx]]``.  With ``config`` the padded rows
+    and columns are sliced off."""
+    if state.best_idx.dim():  # a fleet: each world's best map
+        return torch.stack([estimated_probability_grid(_world(state, i),
+                                                       config)
+                            for i in range(state.best_idx.shape[0])])
     best = state.best_idx.reshape(1)
     if state.tile_table is not None:
         slot = state.ancestors.index_select(0, best).long()

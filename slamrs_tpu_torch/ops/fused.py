@@ -20,6 +20,9 @@ the deferred-lineage resample) and in place (identity lineage, the
 window rows of ``grids`` updated where they lie: the copy-on-write and
 whole-set-gather resamples).  :func:`update_window` is the window-level
 plain update that the tiled plain version (``ops/tiles.py``) reuses.
+A fleet of worlds is one call over its flattened maps with one scan per
+world (a beam table per world, :func:`prepare`), one kernel launch for
+the whole fleet.
 
 The kernel computes the increment only over the scan disc's bounding
 box (:func:`cell_pass_box`, found on the card from the beam table), the
@@ -124,15 +127,16 @@ def quantize_d_enc(enc: Tensor, qu: float) -> Tensor:
 
 def encode_beam_table(distances_cells: Tensor, valid: Tensor, present: Tensor,
                       angles0=None, dphi=None) -> Tensor:
-    """[B] beam lanes -> [8, BEAM_PAD] f32 table.
+    """[..., B] beam lanes -> [..., 8, BEAM_PAD] f32 table, one table per
+    leading index (a fleet's per-world scans).
 
     Row 0: ``d_enc`` = +d (valid hit), -d (present, invalid), -0.0
-    (absent or padding).  With ``angles0``/``dphi`` rows 1-4 carry the
-    endpoint-likelihood lanes: distance of valid beams, cos and sin of
-    ``angles0 + b * dphi``, and the use flag.  Rows 5-7 are zero (the
-    TPU's packed row is not used here).
+    (absent or padding).  With ``angles0``/``dphi`` (scalars, or one per
+    world) rows 1-4 carry the endpoint-likelihood lanes: distance of
+    valid beams, cos and sin of ``angles0 + b * dphi``, and the use flag.
+    Rows 5-7 are zero (the TPU's packed row is not used here).
     """
-    b = distances_cells.shape[-1]
+    batch, b = distances_cells.shape[:-1], distances_cells.shape[-1]
     dev = distances_cells.device
     f32 = torch.float32
     d = torch.abs(distances_cells).to(f32)
@@ -141,21 +145,23 @@ def encode_beam_table(distances_cells: Tensor, valid: Tensor, present: Tensor,
     enc = torch.where(present, enc, neg_zero)
     enc = torch.where(valid & present & (d == 0.0), torch.full_like(d, 1e-6),
                       enc)
-    row = torch.cat([enc, torch.full((BEAM_PAD - b,), -0.0, dtype=f32,
-                                     device=dev)])
+    row = torch.cat([enc, torch.full((*batch, BEAM_PAD - b), -0.0, dtype=f32,
+                                     device=dev)], dim=-1)
     if angles0 is None:
-        return row.expand(8, BEAM_PAD).clone()
+        return row.unsqueeze(-2).expand(*batch, 8, BEAM_PAD).clone()
     lane = torch.arange(BEAM_PAD, dtype=f32, device=dev)
-    ang = _f32_scalar(angles0, dev) + lane * _f32_scalar(dphi, dev)
-    use = torch.zeros(BEAM_PAD, dtype=torch.bool, device=dev)
-    use[:b] = valid & present
-    zero = torch.zeros(BEAM_PAD, dtype=f32, device=dev)
+    ang = (_f32_scalar(angles0, dev)[..., None]
+           + lane * _f32_scalar(dphi, dev)[..., None])
+    use = torch.zeros((*batch, BEAM_PAD), dtype=torch.bool, device=dev)
+    use[..., :b] = valid & present
+    zero = torch.zeros((*batch, BEAM_PAD), dtype=f32, device=dev)
     d_lik = zero.clone()
-    d_lik[:b] = d
+    d_lik[..., :b] = d
     d_lik = torch.where(use, d_lik, zero)
     ca = torch.where(use, torch.cos(ang), zero)
     sa = torch.where(use, torch.sin(ang), zero)
-    return torch.stack([row, d_lik, ca, sa, use.to(f32), zero, zero, zero])
+    return torch.stack([row, d_lik, ca, sa, use.to(f32), zero, zero, zero],
+                       dim=-2)
 
 
 def static_dphi(dphi) -> float | None:
@@ -169,11 +175,29 @@ def static_dphi(dphi) -> float | None:
 class Prepared(NamedTuple):
     """Host-side inputs shared by the kernel and its plain version."""
 
-    pp: Tensor  # [P, 8] f32: cx, cy, theta, ta-or-T, cos, sin, dphi, 1/dphi
-    r0: Tensor  # [P] i32 window row offsets (8-aligned, clamped)
-    table: Tensor  # [8, BEAM_PAD] f32, row 0 already quantized
+    pp: Tensor  # [N, 8] f32: cx, cy, theta, ta-or-T, cos, sin, dphi, 1/dphi
+    r0: Tensor  # [N] i32 window row offsets (8-aligned, clamped)
+    # [8, BEAM_PAD] f32 (one scan), or [W, 8, BEAM_PAD] (one per world,
+    # particles N / W per world in order); row 0 already quantized
+    table: Tensor
     wr: int  # window rows
     binu: float | None  # static spacing (static pipeline) or None
+
+
+def worlds_of(prep: Prepared) -> int:
+    """Number of scans (worlds) the prepared inputs hold."""
+    return 1 if prep.table.dim() == 2 else prep.table.shape[0]
+
+
+def particle_tables(prep: Prepared) -> Tensor:
+    """[N, 8, BEAM_PAD]: each particle's beam table, the table of its
+    world (a view for one scan, a copy for several)."""
+    n = prep.pp.shape[0]
+    if prep.table.dim() == 2:
+        return prep.table.expand(n, 8, BEAM_PAD)
+    w = prep.table.shape[0]
+    return prep.table[:, None].expand(w, n // w, 8, BEAM_PAD).reshape(
+        n, 8, BEAM_PAD)
 
 
 def prepare(rows: int, cols: int, poses: Tensor, angles0, distances: Tensor,
@@ -181,16 +205,36 @@ def prepare(rows: int, cols: int, poses: Tensor, angles0, distances: Tensor,
             max_range_m: float, dphi) -> Prepared:
     """Everything the JAX package computes outside its kernel, in the same
     order and precision (``slamrs_tpu/ops/fused.py:1646-1683``,
-    ``_pp_table``, the beam table with its quantized row 0)."""
+    ``_pp_table``, the beam table with its quantized row 0).
+
+    One scan (``distances [B]``, scalar ``angles0`` and ``dphi``) serves
+    every particle; a fleet's scans (``distances [W, B]``, ``angles0
+    [W]``, ``dphi`` a float, a scalar or ``[W]``) serve ``N / W``
+    consecutive particles each, as the JAX package's kernel vmapped over
+    worlds (``slamrs_tpu/parallel/shard.py:61-68``)."""
     if cols % 128:
         raise ValueError(f"grid column axis must be padded to 128, got {cols}")
     if num_beams > 383:
         raise ValueError(f"num_beams must be <= 383, got {num_beams}")
     dev = poses.device
+    p = poses.shape[0]
+    if distances.dim() not in (1, 2):
+        raise ValueError(f"distances must be [B] or [W, B], got "
+                         f"{list(distances.shape)}")
+    worlds = distances.shape[0] if distances.dim() == 2 else 1
+    if worlds == 0 or p % worlds:
+        raise ValueError(f"{p} particles do not split into {worlds} worlds")
     if dphi is None:
         dphi = _TWO_PI / num_beams
     binu = static_dphi(dphi)
     dphi_t = _f32_scalar(dphi, dev)
+    a0_t = _f32_scalar(angles0, dev)
+
+    def per_particle(v):  # a scalar broadcasts, one value a world repeats
+        if v.dim() == 0:
+            return v.expand(p)
+        return v[:, None].expand(worlds, p // worlds).reshape(p)
+
     wr = min(window_rows(spec, max_range_m),
              rows - rows % 8 if rows % 8 else rows)
 
@@ -199,25 +243,25 @@ def prepare(rows: int, cols: int, poses: Tensor, angles0, distances: Tensor,
     cx = (poses[:, 0] - spec.position_x) / spec.resolution
     cy = (poses[:, 1] - spec.position_y) / spec.resolution
     theta = poses[:, 2]
-    p = poses.shape[0]
     r0 = torch.round(cy).to(torch.int32) - wr // 2
     r0 = torch.clamp(r0, 0, max(rows - wr, 0))
     r0 = torch.div(r0, 8, rounding_mode="floor") * 8
 
-    ta = theta + _f32_scalar(angles0, dev)
+    ta = theta + (a0_t if a0_t.dim() == 0 else per_particle(a0_t))
     if binu is not None:
         ta = ta * (1.0 / binu) - 0.5
     pp = torch.stack([cx, cy, theta, ta,
                       torch.cos(theta), torch.sin(theta),
-                      dphi_t.expand(p), (1.0 / dphi_t).expand(p)], dim=-1)
+                      per_particle(dphi_t), per_particle(1.0 / dphi_t)],
+                     dim=-1)
 
     table = encode_beam_table(distances / spec.resolution, valid, present,
-                              angles0, dphi_t)
+                              a0_t, dphi_t)
     if num_beams <= 381:
-        table[0] = quantize_d_enc(
-            table[0], pack3_quantum(max_range_m / spec.resolution))
+        table[..., 0, :] = quantize_d_enc(
+            table[..., 0, :], pack3_quantum(max_range_m / spec.resolution))
     return Prepared(pp.contiguous(), r0.to(torch.int32).contiguous(),
-                     table.contiguous(), wr, binu)
+                    table.contiguous(), wr, binu)
 
 
 def update_window(win: Tensor, prep: Prepared, spec: GridSpec2D,
@@ -229,14 +273,15 @@ def update_window(win: Tensor, prep: Prepared, spec: GridSpec2D,
     p, wr, cols = win.shape
     dev = win.device
     f32 = torch.float32
-    pp, r0, table, _, binu = prep
+    pp, r0, _, _, binu = prep
     cx, cy, theta, ta, ct, st, dphi, inv_dphi = pp.unbind(-1)
     pidx = torch.arange(p, device=dev)[:, None]
     w32 = win.to(f32)
+    table = particle_tables(prep)  # [P, 8, BEAM_PAD]
 
     # 1) exact endpoint likelihood on the pre-update window
-    d_b, ca, sa = table[1], table[2], table[3]
-    use = table[4] > 0.5
+    d_b, ca, sa = table[:, 1], table[:, 2], table[:, 3]
+    use = table[:, 4] > 0.5
     ex = cx[:, None] + (ct[:, None] * ca - st[:, None] * sa) * d_b
     ey = cy[:, None] + (st[:, None] * ca + ct[:, None] * sa) * d_b
     use = (use & (ex >= 0.0) & (ey >= 0.0) & (ex < float(spec.cols))
@@ -285,7 +330,8 @@ def update_window(win: Tensor, prep: Prepared, spec: GridSpec2D,
         bins = torch.where(absent, float(num_beams), bins)
     # the clamp only guards memory: every bin above lies in [0, 383]
     bins = torch.clamp(bins.long(), 0, BEAM_PAD - 1)
-    d_enc = table[0][bins]
+    d_enc = torch.gather(table[:, 0], 1, bins.reshape(p, -1)).reshape(
+        bins.shape)
     was_hit = d_enc > 0.0
     pres = d_enc != 0.0  # -0.0 is absent too
     d = torch.abs(d_enc)
@@ -310,17 +356,18 @@ def cell_pass_box(prep: Prepared, cols: int, align: int = 1
 
     The box holds the cells with ``|dx| < dmax + 2`` and ``|dy| < dmax +
     2`` (``dx``, ``dy`` the cell offsets of :func:`update_window`, ``dmax``
-    the largest ``|d_enc|`` in row 0 of the beam table, a NaN lane
-    ignored), clipped to the window, its columns widened to multiples of
-    ``align`` cells (the kernels use 16 bytes: 8 bf16 or 4 f32 cells).  No
+    the largest ``|d_enc|`` in row 0 of the particle's world's beam table,
+    a NaN lane ignored), clipped to the window, its columns widened to
+    multiples of ``align`` cells (the kernels use 16 bytes: 8 bf16 or 4
+    f32 cells).  No
     cell outside it gains a nonzero increment: that needs ``r^2`` at most
     ``(|d| + 1)^2`` for its beam, and the extra cell covers the float32
     rounding of ``r^2``.  It follows the scan, not ``max_range_m``, so a
     beam past the range widens it.  The float32 steps are those of
     ``csrc/fused_common.cuh::cell_box``, so both give the same box; the
     tests and ``chip_smoke.py`` use it, the main path does not."""
-    d = torch.abs(prep.table[0])
-    e = torch.where(torch.isnan(d), 0.0, d).max() + 2.0
+    d = torch.abs(particle_tables(prep)[:, 0])
+    e = torch.where(torch.isnan(d), 0.0, d).amax(dim=-1) + 2.0
     cx, cy = prep.pp[:, 0], prep.pp[:, 1]
     r0 = prep.r0.to(torch.float32)
 
@@ -396,6 +443,13 @@ def fused_update(grids: Tensor, poses: Tensor, angles0, distances: Tensor,
     Python float (static pipeline) or a tensor (traced pipeline), default
     2*pi/B; in_place: update the window rows of ``grids`` where they lie
     (identity lineage: ``ancestors`` must be None).
+
+    A fleet of ``W`` worlds is one call: ``grids``/``poses`` flattened to
+    ``[W*P, ...]`` world by world, one scan per world (``distances``,
+    ``valid``, ``present`` ``[W, B]``, ``angles0 [W]``, ``dphi`` a float,
+    a scalar or ``[W]``), and ``ancestors`` block-diagonal (world ``w``'s
+    entries in ``[w*P, (w+1)*P)``).  The kernel launches once for the
+    whole fleet.
     Returns ``(grids' [P, H, Wp], log_lik f32[P])``.  Without
     ``in_place`` ``grids`` is not modified (the kernel writes a fresh
     buffer); with it ``grids'`` is ``grids``.
@@ -431,6 +485,10 @@ def fused_update(grids: Tensor, poses: Tensor, angles0, distances: Tensor,
                     ("present", present)):
         if t is not None and t.device != dev:
             raise ValueError(f"{name} is on {t.device}, grids on {dev}")
+    for name, t in (("valid", valid), ("present", present)):
+        if t.shape != distances.shape:
+            raise ValueError(f"{name} must be shaped as distances "
+                             f"{list(distances.shape)}, got {list(t.shape)}")
     prep = prepare(rows, cols, poses, angles0, distances, valid, present,
                    spec, num_beams, max_range_m, dphi)
     return launch_kernel(grids, ancestors, prep, spec, num_beams)
@@ -439,10 +497,12 @@ def fused_update(grids: Tensor, poses: Tensor, angles0, distances: Tensor,
 def launch_kernel(grids: Tensor, ancestors: Tensor | None, prep: Prepared,
                   spec: GridSpec2D, num_beams: int) -> tuple[Tensor, Tensor]:
     """Launch the CUDA kernel on validated inputs (see :func:`fused_update`)
-    on the current stream; counts the launch in ``fused_update.launches``
-    (and an in-place one also in ``fused_update.in_place_launches``).
-    ``ancestors=None`` is the in-place mode: the output is ``grids``."""
+    on the current stream, once for all worlds; counts the launch in
+    ``fused_update.launches`` (and an in-place one also in
+    ``fused_update.in_place_launches``).  ``ancestors=None`` is the
+    in-place mode: the output is ``grids``."""
     p, rows, cols = grids.shape
+    per_world = p // worlds_of(prep)
     dev = grids.device
     in_place = ancestors is None
     out = grids if in_place else torch.empty_like(grids)
@@ -459,7 +519,8 @@ def launch_kernel(grids: Tensor, ancestors: Tensor | None, prep: Prepared,
             _ptr(grids), _ptr(out),
             None if in_place else _ptr(ancestors), _ptr(prep.pp),
             _ptr(prep.r0), _ptr(prep.table), _ptr(lik),
-            p, rows, cols, prep.wr, spec.rows, spec.cols, num_beams,
+            p, per_world, rows, cols, prep.wr, spec.rows, spec.cols,
+            num_beams,
             int(grids.dtype == torch.bfloat16), int(binu is not None),
             (1.0 / binu) if binu is not None else 0.0, nbf,
             (1.0 / nbf) if binu is not None else 0.0,

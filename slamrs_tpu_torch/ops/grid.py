@@ -4,9 +4,12 @@ and dense integrators, and the endpoint likelihood.
 Counterpart of ``slamrs_tpu/ops/grid.py``, with the JAX package's names
 and signatures, batched over a leading particle axis where the JAX
 package lifts one map with ``vmap``: ``grid`` is ``[P, H, W]`` and
-``pose`` ``[P, 3]``; the scan's ``[B]`` beam lanes are shared.  These are
-plain PyTorch: the JAX package computes them in plain ``jnp``, with no
-Pallas kernel.
+``pose`` ``[P, 3]``.  The scan is one ``[B]`` set of beam lanes shared by
+every particle, or ``[P, B]``, one row per particle: a fleet of worlds
+runs as one call over its ``W*P`` particles with each world's scan
+repeated for its particles.  A ``[B]`` scan gives the same bits as before
+the ``[P, B]`` form existed.  These are plain PyTorch: the JAX package
+computes them in plain ``jnp``, with no Pallas kernel.
 
 - :func:`traverse_ray` is the integer DDA walk of the reference's
   ``GridRayIterator``, a Python loop of ``max_steps`` steps carrying the
@@ -198,25 +201,26 @@ def grid_integrate(grid: Tensor, spec: GridSpec2D, pose: Tensor,
     endpoint cell (+2 overshoot) and adds the inverse-sensor-model
     log-odds; invalid beams mark free space only.
 
-    grid ``f32[P, H, W]``; pose ``f32[P, 3]``; the scan ``[B]`` lanes;
-    ``max_steps`` the static DDA bound (``spec.max_ray_steps(range)``).
-    Returns the updated maps in a new tensor.
+    grid ``f32[P, H, W]``; pose ``f32[P, 3]``; the scan ``[B]`` or
+    ``[P, B]`` lanes; ``max_steps`` the static DDA bound
+    (``spec.max_ray_steps(range)``).  Returns the updated maps in a new
+    tensor.
     """
     p, h, w = grid.shape
     start = spec.world_to_grid(pose[..., 0:2])  # [P, 2]
     ends = spec.world_to_grid(scan_endpoints(pose, angles,
                                              distances))  # [P, B, 2]
     measured = distances / _f32_scalar(spec.resolution,
-                                       distances.device)  # [B]
+                                       distances.device)  # [B] or [P, B]
     sx, sy = start[:, 0:1], start[:, 1:2]
     xs, ys, centers, mask = traverse_ray(sx, sy, ends[..., 0], ends[..., 1],
                                          spec.cols, spec.rows, max_steps)
-    mask = mask & present[:, None]  # [P, B, T]
+    mask = mask & present[..., None]  # [P, B, T]
     ddx = centers[..., 0] - sx[..., None]
     ddy = centers[..., 1] - sy[..., None]
     d = torch.sqrt(ddx * ddx + ddy * ddy)
-    vals = inverse_sensor_model_log_odds(d, measured[:, None],
-                                         valid[:, None])
+    vals = inverse_sensor_model_log_odds(d, measured[..., None],
+                                         valid[..., None])
     vals = torch.where(mask, vals, 0.0)
     cell = torch.where(mask, ys.long() * w + xs.long(), 0)
     flat = cell + (torch.arange(p, device=grid.device) * (h * w))[:, None,
@@ -240,13 +244,18 @@ def grid_integrate_dense(grid: Tensor, spec: GridSpec2D, pose: Tensor,
     the inverse sensor model; with ``multiplicity`` the increment is
     scaled by ``max(1, 1 / (r * dphi))``, the DDA's beam visits per cell
     near the robot.  The window origin is per particle, clipped to the
-    grid.  Returns the updated maps in a new tensor.
+    grid.  The scan is ``[B]`` or ``[P, B]`` (each particle's own table
+    and spacing).  Returns the updated maps in a new tensor.
     """
     p, rows, cols = grid.shape
     dev = grid.device
     b = angles.shape[-1]
-    dphi = (angles[1] - angles[0] if b > 1
-            else _f32_scalar(_TWO_PI, dev))
+    # one row of beam lanes per particle ([B] rows broadcast): the lookup
+    # gathers from the particle's row, the same values as indexing [B]
+    angles, distances, valid, present = (
+        t.expand(p, b) for t in (angles, distances, valid, present))
+    dphi = (angles[:, 1] - angles[:, 0] if b > 1
+            else _f32_scalar(_TWO_PI, dev).expand(p))[:, None, None]
     start = spec.world_to_grid(pose[..., 0:2])  # [P, 2]
     sx, sy = start[:, 0, None, None], start[:, 1, None, None]
 
@@ -272,17 +281,22 @@ def grid_integrate_dense(grid: Tensor, spec: GridSpec2D, pose: Tensor,
     # to [0, 2 pi); cells past the last beam wrap to beam 0 (full-circle
     # tables) or fall outside the swept sector (absent)
     phi = torch.atan2(dy, dx) - pose[:, 2, None, None]
-    rel = phi - angles[0]
+    rel = phi - angles[:, 0, None, None]
     rel = rel - _TWO_PI * torch.floor(rel / _f32_scalar(_TWO_PI, dev))
     beam_f = torch.round(rel / dphi)
     # a tensor numerator: ``float / tensor`` is reciprocal-then-multiply
     wrap = beam_f >= _f32_scalar(_TWO_PI, dev) / dphi - 0.5
     in_sector = wrap | (beam_f <= b - 1)
     beam = torch.where(wrap | ~in_sector, 0.0, beam_f).long()
-    d_meas = (distances / _f32_scalar(spec.resolution, dev))[beam]
-    pres = present[beam] & in_sector
 
-    inc = inverse_sensor_model_log_odds(r, d_meas, valid[beam])
+    def lookup(lanes):  # lanes[particle, beam] for every window cell
+        return torch.gather(lanes, 1, beam.reshape(p, -1)).reshape(
+            beam.shape)
+
+    d_meas = lookup(distances / _f32_scalar(spec.resolution, dev))
+    pres = lookup(present) & in_sector
+
+    inc = inverse_sensor_model_log_odds(r, d_meas, lookup(valid))
     if multiplicity:
         inc = inc * torch.clamp_min(
             1.0 / (torch.clamp_min(r, 0.5) * dphi), 1.0)
@@ -315,7 +329,8 @@ def grid_log_likelihood(grid: Tensor, spec: GridSpec2D, pose: Tensor,
     / maxdist``, or of the uniform ``1 / maxdist`` where the cell is
     untouched (log-odds exactly 0), summed over the beams.
 
-    grid ``f32[P, H, W]``, pose ``f32[P, 3]`` -> ``f32[P]``.
+    grid ``f32[P, H, W]``, pose ``f32[P, 3]``, the scan ``[B]`` or
+    ``[P, B]`` -> ``f32[P]``.
     """
     p, h, w = grid.shape
     ends = spec.world_to_grid(scan_endpoints(pose, angles,

@@ -136,21 +136,29 @@ _MAX_CHUNK = 2048  # q points a K4 CTA stages: 32 KB of shared memory
 
 
 @functools.lru_cache(maxsize=64)
-def nn_plan(b: int, n_p: int, nq: int) -> tuple[int, int, int]:
-    """K4's launch shape for ``b`` problems of ``n_p`` x ``nq`` lanes:
-    (threads per group ``L``, groups per CTA ``G``, q chunks ``C``).  A
-    CTA holds ``4 L`` p lanes; with enough of those tiles to fill the card
-    twice, two groups of up to three warps, each over half the q axis
-    (bench.py's batch); otherwise 128-lane tiles of eight one-warp groups
-    and the q axis split until the tiles times the chunks fill the 132
-    SMs (the ICP mapper's one problem)."""
+def nn_plan(b: int, n_p: int, nq: int, sms: int = _SMS
+            ) -> tuple[int, int, int]:
+    """K4's launch shape for ``b`` problems of ``n_p`` x ``nq`` lanes on a
+    card of ``sms`` streaming multiprocessors: (threads per group ``L``,
+    groups per CTA ``G``, q chunks ``C``).  A CTA holds ``4 L`` p lanes;
+    with enough of those tiles to fill the card twice, two groups of up
+    to three warps, each over half the q axis (bench.py's batch);
+    otherwise 128-lane tiles of eight one-warp groups and the q axis
+    split until the tiles times the chunks fill the SMs (the ICP mapper's
+    one problem, or an ICP fleet's ``b = W``)."""
     wide = min(96, -(-n_p // (_LANES * 32)) * 32)
     tiles = b * -(-n_p // (wide * _LANES))
     min_chunks = -(-nq // _MAX_CHUNK)
-    if tiles >= 2 * _SMS:
+    if tiles >= 2 * sms:
         return wide, 2, min_chunks
     tiles = b * -(-n_p // (32 * _LANES))
-    return 32, 8, min(max(-(-_SMS // tiles), min_chunks), nq)
+    return 32, 8, min(max(-(-sms // tiles), min_chunks), nq)
+
+
+@functools.lru_cache(maxsize=16)
+def _sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 _COUNTERS: dict[tuple[int, int], Tensor] = {}
@@ -220,7 +228,9 @@ def launch_kernel(p: Tensor, q: Tensor, q_count: Tensor) -> Tensor:
 
     lib = kernels.library()
     b, n_p, nq = p.shape[0], p.shape[1], q.shape[1]
-    threads, groups, chunks = nn_plan(b, n_p, nq)
+    threads, groups, chunks = nn_plan(
+        b, n_p, nq, _sm_count(p.device.index if p.device.index is not None
+                              else torch.cuda.current_device()))
     out = torch.empty((b, n_p), dtype=torch.int32, device=p.device)
     with torch.cuda.device(p.device):
         stream = torch.cuda.current_stream(p.device).cuda_stream

@@ -260,6 +260,9 @@ def plan_step(pool: Tensor, table: Tensor, poses: Tensor, angles0,
     kspan = span_of(spec, max_range_m, hb)
     if kspan > 2 and nb < span_geometry(spec, max_range_m, hb)[2]:
         raise ValueError(f"{nb} bands are too few for a {kspan}-band span")
+    if distances.dim() != 1:
+        raise ValueError("the tiled update takes one world's [B] scan (a "
+                         "tiled fleet runs it once per world)")
     prep = prepare(nb * hb, cols, poses, angles0, distances, valid, present,
                    spec, num_beams, max_range_m, dphi)
     if prep.wr != wr:

@@ -20,7 +20,11 @@ mapper update on the card against the same on the CPU: pose and points
 within 1e-5 m (the normal equations' sums run in another order).  The dda
 and dense grid integrators (plain PyTorch, no kernel) on the card against
 the CPU at ``tests/test_parity.py``'s map gate, the DDA walk bitwise, the
-dda scatter bitwise reproducible on the card.
+dda scatter bitwise reproducible on the card.  Fleets: K1 with the world
+axis (a beam table per world, one launch for every world) against its
+plain version at the same gates, a one-world call bitwise the
+single-world call; K2 on a flattened fleet plan bitwise, every copy
+inside its world; ``update_fleet`` launching K1 once a call.
 """
 
 import math
@@ -437,3 +441,103 @@ def test_grid_integrators_match_cpu(dev, integrate):
         for a, b in zip(G.traverse_ray(*ray, *args),
                         G.traverse_ray(*(t.to(dev) for t in ray), *args)):
             assert torch.equal(a, b.cpu())
+
+
+def _fleet_k1_case(spec, worlds, p, static, dtype, seed=0):
+    """``chip_smoke.py``'s fleet inputs for K1 (per-world scans from the
+    simulator, a quarter of the worlds with beams past the range, edge
+    poses, block-diagonal lineage) at ``dtype``."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    mod = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(mod)
+    mod.loader.exec_module(smoke)
+    args, kw = smoke.fleet_kernel_case(torch, spec, worlds, p, seed, static)
+    return (args[0].to(dtype), *args[1:]), kw
+
+
+@pytest.mark.parametrize("mode", ["lineage", "in_place"])
+@pytest.mark.parametrize("static", [True, False], ids=["static", "traced"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_k1_world_axis_matches_plain(dev, mode, static, dtype):
+    spec = GridSpec2D(-2.0, -2.0, 4.0, 4.0, 0.05)
+    args, kw = _fleet_k1_case(spec, 8, 16, static, dtype)
+    if mode == "in_place":
+        kw = dict(dphi=kw["dphi"], in_place=True)
+        want_g, want_l = fused.fused_update_reference(args[0].clone(),
+                                                      *args[1:], **kw)
+    else:
+        want_g, want_l = fused.fused_update_reference(*args, **kw)
+    before = fused.fused_update.launches
+    got_g, got_l = fused.fused_update(*args, **kw)
+    torch.cuda.synchronize()
+    assert fused.fused_update.launches == before + 1  # the whole fleet
+    assert _max_diff(got_g, want_g) == 0.0
+    torch.testing.assert_close(got_l, want_l, rtol=1e-5, atol=1e-4)
+
+
+def test_k1_one_world_is_the_single_world_call(dev):
+    spec = GridSpec2D(-2.0, -2.0, 4.0, 4.0, 0.05)
+    args, kw = _fleet_k1_case(spec, 1, 64, True, torch.bfloat16, seed=4)
+    grids, poses, a0, dist, valid, present = args[:6]
+    one = fused.fused_update(*args, **kw)
+    single = fused.fused_update(grids, poses, a0[0], dist[0], valid[0],
+                                present[0], *args[6:], **kw)
+    assert torch.equal(one[0], single[0]) and torch.equal(one[1], single[1])
+
+
+def test_cow_copy_on_a_flattened_fleet_plan(dev):
+    from slamrs_tpu_torch.ops import resample
+
+    worlds, p = 64, 10
+    g = torch.Generator(device=dev).manual_seed(6)
+    w = torch.softmax(torch.randn(worlds, p, generator=g, device=dev) * 3, -1)
+    anc = resample.systematic_resample(
+        w, torch.rand(worlds, 1, generator=g, device=dev))
+    flat = (anc + p * torch.arange(worlds, dtype=torch.int32,
+                                   device=dev)[:, None]).reshape(-1)
+    src, dst, n = cow.cow_plan(flat)
+    live = torch.arange(worlds * p, device=dev) < n
+    assert torch.equal((src // p)[live], (dst // p)[live])
+    grids = torch.randn(worlds * p, 200, 256, generator=g,
+                        device=dev).to(torch.bfloat16)
+    want = cow.cow_copy_reference(grids.clone(), src, dst, n)
+    before = cow.cow_copy.launches
+    got = cow.cow_copy(grids, src, dst, n)
+    torch.cuda.synchronize()
+    assert cow.cow_copy.launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("change", [{}, {"fleet_resample": "gather"},
+                                    {"fused_resident": True}],
+                         ids=["cow", "gather", "deferred"])
+def test_update_fleet_launches_k1_once(dev, change):
+    from slamrs_tpu_torch.core.types import OdometryReading
+    from slamrs_tpu_torch.models import gridslam as gs
+    from slamrs_tpu_torch.models.simulator import Scene, lidar_scan
+
+    cfg = gs.GridSlamConfig(resolution=0.05, n_particles=10,
+                            integrate="fused", resample_neff_frac=1.0,
+                            grid_dtype="bfloat16", **change)
+    worlds = 16
+    st = gs.GridSlamState.init(cfg, dev, (worlds,))
+    scene = Scene.build(rects=[(-1.0, -1.0, 2.0, 2.0)], device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    odo = OdometryReading(torch.full((worlds,), 0.01, device=dev),
+                          torch.full((worlds,), 0.012, device=dev), 0.1)
+    for k in range(2):
+        pose = torch.zeros(worlds, 3, device=dev)
+        pose[:, 0] = 0.01 * k + 0.02 * torch.arange(worlds, device=dev) / 16
+        scan = lidar_scan(pose, scene, 1.0, 360)
+        k1, k2 = fused.fused_update.launches, cow.cow_copy.launches
+        st, out = gs.update_fleet(st, scan, odo, cfg, generator=gen)
+        torch.cuda.synchronize()
+        assert fused.fused_update.launches == k1 + 1
+        assert cow.cow_copy.launches == k2 + int(not change)
+    assert bool(torch.isfinite(out.pose).all())
+    torch.testing.assert_close(st.weights.sum(-1),
+                               torch.ones(worlds, device=dev))

@@ -156,6 +156,20 @@ def test_nn_plan_fills_the_card_and_splits_exactly(shape):
             ticp.nearest_neighbors_reference(p, q, qcs), rtol=0, atol=0)
 
 
+def test_nn_plan_takes_the_sm_count():
+    """The plan reads the card's SM count; 132 (an H100 SXM) gives the
+    plans the kernel had before the count was read, and an ICP fleet of
+    ``b`` worlds splits the q axis by it."""
+    for shape in ((2048, 360, 360), (1, 360, 16384), (8, 360, 4096),
+                  (4, 360, 384), (2, 1, 50), (256, 360, 16384)):
+        assert ticp.nn_plan(*shape, 132) == ticp.nn_plan(*shape)
+    assert ticp.nn_plan(2048, 360, 360, 132) == (96, 2, 1)
+    assert ticp.nn_plan(1, 360, 16384, 132) == (32, 8, 44)
+    assert ticp.nn_plan(1, 360, 16384, 66) == (32, 8, 22)
+    assert ticp.nn_plan(8, 360, 16384, 132) == (32, 8, 8)
+    assert ticp.nn_plan(16, 360, 2048, 132) == (32, 8, 3)
+
+
 @pytest.mark.parametrize("batch", [(), (2, 3)], ids=["single", "batch2x3"])
 def test_nearest_neighbors_over_leading_dims(batch):
     rng = np.random.default_rng(1)
