@@ -166,11 +166,40 @@ f32 ``[256, 10, 200, 256]``, ``integrate="fused"``):
 30. times: K1 in place at the fleet shape (kernel, plain version, bound
     over the scan discs' cells), a warm 300-tick fleet run (world-ticks/s,
     bench.py's unit, and peak memory) and a profiled one (device busy
-    time, idle share, launches per tick).
+    time, idle share, launches per tick);
+
+then the host graph (``graph/app.py``), each preset through
+``App.from_file(..., device="cuda")`` frame by frame, the counts set to 0
+just before each run and read just after, the published pose held
+against the simulator's pose at the scan:
+
+31. ``app_grid_slam_fused_300``: the headline preset at its full size
+    (1,024 particles, bf16 ``[1024, 80, 128]``) for 300 frames: K1 once
+    per SLAM update (lineage mode), K2, K3 and K4 never, RMSE <= 0.08 m,
+    the published map ``[80, 80]``; frames/s, the median
+    ``GridMapSlam::update`` span, K1 launches a frame, peak memory;
+32. ``app_icp_test_900``: K4 ten times an update, RMSE <= 0.04 m, the
+    first 300 frames again on the CPU within 2e-3 m at every update;
+33. ``app_grid_slam_yaml_300`` (dda): the card and the CPU under the same
+    numpy draws, best poses within 0.04 m RMSE, no kernel;
+34. ``app_landmarks_300``: EKF RMSE <= 0.03 m, no kernel;
+35. ``app_no_host_sync``: 30 idle simulator ticks and one frame whose
+    SLAM update publishes a pose and no map, under
+    ``torch.cuda.set_sync_debug_mode("error")``;
+36. a profiled 300-frame App run of each preset: device busy time, idle
+    share, CUDA launches a frame;
+37. ``cli_run``: ``python -m slamrs_tpu_torch run
+    configs/grid_slam_fused.yaml --duration 2 --npz`` in its own
+    process: exit 0 and an ``[80, 80]`` ``slam/map`` in the file;
+38. ``checkpoint_card``: ``rollout --save-state`` then ``--resume`` on
+    the headline preset: the saved state equals the in-memory state of
+    the same run bitwise (bf16 maps included) and round-trips bitwise,
+    and 60 resumed ticks equal 60 ticks continued in memory.
 
 The ``kernels`` line's entries carry the fleet runs' launches
-(``fleet_launches``) and, for K1 and K2, their times at the fleet's
-shapes (``fleet_ms``, ``fleet_plain_ms``, ``fleet_bound_ms``).
+(``fleet_launches``), for K1 and K2 their times at the fleet's shapes
+(``fleet_ms``, ``fleet_plain_ms``, ``fleet_bound_ms``), and for K1 and
+K4 the launches of the host-graph runs (``app_launches``).
 
 Every kernel's bound is the larger of the bytes it must move at
 3.35 TB/s and its float32 operations at 67 TFLOP/s (the published H100
@@ -192,6 +221,7 @@ import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -2066,6 +2096,352 @@ def time_fleet(torch, spec):
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
 
 
+# ---- the host graph: App, its nodes and the CLI ------------------------
+
+# preset -> (its SLAM node's class, the topic that node publishes its pose on)
+APP_PRESETS = {"grid_slam_fused.yaml": ("GridMapSlamNode", "robot/pose"),
+               "icp_test.yaml": ("IcpPointMapperNode", "robot/pose"),
+               "grid_slam.yaml": ("GridMapSlamNode", "robot/pose"),
+               "landmarks.yaml": ("EKFLandmarkSlamNode", "slam/pose")}
+EKF_APP_RMSE_GATE_M = 0.03
+
+
+class SpanTimes:
+    """The durations (ms) of one span's closes, read from the debug log
+    that ``utils/trace.span`` writes when a span closes."""
+
+    def __init__(self, name):
+        import logging
+
+        self.name = name
+        self.ms = []
+        self.handler = logging.Handler(logging.DEBUG)
+        self.handler.emit = self._record
+        self.logger = logging.getLogger("slamrs_tpu_torch")
+
+    def _record(self, record):
+        if record.args and record.args[0] == self.name:
+            self.ms.append(float(record.args[1]))
+
+    def __enter__(self):
+        self.level = self.logger.level
+        self.logger.setLevel(10)  # DEBUG
+        self.logger.addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+        self.logger.setLevel(self.level)
+        return False
+
+
+def drive_app(torch, name, frames, device="cuda", grid_noise=None):
+    """``App.from_file(configs/name)`` on ``device`` for ``frames``
+    frames, with every launch count set to 0 just before and read just
+    after.  ``grid_noise`` (eps_c, eps_t, u01 with a leading update axis,
+    numpy) replaces the grid node's draws.  Returns the app, its SLAM
+    node, the counts, the seconds, and per SLAM update the published
+    pose and the simulator's pose at that frame (the scan's pose)."""
+    import numpy as np
+
+    from slamrs_tpu_torch.graph.app import App
+    from slamrs_tpu_torch.graph.nodes import slam
+    from slamrs_tpu_torch.graph.nodes.sim import SimulatorNode
+    from slamrs_tpu_torch.models.gridslam import UpdateNoise
+
+    root = Path(__file__).resolve().parent
+    app = App.from_file(str(root / "configs" / name), device=device)
+    cls_name, topic = APP_PRESETS[name]
+    node = app.node(getattr(slam, cls_name))
+    sim = app.node(SimulatorNode)
+    if grid_noise is not None:
+        node.noise_for_update = lambda i: UpdateNoise(
+            *(torch.from_numpy(x[i]).to(node.device) for x in grid_noise))
+    published = app.pubsub.subscribe(topic)
+    truth = []
+    reset_counts()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(frames):
+        n = node.updates
+        app.frame()
+        if node.updates != n:
+            truth.append(sim.state.pose.clone())
+    if device == "cuda":
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    est = np.array([m.pose for m in published.drain()])
+    truth = torch.stack(truth).cpu().numpy()
+    return app, node, counts, seconds, est, truth
+
+
+def xy_rmse(a, b) -> float:
+    import numpy as np
+
+    return float(np.sqrt(((a[:, :2] - b[:, :2]) ** 2).mean()))
+
+
+def check_app_grid_slam_fused(torch):
+    """``configs/grid_slam_fused.yaml`` at its full size through the App
+    for 300 frames: K1 once per SLAM update (lineage mode), K2, K3 and K4
+    never; the published best pose against the simulator's ground truth
+    at the headline's RMSE gate; the published map unpadded."""
+    from slamrs_tpu_torch.graph.nodes.viz import VisualizerNode
+
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # what earlier phases still hold
+    with SpanTimes("GridMapSlam::update") as spans:
+        app, node, counts, seconds, est, truth = drive_app(
+            torch, "grid_slam_fused.yaml", 300)
+    m = app.node(VisualizerNode).latest("slam/map")
+    rmse = xy_rmse(est, truth)
+    emit({"phase": "app_grid_slam_fused_300", "frames": 300,
+          "updates": node.updates, "launch_counts": counts,
+          "k1_launches_per_frame": counts["fused_update"] / 300,
+          "grids": list(node.state.grids.shape),
+          "grid_dtype": str(node.state.grids.dtype),
+          "grid_pose_rmse_xy_m": rmse, "map_shape": list(m.data.shape),
+          "seconds": seconds, "frames_per_s": 300 / seconds,
+          "update_span_median_ms": statistics.median(spans.ms),
+          "update_span_mean_ms": node.stats.mean,
+          "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+          "peak_above_held_bytes": torch.cuda.max_memory_allocated() - held})
+    want = {"fused_update": node.updates, "fused_update_in_place": 0,
+            "cow_copy": 0, "fused_update_tiled": 0, "nn_argmin": 0}
+    if counts != want or node.updates < 45 or len(spans.ms) != node.updates:
+        raise AssertionError(f"app headline launches {counts}, expected "
+                             f"{want} ({len(spans.ms)} spans)")
+    if not rmse <= RMSE_GATE_M or m.data.shape != (80, 80):
+        raise AssertionError(f"app headline RMSE {rmse} m, map "
+                             f"{m.data.shape}")
+    return counts
+
+
+def check_app_icp(torch):
+    """``configs/icp_test.yaml`` through the App for 900 frames: K4 ten
+    times an update, the ICP gate against ground truth, and the first 300
+    frames on the CPU within the card-vs-CPU gate at every update."""
+    import numpy as np
+
+    _, node, counts, seconds, est, truth = drive_app(torch, "icp_test.yaml",
+                                                     900)
+    iters = node.map_cfg.iterations
+    rmse = xy_rmse(est, truth)
+    t0 = time.perf_counter()
+    _, cpu_node, _, _, cpu_est, _ = drive_app(torch, "icp_test.yaml", 300,
+                                              device="cpu")
+    cpu_s = time.perf_counter() - t0
+    gap = np.abs(est[:len(cpu_est)] - cpu_est).max(axis=1)
+    emit({"phase": "app_icp_test_900", "frames": 900,
+          "updates": node.updates, "launch_counts": counts,
+          "k4_launches_per_frame": counts["nn_argmin"] / 900,
+          "map_count": int(node.state.count), "icp_pose_rmse_xy_m": rmse,
+          "seconds": seconds, "frames_per_s": 900 / seconds,
+          "cpu_updates": cpu_node.updates, "cpu_seconds": cpu_s,
+          "card_vs_cpu_max_pose_diff_m": float(gap.max())})
+    if counts["nn_argmin"] != iters * node.updates or \
+            counts["fused_update"] or counts["fused_update_tiled"]:
+        raise AssertionError(f"app ICP launches {counts}, expected "
+                             f"{iters} x {node.updates} nn_argmin")
+    if not rmse <= ICP_RMSE_GATE_M:
+        raise AssertionError(f"app ICP RMSE {rmse} m > {ICP_RMSE_GATE_M} m")
+    if not gap.max() <= ICP_CPU_GATE_M:
+        raise AssertionError(f"app ICP card vs CPU: {gap.max()} m")
+    return counts
+
+
+def check_app_grid_slam_yaml(torch):
+    """``configs/grid_slam.yaml`` (dda) through the App for 300 frames on
+    the card and on the CPU under the same numpy draws: no kernel, best
+    poses within 2 cells RMSE of each other."""
+    import numpy as np
+
+    rng = np.random.default_rng(8)
+    noise = (rng.standard_normal((12, 10)).astype(np.float32),
+             rng.standard_normal((12, 10)).astype(np.float32),
+             rng.random((12, 1)).astype(np.float32))
+    _, node, counts, seconds, est, truth = drive_app(
+        torch, "grid_slam.yaml", 300, grid_noise=noise)
+    _, _, _, cpu_s, cpu_est, _ = drive_app(torch, "grid_slam.yaml", 300,
+                                           device="cpu", grid_noise=noise)
+    gap = xy_rmse(est, cpu_est)
+    rmse = xy_rmse(est, truth)
+    emit({"phase": "app_grid_slam_yaml_300", "frames": 300,
+          "updates": node.updates, "launch_counts": counts,
+          "grid_pose_rmse_xy_m": rmse, "card_vs_cpu_best_pose_rmse_m": gap,
+          "seconds": seconds, "frames_per_s": 300 / seconds,
+          "cpu_seconds": cpu_s})
+    if any(counts.values()) or node.updates != len(cpu_est):
+        raise AssertionError(f"app dda launches {counts}")
+    if not gap <= GRID_SLAM_CPU_GATE_M or not rmse <= GRID_SLAM_RMSE_GATE_M:
+        raise AssertionError(f"app dda: card vs CPU {gap} m, RMSE {rmse} m")
+
+
+def check_app_landmarks(torch):
+    """``configs/landmarks.yaml`` through the App for 300 frames: the EKF
+    gate against ground truth, no kernel."""
+    _, node, counts, seconds, est, truth = drive_app(torch, "landmarks.yaml",
+                                                     300)
+    rmse = xy_rmse(est, truth)
+    emit({"phase": "app_landmarks_300", "frames": 300,
+          "updates": node.updates, "launch_counts": counts,
+          "ekf_pose_rmse_xy_m": rmse, "seconds": seconds,
+          "frames_per_s": 300 / seconds})
+    if any(counts.values()) or not rmse <= EKF_APP_RMSE_GATE_M:
+        raise AssertionError(f"app EKF RMSE {rmse} m, launches {counts}")
+
+
+def check_app_no_host_sync(torch):
+    """The headline App: 30 idle simulator ticks, then one frame whose
+    tick fires and whose SLAM update publishes its pose but no map, all
+    under ``torch.cuda.set_sync_debug_mode("error")``."""
+    from slamrs_tpu_torch.graph.app import App
+    from slamrs_tpu_torch.graph.nodes.sim import SimulatorNode
+    from slamrs_tpu_torch.graph.nodes.slam import GridMapSlamNode
+    from slamrs_tpu_torch.graph.nodes.viz import VisualizerNode
+
+    root = Path(__file__).resolve().parent
+    app = App.from_file(str(root / "configs" / "grid_slam_fused.yaml"),
+                        device="cuda")
+    sim, node = app.node(SimulatorNode), app.node(GridMapSlamNode)
+    node.cfg.publish_map_every = 2
+    sim.set_parameters(update_period=1e6)
+    app.frame()  # the controls publish their first command
+    poses = app.pubsub.subscribe("robot/pose")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(30):
+            app.frame()
+        idle = sim.ticks
+        sim.set_parameters(update_period=0.0)
+        app.frame()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    msgs = poses.drain()
+    emit({"phase": "app_no_host_sync", "idle_ticks": idle - 1,
+          "updates": node.updates, "poses_published": len(msgs),
+          "map_published": app.node(VisualizerNode).latest("slam/map")
+          is not None, "pose": [float(v) for v in msgs[0].pose]})
+    if idle != 31 or node.updates != 1 or len(msgs) != 1:
+        raise AssertionError("app_no_host_sync did not run its ticks")
+
+
+def profile_app(torch, name, frames):
+    """Device busy time, idle share and launches a frame of a profiled
+    App run of ``frames`` frames."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from slamrs_tpu_torch.graph.app import App
+    from slamrs_tpu_torch.utils import trace
+
+    root = Path(__file__).resolve().parent
+    app = App.from_file(str(root / "configs" / name), device="cuda")
+    app.run(frames=3)  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        app.run(frames=frames)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # a span (``utils/trace.span``) is a record_function range, which the
+    # profiler also lays on the device's timeline: count kernels only
+    spans = set(trace.all_stats())
+    device = [e for e in prof.key_averages()
+              if e.device_type.name == "CUDA" and e.key not in spans]
+    device_s = sum(e.self_device_time_total for e in device) / 1e6
+    launches = sum(e.count for e in device)
+    top = max(device, key=lambda e: e.self_device_time_total)
+    emit({"phase": f"profile_app_{name}_{frames}", "wall_s_profiled": wall,
+          "device_busy_s": device_s, "idle_share": 1 - device_s / wall,
+          "kernel_launches": launches, "launches_per_frame": launches / frames,
+          "top_kernel": top.key[:60],
+          "top_kernel_s": top.self_device_time_total / 1e6})
+
+
+def check_cli_run(torch, tmp):
+    """``python -m slamrs_tpu_torch run configs/grid_slam_fused.yaml
+    --duration 2 --npz``, in a process of its own on the card."""
+    import numpy as np
+
+    root = Path(__file__).resolve().parent
+    out = Path(tmp) / "run.npz"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "slamrs_tpu_torch", "run",
+         str(root / "configs" / "grid_slam_fused.yaml"), "--duration", "2",
+         "--npz", str(out)], cwd=root, capture_output=True, text=True,
+        timeout=300)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"run exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    with np.load(out) as data:
+        keys = sorted(data.files)
+        shape = list(data["slam_map_grid"].shape)
+    emit({"phase": "cli_run", "seconds": seconds, "npz_keys": keys,
+          "slam_map_grid": shape, "stdout": proc.stdout.strip()[-300:]})
+    if shape != [80, 80]:
+        raise AssertionError(f"run --npz saved a {shape} map")
+
+
+def check_checkpoint_card(torch, tmp):
+    """``rollout --save-state`` then ``--resume`` on the headline preset:
+    the saved state equals the in-memory state of the same run bitwise
+    (bf16 maps included) and round-trips bitwise, and 60 resumed ticks
+    equal 60 ticks continued from the in-memory state, same seed."""
+    import contextlib
+    import io
+
+    from slamrs_tpu_torch.__main__ import main as cli
+    from slamrs_tpu_torch.utils import checkpoint
+
+    root = Path(__file__).resolve().parent
+    cfg = str(root / "configs" / "grid_slam_fused.yaml")
+    path = str(Path(tmp) / "headline.npz")
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        cli(["rollout", cfg, "--steps", "60", "--save-state", path])
+    save_s = time.perf_counter() - t0
+    fw = preset_world(torch, "grid_slam_fused.yaml")
+    state, _ = fw.rollout_cadence(fw.init(), 60, seed=0)
+    loaded = checkpoint.load(path, fw.init())
+
+    def same(a, b):
+        la, lb = checkpoint.leaves(a), checkpoint.leaves(b)
+        return len(la) == len(lb) and all(
+            (x.dtype == y.dtype and torch.equal(x, y))
+            if isinstance(x, torch.Tensor) else x == y
+            for x, y in zip(la, lb))
+
+    saved_equal = same(loaded, state)
+    again = Path(tmp) / "again.npz"
+    checkpoint.save(str(again), loaded)
+    round_trip = same(checkpoint.load(str(again), fw.init()), loaded)
+    with contextlib.redirect_stdout(out):
+        cli(["rollout", cfg, "--steps", "60", "--resume", path])
+    reports = [json.loads(line) for line in out.getvalue().splitlines()]
+    cont, outs = fw.rollout_cadence(state, 60, seed=0)
+    resumed, routs = fw.rollout_cadence(loaded, 60, seed=0)
+    resumed_equal = same(resumed, cont) and all(
+        torch.equal(x, y) for x, y in zip(routs, outs) if x is not None)
+    cli_equal = reports[1]["final_pose"] == cont.pose.tolist()
+    emit({"phase": "checkpoint_card", "bytes": Path(path).stat().st_size,
+          "grids": list(loaded.grid.grids.shape),
+          "grid_dtype": str(loaded.grid.grids.dtype),
+          "leaves": len(checkpoint.leaves(loaded)),
+          "cli_save_seconds": save_s, "saved_equals_memory": saved_equal,
+          "round_trip_bitwise": round_trip,
+          "resumed_60_equal": resumed_equal, "cli_resume_equal": cli_equal})
+    if not (saved_equal and round_trip and resumed_equal and cli_equal):
+        raise AssertionError("checkpoint_card: a resumed state differs")
+
+
 def _spec(geom):
     from slamrs_tpu_torch.ops.grid import GridSpec2D
 
@@ -2220,6 +2596,18 @@ def main() -> int:
     check_fleet_no_host_sync(torch)
     t_fleet = time_fleet(torch, spec_fleet)
 
+    # the host graph: the App's nodes on the card, the CLI, checkpoints
+    app_k1 = check_app_grid_slam_fused(torch)
+    app_k4 = check_app_icp(torch)
+    check_app_grid_slam_yaml(torch)
+    check_app_landmarks(torch)
+    check_app_no_host_sync(torch)
+    for name in APP_PRESETS:
+        profile_app(torch, name, 300)
+    with tempfile.TemporaryDirectory() as tmp:
+        check_cli_run(torch, tmp)
+        check_checkpoint_card(torch, tmp)
+
     k1_ms, k1_plain, k1_bound, k1_by = times["0.05m"]
     emit({"kernels": [
         {"name": "fused_update", "route": "cuda",
@@ -2229,7 +2617,8 @@ def main() -> int:
          "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bound,
          "bound_by": k1_by, "library_ms": None,
          "fleet_launches": fleet_counts["fused_update"],
-         **{f"fleet_{k}": v for k, v in t_fleet.items()}},
+         **{f"fleet_{k}": v for k, v in t_fleet.items()},
+         "app_launches": app_k1["fused_update"]},
         {"name": "cow_copy", "route": "cuda",
          "source": "slamrs_tpu_torch/csrc/cow_copy.cu",
          "replaces": "slamrs_tpu/ops/cow.py:187",
@@ -2247,7 +2636,8 @@ def main() -> int:
          "replaces": "slamrs_tpu/ops/icp.py:111",
          "launches": icp_counts["nn_argmin"], "max_abs_err": nn_err,
          **t4["mapper_1x360x16384_qc10000"],
-         "fleet_launches": icp_fleet_counts["nn_argmin"]}]})
+         "fleet_launches": icp_fleet_counts["nn_argmin"],
+         "app_launches": app_k4["nn_argmin"]}]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -10,7 +10,10 @@ SLAM.  The layout mirrors it so each module has an obvious counterpart:
   copy-on-write and tile-pool resamples, ICP;
 * ``models/``  the simulator, the particle-filter SLAM update, the ICP
   point mapper and the EKF;
-* ``graph/``   the YAML loader and the fused world (rollouts);
+* ``graph/``   the YAML loader, the fused world (rollouts) and the host
+  node graph (pub/sub, the nodes, ``App``);
+* ``utils/``, ``viz/``, ``io/``  timing and spans, checkpoints, the shape
+  renderer and framebuffer, keyboard teleop;
 * ``kernels/`` build and load of the hand-written CUDA kernels in ``csrc/``.
 
 Every entry point takes an explicit ``device``; nothing falls back from

@@ -9,8 +9,10 @@ of observation lanes, and a pose is a plain ``f32[..., 3]`` tensor
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 Tensor = torch.Tensor
@@ -91,6 +93,15 @@ class Command(NamedTuple):
     speed_left: Tensor
     speed_right: Tensor
 
+    @staticmethod
+    def make(left=0.0, right=0.0, device=None) -> "Command":
+        """Two f32 0-dim tensors on ``device``, filled on the device (a
+        tensor made from a Python value on the card would be a
+        synchronous host copy)."""
+        f = lambda v: torch.full((), float(np.float32(v)),
+                                 dtype=torch.float32, device=device)
+        return Command(f(left), f(right))
+
 
 class LandmarkScan(NamedTuple):
     """Landmark observations with fixed lanes: ``association`` is the
@@ -104,3 +115,19 @@ class LandmarkScan(NamedTuple):
     @property
     def num_lanes(self) -> int:
         return self.angles.shape[-1]
+
+
+@dataclasses.dataclass
+class Gaussian2D:
+    """A 2D Gaussian on the host: ``mean`` f32[2], ``covariance``
+    f32[2, 2] (numpy; the Gaussian debug node and the covariance-ellipse
+    drawing use it)."""
+
+    mean: np.ndarray = None
+    covariance: np.ndarray = None
+
+    def __post_init__(self):
+        if self.mean is None:
+            self.mean = np.zeros(2, np.float32)
+        if self.covariance is None:
+            self.covariance = np.eye(2, dtype=np.float32)

@@ -1,1 +1,2 @@
-"""YAML node-graph loading and the fused world (rollouts)."""
+"""YAML node-graph loading, the fused world (rollouts) and the host
+node graph (pub/sub, nodes, ``App``)."""

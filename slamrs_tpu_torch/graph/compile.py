@@ -184,19 +184,10 @@ class FusedWorld:
         generator's draws for grid SLAM and the landmark sensor.  Returns
         ``(state, row)`` with ``row`` the tick's ``(fired, pose,
         grid_pose, icp_pose, ekf_pose, n_eff)``."""
-        dt = np.float32(self.dt)
-        sl = cmd.speed_left * float(dt)
-        sr = cmd.speed_right * float(dt)
-        pose = motion.integrate_exact(state.pose, sl, sr,
-                                      self.params.wheel_base)
-        accum_l = state.accum_left + sl
-        accum_r = state.accum_right + sr
-        period = np.float32(self.params.update_period)
-        timer = np.float32(np.float32(state.scan_timer) + dt)
-        fired = bool(timer > period)
-        if fired:
-            timer = np.float32(timer - period)
-        fired = fired or force_fire or float(period) == 0.0
+        pose, accum_l, accum_r, timer, fired = sim_model.advance(
+            state.pose, state.accum_left, state.accum_right,
+            state.scan_timer, cmd, self.params, self.dt)
+        fired = fired or force_fire or self.params.update_period == 0.0
 
         state = state._replace(pose=pose, accum_left=accum_l,
                                accum_right=accum_r)
@@ -215,7 +206,7 @@ class FusedWorld:
             n_eff = torch.zeros(pose.shape[:-1], dtype=torch.float32,
                                 device=self.device)
         new_state = WorldState(pose=pose, accum_left=accum_l,
-                               accum_right=accum_r, scan_timer=float(timer),
+                               accum_right=accum_r, scan_timer=timer,
                                scan_counter=state.scan_counter + int(fired),
                                grid=grid, icp=icp, ekf=ekf)
         return new_state, _Row(fired, pose, grid_pose, icp_pose, ekf_pose,

@@ -1,13 +1,18 @@
 """Differential-drive robot scene, 360-beam lidar and landmark sensor.
 
 Counterpart of ``slamrs_tpu/models/simulator.py`` (``SimParams.make``,
-``Scene.build``, ``lidar_scan``, ``landmark_scan``).  The lidar casts one
+``Scene.build``, ``SimState``, ``SimOutputs``, ``lidar_scan``,
+``landmark_scan``, ``tick``).  The lidar casts one
 beam per whole degree; a beam that hits nothing is absent (``present``
 false), and a hit beyond the scanner range is clamped to the range and
 marked invalid.  The landmark sensor sees every scene landmark whose
 *squared* distance is within the scanner range (the reference compares
 the squared distance with the range; kept verbatim), with Gaussian
 bearing and range noise and the landmark's index as its association.
+
+``tick`` keeps the scan timer a float32-exact host value, so the host
+knows which ticks fire without waiting for the device: a tick that does
+not fire integrates the motion only, and its outputs carry no scan.
 """
 
 from __future__ import annotations
@@ -17,7 +22,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from slamrs_tpu_torch.core.types import LandmarkScan, Scan
+from slamrs_tpu_torch.core import motion
+from slamrs_tpu_torch.core.types import (Command, LandmarkScan,
+                                         OdometryReading, Scan)
 from slamrs_tpu_torch.ops import raycast as _raycast
 
 Tensor = torch.Tensor
@@ -131,3 +138,81 @@ def landmark_scan(pose: Tensor, scene: Scene, params: SimParams,
             torch.arange(n_lanes, dtype=torch.int32, device=pose.device),
             shape),
         valid=in_range & scene.landmark_mask)
+
+
+class SimState(NamedTuple):
+    pose: Tensor  # f32[..., 3] ground-truth pose
+    scan_timer: float  # float32-exact host timer
+    scan_counter: int
+    wheel_accum_left: Tensor  # f32[...] wheel travel since the last scan
+    wheel_accum_right: Tensor  # f32[...]
+
+    @staticmethod
+    def init(device, batch_shape=()) -> "SimState":
+        z = torch.zeros(batch_shape, dtype=torch.float32, device=device)
+        return SimState(
+            pose=torch.zeros((*batch_shape, 3), dtype=torch.float32,
+                             device=device),
+            scan_timer=0.0, scan_counter=0, wheel_accum_left=z,
+            wheel_accum_right=z.clone())
+
+
+class SimOutputs(NamedTuple):
+    """What one tick publishes.  ``fired`` is a host bool; ``scan`` and
+    ``landmarks`` are None on a tick that does not fire, and
+    ``odometry`` is the wheel travel since the last scan, up to and
+    including this tick."""
+
+    fired: bool
+    pose: Tensor  # f32[..., 3] ground-truth pose
+    scan: Scan | None
+    odometry: OdometryReading
+    landmarks: LandmarkScan | None
+    scan_id: int  # the scan counter before this tick
+
+
+def advance(pose: Tensor, accum_left: Tensor, accum_right: Tensor,
+            scan_timer: float, cmd: Command, params: SimParams,
+            dt: float = DEFAULT_DT):
+    """The motion and the scan timer of one tick: exact diff-drive motion
+    under ``cmd`` (0-dim f32 speed tensors), the wheel-travel
+    accumulators, and the float32 host timer with remainder carry.
+    Returns ``(pose, accum_left, accum_right, scan_timer, fired)``."""
+    dt32 = np.float32(dt)
+    sl = cmd.speed_left * float(dt32)
+    sr = cmd.speed_right * float(dt32)
+    pose = motion.integrate_exact(pose, sl, sr, params.wheel_base)
+    period = np.float32(params.update_period)
+    timer = np.float32(np.float32(scan_timer) + dt32)
+    fired = bool(timer > period)
+    if fired:
+        timer = np.float32(timer - period)
+    return pose, accum_left + sl, accum_right + sr, float(timer), fired
+
+
+def tick(state: SimState, cmd: Command, params: SimParams, scene: Scene,
+         dt: float = DEFAULT_DT, num_beams: int = NUM_BEAMS,
+         generator: torch.Generator | None = None,
+         landmark_noise: tuple[Tensor, Tensor] | None = None
+         ) -> tuple[SimState, SimOutputs]:
+    """One fixed-timestep tick (:func:`advance`); on a tick that fires,
+    the lidar scan and the landmark scan (its draws from ``generator``,
+    or ``landmark_noise`` = ``(noise_a, noise_d)``)."""
+    pose, accum_l, accum_r, timer, fired = advance(
+        state.pose, state.wheel_accum_left, state.wheel_accum_right,
+        state.scan_timer, cmd, params, dt)
+    odometry = OdometryReading(accum_l, accum_r, params.wheel_base)
+    scan = landmarks = None
+    if fired:
+        scan = lidar_scan(pose, scene, params.scanner_range, num_beams)
+        noise_a, noise_d = landmark_noise or (None, None)
+        landmarks = landmark_scan(pose, scene, params, generator=generator,
+                                  noise_a=noise_a, noise_d=noise_d)
+        accum_l = torch.zeros_like(accum_l)
+        accum_r = torch.zeros_like(accum_r)
+    new_state = SimState(pose=pose, scan_timer=timer,
+                         scan_counter=state.scan_counter + int(fired),
+                         wheel_accum_left=accum_l, wheel_accum_right=accum_r)
+    return new_state, SimOutputs(fired=fired, pose=pose, scan=scan,
+                                 odometry=odometry, landmarks=landmarks,
+                                 scan_id=state.scan_counter)

@@ -120,3 +120,18 @@ def test_pose2_helpers():
     assert float(Pose2.x(p)) == 1.0 and float(Pose2.theta(p)) == 0.5
     assert Pose2.xy(p).tolist() == [1.0, 2.0]
     assert Pose2.identity((4,)).shape == (4, 3)
+
+
+@pytest.mark.parametrize("fn", ["prob_to_log_odds", "log_odds_to_prob",
+                                "log_prob_mul", "log_prob_add"])
+def test_probability_algebra(fn):
+    rng = _rng(11)
+    if fn == "prob_to_log_odds":
+        args = (rng.uniform(1e-4, 1 - 1e-4, N).astype(np.float32),)
+    else:
+        args = tuple(rng.normal(0, 4, N).astype(np.float32)
+                     for _ in range(1 if fn == "log_odds_to_prob" else 2))
+    want = np.asarray(getattr(jm, fn)(*(jnp.asarray(a) for a in args)))
+    got = getattr(tm, fn)(*(torch.from_numpy(a) for a in args))
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=ATOL)

@@ -24,7 +24,9 @@ dda scatter bitwise reproducible on the card.  Fleets: K1 with the world
 axis (a beam table per world, one launch for every world) against its
 plain version at the same gates, a one-world call bitwise the
 single-world call; K2 on a flattened fleet plan bitwise, every copy
-inside its world; ``update_fleet`` launching K1 once a call.
+inside its world; ``update_fleet`` launching K1 once a call.  Host mode
+(the App): K1 once per SLAM update and K4 ten times per ICP update, and
+an App run on the card against the same on the CPU under injected draws.
 """
 
 import math
@@ -541,3 +543,76 @@ def test_update_fleet_launches_k1_once(dev, change):
     assert bool(torch.isfinite(out.pose).all())
     torch.testing.assert_close(st.weights.sum(-1),
                                torch.ones(worlds, device=dev))
+
+
+def _preset(name, particles=None):
+    from pathlib import Path
+
+    text = (Path(__file__).resolve().parents[1] / "configs" / name)\
+        .read_text()
+    if particles is not None:
+        text = text.replace("n_particles: 1024", f"n_particles: {particles}")
+    return text
+
+
+def test_app_launch_counts(dev):
+    """Host mode: K1 once per SLAM update of ``grid_slam_fused.yaml``
+    (lineage mode, K2-K4 never), K4 ten times per ICP update of
+    ``icp_test.yaml``."""
+    from slamrs_tpu_torch.graph.app import App
+    from slamrs_tpu_torch.graph.nodes.slam import (GridMapSlamNode,
+                                                   IcpPointMapperNode)
+
+    app = App.from_yaml(_preset("grid_slam_fused.yaml", 64), device=dev)
+    counters = [(fused.fused_update, "launches"),
+                (fused.fused_update, "in_place_launches"),
+                (cow.cow_copy, "launches"),
+                (tiles.fused_update_tiled, "launches"),
+                (icp.nearest_neighbors_fused, "launches")]
+    for fn, attr in counters:
+        setattr(fn, attr, 0)
+    app.run(frames=30)
+    node = app.node(GridMapSlamNode)
+    assert node.updates >= 4
+    assert [getattr(fn, attr) for fn, attr in counters] == \
+        [node.updates, 0, 0, 0, 0]
+
+    app = App.from_yaml(_preset("icp_test.yaml"), device=dev)
+    icp.nearest_neighbors_fused.launches = 0
+    app.run(frames=30)
+    node = app.node(IcpPointMapperNode)
+    assert node.updates >= 4
+    assert icp.nearest_neighbors_fused.launches == 10 * node.updates
+
+
+def test_app_update_matches_cpu(dev):
+    """``grid_slam_fused.yaml`` at 16 particles through the App on the
+    card and on the CPU under the same numpy draws: ground truth within
+    1e-5 m, the published best poses within 0.04 m RMSE (the card's
+    cos, sin and atan2 are a few ulps from the CPU's)."""
+    import numpy as np
+
+    from slamrs_tpu_torch.graph.app import App
+    from slamrs_tpu_torch.graph.nodes.sim import SimulatorNode
+    from slamrs_tpu_torch.graph.nodes.slam import GridMapSlamNode
+    from slamrs_tpu_torch.models.gridslam import UpdateNoise
+
+    rng = np.random.default_rng(4)
+    draws = [(rng.standard_normal(16).astype(np.float32),
+              rng.standard_normal(16).astype(np.float32),
+              rng.random(1).astype(np.float32)) for _ in range(8)]
+    runs = []
+    for device in (dev, torch.device("cpu")):
+        app = App.from_yaml(_preset("grid_slam_fused.yaml", 16),
+                            device=device)
+        node = app.node(GridMapSlamNode)
+        node.noise_for_update = lambda i, d=device: UpdateNoise(
+            *(torch.from_numpy(x).to(d) for x in draws[i]))
+        sub = app.pubsub.subscribe("robot/pose")
+        app.run(frames=45)
+        runs.append((app.node(SimulatorNode).get_pose(),
+                     np.array([m.pose for m in sub.drain()])))
+    (truth_card, card), (truth_cpu, cpu) = runs
+    np.testing.assert_allclose(truth_card, truth_cpu, atol=1e-5, rtol=0)
+    assert card.shape == cpu.shape == (7, 3)
+    assert np.sqrt(((card - cpu)[:, :2] ** 2).mean()) <= 0.04

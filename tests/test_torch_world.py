@@ -53,6 +53,9 @@ from slamrs_tpu_torch.graph.config import load_config as tload  # noqa: E402
 from slamrs_tpu_torch.models import ekf as tekf  # noqa: E402
 from slamrs_tpu_torch.models import icp_mapper as tmap  # noqa: E402
 
+from torch_compare import (rollout_grid_noise,  # noqa: E402
+                           rollout_landmark_noise)
+
 ROOT = Path(__file__).resolve().parents[1]
 YAML = str(ROOT / "configs" / "grid_slam_fused.yaml")
 GRID_YAML = str(ROOT / "configs" / "grid_slam.yaml")
@@ -75,21 +78,6 @@ def _worlds(kind):
     jw.grid_config = dataclasses.replace(jw.grid_config, n_particles=P)
     tw.grid_config = dataclasses.replace(tw.grid_config, n_particles=P)
     return jw, tw
-
-
-def _jax_noise(jw, state, n_steps, seed, timer):
-    """The per-frame draws JAX's rollout_cadence makes (same fire pattern
-    and key discipline), as numpy."""
-    dt, period = np.float32(jw.dt), np.float32(jw.params.update_period)
-    timer = np.float32(timer)
-    fire = []
-    for i in range(n_steps):
-        timer = np.float32(timer + dt)
-        if timer > period:
-            fire.append(i)
-            timer = np.float32(timer - period)
-    keys = jax.random.split(jax.random.key(seed), n_steps)[np.array(fire)]
-    return tuple(np.asarray(x) for x in jw._grid_noise(keys, state))
 
 
 def _check(jst, jo, tst, to):
@@ -116,7 +104,7 @@ def test_rollout_cadence_matches_jax(kind):
     assert (tw.grid_config.beam_spacing is None) == (kind == "compile_world")
     js0 = jw.init()
     jst, jo = jw.rollout_cadence(js0, TICKS, seed=0, initial_timer=0.0)
-    noise = _jax_noise(jw, js0, TICKS, 0, 0.0)
+    noise = rollout_grid_noise(jw, js0, TICKS, 0, 0.0)
     tst, to = tw.rollout_cadence(tw.init(), TICKS, seed=0, initial_timer=0.0,
                                  noise=noise)
     assert to.grid_pose.shape == (len(noise[0]), 3)
@@ -146,7 +134,7 @@ def test_state_carried_over_from_jax():
 
     timer = float(jst.scan_timer)
     jst2, jo2 = jw.rollout_cadence(jst, rest, seed=1, initial_timer=timer)
-    noise = _jax_noise(jw, jst, rest, 1, timer)
+    noise = rollout_grid_noise(jw, jst, rest, 1, timer)
     assert len(noise[0]) == 3
     tst2, to2 = tw.rollout_cadence(tst, rest, seed=1, noise=noise)
     _check(jst2, jo2, tst2, to2)
@@ -266,34 +254,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 18  # every module was imported
-
-
-def _fire_ticks(jw, n_steps, timer):
-    dt, period = np.float32(jw.dt), np.float32(jw.params.update_period)
-    timer = np.float32(timer)
-    fire = []
-    for i in range(n_steps):
-        timer = np.float32(timer + dt)
-        if timer > period:
-            fire.append(i)
-            timer = np.float32(timer - period)
-    return np.array(fire)
-
-
-def _jax_landmark_noise(jw, n_steps, seed, timer=0.0):
-    """The landmark draws of JAX's rollout_cadence (``k_lm`` of each scan
-    tick's key, split into bearing and range keys), as numpy."""
-    keys = jax.random.split(jax.random.key(seed), n_steps)[
-        _fire_ticks(jw, n_steps, timer)]
-    lanes = jw.scene.landmarks.shape[0]
-
-    def one(key):
-        k1, k2 = jax.random.split(jax.random.split(key)[0])
-        return (jax.random.normal(k1, (lanes,)),
-                jax.random.normal(k2, (lanes,)))
-
-    return tuple(np.array(x) for x in jax.vmap(one)(keys))
+    assert int(out.stdout.strip()) >= 41  # every module was imported
 
 
 def _icp_ekf_worlds():
@@ -315,7 +276,7 @@ def test_icp_ekf_world_matches_jax():
     jst, jo = jw.rollout_cadence(jw.init(), ticks, seed=0, initial_timer=0.0)
     tst, to = tw.rollout_cadence(
         tw.init(), ticks, seed=0,
-        landmark_noise=_jax_landmark_noise(jw, ticks, 0))
+        landmark_noise=rollout_landmark_noise(jw, ticks, 0))
     assert to.grid_pose is None and to.n_eff is None
     assert to.icp_pose.shape == (14, 3) == to.ekf_pose.shape
     np.testing.assert_allclose(to.pose.numpy(), np.asarray(jo.pose),
@@ -347,7 +308,8 @@ def test_icp_ekf_state_carried_over_from_jax():
     timer = float(jst.scan_timer)
     jst2, jo2 = jw.rollout_cadence(jst, 7, seed=1, initial_timer=timer)
     tst2, to2 = tw.rollout_cadence(
-        tst, 7, seed=1, landmark_noise=_jax_landmark_noise(jw, 7, 1, timer))
+        tst, 7, seed=1,
+        landmark_noise=rollout_landmark_noise(jw, 7, 1, timer))
     assert to2.icp_pose.shape[0] == 1
     np.testing.assert_allclose(to2.icp_pose.numpy(), np.asarray(jo2.icp_pose),
                                atol=1e-5, rtol=0)
@@ -426,7 +388,7 @@ def test_grid_slam_yaml_matches_jax():
         dataclasses.asdict(jw.grid_config)
     js0 = jw.init()
     jst, jo = jw.rollout_cadence(js0, 95, seed=0, initial_timer=0.0)
-    noise = _jax_noise(jw, js0, 95, 0, 0.0)
+    noise = rollout_grid_noise(jw, js0, 95, 0, 0.0)
     assert len(noise[0]) == 3
     tst, to = tw.rollout_cadence(tw.init(), 95, seed=0, initial_timer=0.0,
                                  noise=noise)
