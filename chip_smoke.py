@@ -196,10 +196,47 @@ against the simulator's pose at the scan:
     the same run bitwise (bf16 maps included) and round-trips bitwise,
     and 60 resumed ticks equal 60 ticks continued in memory.
 
+then the robot I/O (the virtual robot, from ``(-1.0, -1.2, 0)`` in
+``cmd_robot``'s scene, sent ``NeatoOn``, ``SetDownsampling{0}`` and
+``Drive(0.10, 0.12)`` and stepped 15 s at 0.05 s, on the card and on the
+CPU):
+
+39. ``native_build``: ``g++`` builds ``slamrs_tpu_torch/native`` (its
+    time); the native Neato parser bitwise the python path on the card
+    robot's log, the native wire codec bitwise the python drain on a
+    200-message stream cut at 40 random offsets;
+40. ``virtual_robot_card_vs_cpu``: the same message count and kinds,
+    odometry and rpm bitwise, valid masks equal, distances within 1 mm on
+    fewer than 1e-3 of the valid beams;
+41. ``replay_log``: ``python -m slamrs_tpu_torch replay`` on the card
+    robot's log prints one frame fewer than the 75 revolutions written
+    (the last is not closed by an index wrap);
+42. ``app_neato_replay``: ``configs/neato_replay.yaml`` with ``path`` set
+    through the App on the card until the FileLoader is done: one ICP
+    update a frame of the log, K4 ten times an update and no other
+    kernel, the ICP pose within 0.01 m RMSE of the robot's true pose in
+    the first scan's frame (the JAX App gives 0.0017 m on the CPU,
+    0.0166 m at its worst update),
+    its position within 2e-3 m of the same replay on the CPU at every
+    update (the heading difference reported beside it);
+    frames/s, K4 launches a frame, peak memory; then a profiled run
+    (idle share);
+43. ``file_loader_no_host_sync``: 30 frames of a graph holding only the
+    FileLoader under ``torch.cuda.set_sync_debug_mode("error")``;
+44. ``robot_link_card``: ``python -m slamrs_tpu_torch robot`` in its own
+    process, ``configs/neato_grid_slam.yaml`` at full size (dda, 10
+    particles, ``[10, 400, 400]`` f32) connected to it over TCP and
+    driven forward through ``!Controls``: at least 20 ScanOdometry
+    messages and 20 dda updates within 60 s, never more updates than
+    messages, no kernel, finite poses that move more than 0.05 m;
+    ``terminate()`` returns and the robot process ends at ctrl-C;
+    messages/s and the update span.
+
 The ``kernels`` line's entries carry the fleet runs' launches
 (``fleet_launches``), for K1 and K2 their times at the fleet's shapes
 (``fleet_ms``, ``fleet_plain_ms``, ``fleet_bound_ms``), and for K1 and
-K4 the launches of the host-graph runs (``app_launches``).
+K4 the launches of the host-graph runs (``app_launches``), and for K4
+those of the replay (``replay_launches``).
 
 Every kernel's bound is the larger of the bytes it must move at
 3.35 TB/s and its float32 operations at 67 TFLOP/s (the published H100
@@ -2330,16 +2367,18 @@ def check_app_no_host_sync(torch):
         raise AssertionError("app_no_host_sync did not run its ticks")
 
 
-def profile_app(torch, name, frames):
+def profile_app(torch, name, frames, text=None):
     """Device busy time, idle share and launches a frame of a profiled
-    App run of ``frames`` frames."""
+    App run of ``frames`` frames, of ``configs/name`` or of the YAML
+    ``text``."""
     from torch.profiler import ProfilerActivity, profile
 
     from slamrs_tpu_torch.graph.app import App
     from slamrs_tpu_torch.utils import trace
 
     root = Path(__file__).resolve().parent
-    app = App.from_file(str(root / "configs" / name), device="cuda")
+    app = (App.from_yaml(text, device="cuda") if text is not None
+           else App.from_file(str(root / "configs" / name), device="cuda"))
     app.run(frames=3)  # warm
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -2440,6 +2479,422 @@ def check_checkpoint_card(torch, tmp):
           "resumed_60_equal": resumed_equal, "cli_resume_equal": cli_equal})
     if not (saved_equal and round_trip and resumed_equal and cli_equal):
         raise AssertionError("checkpoint_card: a resumed state differs")
+
+
+# the robot I/O: the virtual robot's command script and recording, the
+# replay's and the link's gates
+ROBOT_START = (-1.0, -1.2, 0.0)
+ROBOT_SECONDS = 15.0
+ROBOT_DT = 0.05
+REPLAY_ICP_RMSE_GATE_M = 0.01
+LINK_MIN_MESSAGES = 20
+LINK_WALL_S = 60.0
+
+
+def drive_robot(torch, device):
+    """The port's virtual robot on ``device`` in ``cmd_robot``'s scene,
+    from ``ROBOT_START``: ``NeatoOn``, ``SetDownsampling{0}``,
+    ``Drive(0.10, 0.12)``, stepped ``ROBOT_SECONDS`` at ``ROBOT_DT``.
+    Returns its outbox, the true pose at each ScanFrame, the seconds."""
+    import numpy as np
+
+    from slamrs_tpu_torch.__main__ import ROBOT_LINES, ROBOT_RECTS
+    from slamrs_tpu_torch.io.message import CommandMessage
+    from slamrs_tpu_torch.io.virtual_robot import VirtualRobot
+    from slamrs_tpu_torch.models.simulator import Scene
+
+    robot = VirtualRobot(scene=Scene.build(rects=ROBOT_RECTS,
+                                           lines=ROBOT_LINES),
+                         scanner_range=5.0, device=device)
+    robot.pose = np.array(ROBOT_START)
+    robot.connect()
+    for m in (CommandMessage.neato_on(), CommandMessage.set_downsampling(0),
+              CommandMessage.drive(0.10, 0.12)):
+        robot.handle_command(m)
+    truth = []
+    rev = robot._lidar_rev
+
+    def rev_with_truth():
+        n = len(robot.outbox)
+        rev()
+        if len(robot.outbox) > n:
+            truth.append(robot.pose.copy())
+
+    robot._lidar_rev = rev_with_truth
+    t0 = time.perf_counter()
+    for _ in range(int(round(ROBOT_SECONDS / ROBOT_DT))):
+        robot.step(ROBOT_DT)
+    return list(robot.outbox), np.array(truth), time.perf_counter() - t0
+
+
+def scan_frames(outbox):
+    from slamrs_tpu_torch.io.message import RobotMessage
+
+    return [RobotMessage.decode(raw)[0].scan_frame for raw in outbox
+            if raw[:1] == b"\x00"]
+
+
+def wire_stream(seed, n=200):
+    """``n`` RobotMessages (ScanFrames with random scans, odometry and
+    rpm, and Pongs), a malformed byte after about one in ten."""
+    import numpy as np
+
+    from slamrs_tpu_torch.io.message import RobotMessage, ScanFrame
+
+    rng = np.random.default_rng(seed)
+    parts = []
+    for _ in range(n):
+        if rng.random() < 0.2:
+            parts.append(RobotMessage.pong().encode())
+        else:
+            odo = tuple(float(np.float32(v)) for v in rng.normal(0, .05, 2))
+            parts.append(RobotMessage.from_scan(ScanFrame(
+                rng.integers(0, 256, 1980, np.uint8).tobytes(), odo,
+                int(rng.choice([0, 251, 300, 0xFFFF])))).encode())
+        if rng.random() < 0.1:
+            parts.append(bytes([int(rng.choice([2, 7, 200, 251, 254]))]))
+    return b"".join(parts)
+
+
+def drain_stream(stream, cuts, use_native):
+    """``RobotLink._drain`` over ``stream`` fed in pieces cut at ``cuts``,
+    through the native codec or the python decoder; returns the frames
+    (odometry as its bytes: a resync can read NaNs) and the bytes left."""
+    import struct
+
+    from slamrs_tpu_torch import native
+    from slamrs_tpu_torch.io.connection import RobotLink
+
+    got = []
+    link = RobotLink.__new__(RobotLink)
+    link._buf = bytearray()
+    link.on_scan = lambda s, o, r: got.append((s, struct.pack("<ff", *o),
+                                               r))
+    load = native.wire_native
+    if not use_native:
+        native.wire_native = lambda: None
+    try:
+        for a, b in zip((0, *cuts), (*cuts, len(stream))):
+            link._buf.extend(stream[a:b])
+            link._drain()
+    finally:
+        native.wire_native = load
+    return got, bytes(link._buf)
+
+
+def check_native_build(torch, log):
+    """The g++ build of ``slamrs_tpu_torch/native``; the native Neato
+    parser bitwise the python path on ``log``, the native wire codec
+    bitwise the python drain on a 200-message stream cut at random
+    offsets."""
+    import numpy as np
+
+    from slamrs_tpu_torch import native
+    from slamrs_tpu_torch.io import neato
+
+    t0 = time.perf_counter()
+    native.build(force=True)
+    seconds = time.perf_counter() - t0
+    parser, wire = native.neato_native(), native.wire_native()
+    if parser is None or wire is None:
+        raise AssertionError(f"native library did not build: "
+                             f"{native.build_error}")
+    nat, py = parser.parse_packets(log), neato._parse_packets_py(log)
+    frames_equal = len(nat) == len(py) and all(
+        np.array_equal(getattr(a, k), getattr(b, k))
+        and getattr(a, k).dtype == getattr(b, k).dtype
+        for a, b in zip(nat, py) for k in ("distance", "strength", "valid"))
+    stream = wire_stream(0)
+    rng = np.random.default_rng(1)
+    cuts = sorted(rng.choice(len(stream), 40, replace=False).tolist())
+    wire_nat = drain_stream(stream, cuts, True)
+    wire_py = drain_stream(stream, cuts, False)
+    emit({"phase": "native_build", "seconds": seconds,
+          "library": str(native.LIB.relative_to(Path(__file__)
+                                                .resolve().parent)),
+          "log_frames": len(nat), "parser_equal": frames_equal,
+          "wire_frames": len(wire_nat[0]), "wire_equal": wire_nat == wire_py})
+    if not frames_equal or wire_nat != wire_py or len(wire_nat[0]) < 100:
+        raise AssertionError("native robot I/O differs from the python path")
+
+
+def check_virtual_robot_card_vs_cpu(card, cpu):
+    """The same command script on a card robot and a CPU robot: the same
+    message count and kinds, odometry and rpm bitwise, valid masks equal,
+    distances within 1 mm on fewer than 1e-3 of the valid beams."""
+    import numpy as np
+
+    from slamrs_tpu_torch.io.neato import parse_frame
+
+    (card_out, card_truth, card_s), (cpu_out, cpu_truth, cpu_s) = card, cpu
+    kinds_equal = [m[:1] for m in card_out] == [m[:1] for m in cpu_out]
+    fa, fb = scan_frames(card_out), scan_frames(cpu_out)
+    odo_equal = [(f.odometry, f.rpm) for f in fa] == [(f.odometry, f.rpm)
+                                                      for f in fb]
+    valid_equal, beams, off, worst = True, 0, 0, 0
+    for a, b in zip(fa, fb):
+        pa, pb = parse_frame(a.scan_data), parse_frame(b.scan_data)
+        valid_equal &= bool(np.array_equal(pa.valid, pb.valid))
+        v = pa.valid != 0
+        d = np.abs(pa.distance.astype(int) - pb.distance.astype(int))[v]
+        beams += int(v.sum())
+        off += int((d > 0).sum())
+        worst = max(worst, int(d.max(initial=0)))
+    emit({"phase": "virtual_robot_card_vs_cpu", "messages": len(card_out),
+          "scan_frames": len(fa), "valid_beams": beams,
+          "beams_off_by_1mm": off, "max_mm": worst,
+          "odometry_rpm_bitwise": odo_equal, "valid_equal": valid_equal,
+          "truth_equal": bool(np.array_equal(card_truth, cpu_truth)),
+          "card_seconds": card_s, "cpu_seconds": cpu_s})
+    if not (kinds_equal and len(card_out) == len(cpu_out) and odo_equal
+            and valid_equal and worst <= 1 and off < 1e-3 * beams
+            and len(fa) == int(round(ROBOT_SECONDS / 0.2))):
+        raise AssertionError("virtual robot on the card differs from the "
+                             "CPU beyond the 1 mm gate")
+
+
+def check_replay_log(log_path, revs):
+    """``python -m slamrs_tpu_torch replay`` on the card robot's log: one
+    frame fewer than the revolutions written (the last is not closed)."""
+    root = Path(__file__).resolve().parent
+    proc = subprocess.run([sys.executable, "-m", "slamrs_tpu_torch",
+                           "replay", str(log_path)], cwd=root,
+                          capture_output=True, text=True, timeout=120)
+    if proc.returncode != 0:
+        raise AssertionError(f"replay exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    emit({"phase": "replay_log", "revolutions": revs, **report,
+          "bytes": log_path.stat().st_size})
+    if report["frames"] != revs - 1:
+        raise AssertionError(f"replay gave {report['frames']} frames of "
+                             f"{revs} revolutions")
+
+
+def replay_yaml(log_path) -> str:
+    root = Path(__file__).resolve().parent
+    text = (root / "configs" / "neato_replay.yaml").read_text()
+    if "path: null" not in text:
+        raise AssertionError("neato_replay.yaml has no `path: null`")
+    return text.replace("path: null", f"path: {log_path}")
+
+
+def in_first_frame(truth):
+    """True poses relative to the first, in its frame (x, y)."""
+    import numpy as np
+
+    x0, y0, t0 = truth[0]
+    c, s = np.cos(-t0), np.sin(-t0)
+    dx, dy = truth[:, 0] - x0, truth[:, 1] - y0
+    return np.stack([c * dx - s * dy, s * dx + c * dy], axis=1)
+
+
+def run_replay(torch, text, device):
+    """The replay App on ``device`` until the FileLoader is done and its
+    last scan is mapped, the counts set to 0 just before and read just
+    after.  Returns the node, counts, seconds, frames, poses."""
+    import numpy as np
+
+    from slamrs_tpu_torch.graph.app import App
+    from slamrs_tpu_torch.graph.nodes.robot import FileLoaderNode
+    from slamrs_tpu_torch.graph.nodes.slam import IcpPointMapperNode
+
+    app = App.from_yaml(text, device=device)
+    loader, node = app.node(FileLoaderNode), app.node(IcpPointMapperNode)
+    poses = app.pubsub.subscribe("robot/pose")
+    frames = 0
+    reset_counts()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while not loader.done:
+        app.frame()
+        frames += 1
+    app.run(frames=2)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    return node, counts, seconds, frames + 2, np.array(
+        [m.pose for m in poses.drain()])
+
+
+def check_app_neato_replay(torch, log_path, truth):
+    """``configs/neato_replay.yaml`` with ``path`` set through the App on
+    the card: one ICP update a frame of the log, K4 ten times an update
+    and no other kernel, the ICP pose within 0.01 m RMSE of the robot's
+    true pose in the first scan's frame, and its position within 2e-3 m
+    of the same replay on the CPU at every update (the heading difference
+    is reported: where the ICP solve fails on both, as it does on a few
+    updates of this log in both packages, it is amplified)."""
+    import numpy as np
+
+    from slamrs_tpu_torch.io.neato import load_neato_binary
+
+    text = replay_yaml(log_path)
+    n_frames = len(load_neato_binary(log_path))
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    node, counts, seconds, frames, est = run_replay(torch, text, "cuda")
+    peak = torch.cuda.max_memory_allocated() - held
+    _, _, cpu_s, _, cpu_est = run_replay(torch, text, "cpu")
+    err = est[:, :2] - in_first_frame(truth[:len(est)])
+    rmse = float(np.sqrt((err ** 2).mean()))
+    off = np.sqrt((err ** 2).sum(axis=1))
+    if est.shape != cpu_est.shape:
+        raise AssertionError(f"replay: {len(est)} poses on the card, "
+                             f"{len(cpu_est)} on the CPU")
+    # the gate is on position (m); theta (rad) is reported beside it
+    gap_xy = np.abs(est[:, :2] - cpu_est[:, :2]).max(axis=1)
+    gap_theta = np.abs(est[:, 2] - cpu_est[:, 2])
+    worst = np.argsort(gap_xy)[::-1][:5]
+    gap = float(gap_xy.max())
+    iters = node.map_cfg.iterations
+    emit({"phase": "app_neato_replay", "log_frames": n_frames,
+          "app_frames": frames, "updates": node.updates,
+          "launch_counts": counts,
+          "k4_launches_per_frame": counts["nn_argmin"] / frames,
+          "map_count": int(node.state.count),
+          "icp_pose_rmse_xy_m": rmse,
+          "icp_pose_max_err_m": float(off.max()),
+          "updates_off_by_over_1cm": np.flatnonzero(off > 0.01).tolist(),
+          "card_vs_cpu_max_xy_diff_m": gap,
+          "card_vs_cpu_worst_updates": worst.tolist(),
+          "card_vs_cpu_worst_xy_diff_m": gap_xy[worst].tolist(),
+          "card_vs_cpu_max_theta_diff_rad": float(gap_theta.max()),
+          "card_vs_cpu_theta_argmax": int(gap_theta.argmax()),
+          "seconds": seconds,
+          "frames_per_s": frames / seconds, "cpu_seconds": cpu_s,
+          "peak_above_held_bytes": peak})
+    want = {"fused_update": 0, "fused_update_in_place": 0, "cow_copy": 0,
+            "fused_update_tiled": 0, "nn_argmin": iters * n_frames}
+    if node.updates != n_frames or len(est) != n_frames or counts != want:
+        raise AssertionError(f"replay: {node.updates} updates of "
+                             f"{n_frames} frames, launches {counts}")
+    if not rmse <= REPLAY_ICP_RMSE_GATE_M or not gap <= ICP_CPU_GATE_M:
+        raise AssertionError(f"replay ICP RMSE {rmse} m, card vs CPU {gap}")
+    return counts
+
+
+def check_file_loader_no_host_sync(torch, log_path):
+    """30 frames of a graph holding only the ``!FileLoader``, on the card,
+    under ``torch.cuda.set_sync_debug_mode("error")``."""
+    from slamrs_tpu_torch.graph.app import App
+
+    app = App.from_yaml("nodes:\n- !FileLoader\n  topic_observation: obs\n"
+                        f"  topic_pose: pose\n  path: {log_path}\n",
+                        device="cuda")
+    obs = app.pubsub.subscribe("obs")
+    app.frame()  # warm: the first pinned block, the device constants
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(30):
+            app.frame()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    scans = obs.drain()
+    on_card = all(t.is_cuda for s in scans for t in s)
+    emit({"phase": "file_loader_no_host_sync", "frames": 30,
+          "scans": len(scans), "on_card": on_card})
+    if len(scans) != 31 or not on_card:
+        raise AssertionError(f"file loader published {len(scans)} scans")
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def check_robot_link_card(torch):
+    """``python -m slamrs_tpu_torch robot`` in its own process (its lidar
+    on the card) and ``configs/neato_grid_slam.yaml`` at full size on the
+    card, connected over TCP, driven forward through ``!Controls``: at
+    least 20 ScanOdometry messages and 20 dda updates in at most 60 s,
+    never more updates than messages, no kernel, finite poses that move
+    more than 0.05 m; ``terminate()`` returns and the robot process ends
+    at ctrl-C."""
+    import select
+    import signal
+
+    import numpy as np
+
+    from slamrs_tpu_torch.graph.app import App
+    from slamrs_tpu_torch.graph.nodes.robot import RobotConnectionNode
+    from slamrs_tpu_torch.graph.nodes.slam import GridMapSlamNode
+    from slamrs_tpu_torch.graph.nodes.util import ControlsNode
+
+    root = Path(__file__).resolve().parent
+    port = _free_port()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "slamrs_tpu_torch", "robot", "--host",
+         "127.0.0.1", "--port", str(port)], cwd=root,
+        stderr=subprocess.PIPE, text=True)
+    ended = None
+    try:
+        t0 = time.perf_counter()
+        lines = []
+        while not (lines and "listening" in lines[-1]):
+            left = 120 - (time.perf_counter() - t0)
+            ready = select.select([proc.stderr], [], [], max(left, 0))[0]
+            if not ready or proc.poll() is not None:
+                raise AssertionError(f"robot did not start: {lines}")
+            lines.append(proc.stderr.readline())
+        start_s = time.perf_counter() - t0
+        text = (root / "configs" / "neato_grid_slam.yaml").read_text()
+        text = text.replace('host: "robot"', 'host: "127.0.0.1"').replace(
+            "port: 8080", f"port: {port}")
+        app = App.from_yaml(text, device="cuda")
+        link = app.node(RobotConnectionNode)
+        slam = app.node(GridMapSlamNode)
+        poses = app.pubsub.subscribe("robot/pose")
+        scans = app.pubsub.subscribe("robot/observation_odometry")
+        received = 0
+        reset_counts()
+        with SpanTimes("GridMapSlam::update") as spans:
+            link.connect()
+            app.node(ControlsNode).set_command(0.1, 0.1)
+            t0 = time.perf_counter()
+            while (time.perf_counter() - t0 < LINK_WALL_S
+                   and min(received, slam.updates) < LINK_MIN_MESSAGES):
+                app.frame()
+                received += len(scans.drain())
+                time.sleep(1 / 30)
+            seconds = time.perf_counter() - t0
+            state = link.state
+            t1 = time.perf_counter()
+            app.terminate()
+            terminate_s = time.perf_counter() - t1
+        counts = read_counts()
+        est = np.array([m.pose for m in poses.drain()])
+        proc.send_signal(signal.SIGINT)
+        ended = proc.wait(timeout=30)
+        robot_log = lines + proc.stderr.read().splitlines()[-8:]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        proc.stderr.close()
+    moved = float(np.hypot(*(est[-1, :2] - est[0, :2]))) if len(est) else 0.0
+    emit({"phase": "robot_link_card", "robot_start_s": start_s,
+          "messages": received, "updates": slam.updates,
+          "seconds": seconds, "messages_per_s": received / seconds,
+          "state_while_streaming": state, "launch_counts": counts,
+          "update_span_median_ms": statistics.median(spans.ms)
+          if spans.ms else None, "moved_m": moved,
+          "final_pose": est[-1].tolist() if len(est) else None,
+          "terminate_s": terminate_s, "link_state_after": link.state,
+          "robot_exit_code": ended, "robot_stderr": robot_log})
+    if (received < LINK_MIN_MESSAGES or slam.updates < LINK_MIN_MESSAGES
+            or slam.updates > received or any(counts.values())
+            or not np.isfinite(est).all() or not moved > 0.05
+            or state != "running" or link.state != "idle"
+            or ended is None):
+        raise AssertionError("robot_link_card failed its gates")
 
 
 def _spec(geom):
@@ -2608,6 +3063,23 @@ def main() -> int:
         check_cli_run(torch, tmp)
         check_checkpoint_card(torch, tmp)
 
+    # the robot I/O: the native library, the virtual robot on the card,
+    # replay through the App (K4), and a live link to the robot process
+    with tempfile.TemporaryDirectory() as tmp:
+        card_robot = drive_robot(torch, "cuda")
+        cpu_robot = drive_robot(torch, "cpu")
+        revs = scan_frames(card_robot[0])
+        log_path = Path(tmp) / "robot.bin"
+        log_path.write_bytes(b"".join(f.scan_data for f in revs))
+        check_native_build(torch, log_path.read_bytes())
+        check_virtual_robot_card_vs_cpu(card_robot, cpu_robot)
+        check_replay_log(log_path, len(revs))
+        replay_k4 = check_app_neato_replay(torch, log_path, card_robot[1])
+        check_file_loader_no_host_sync(torch, log_path)
+        profile_app(torch, "neato_replay.yaml", 70,
+                    text=replay_yaml(log_path))
+    check_robot_link_card(torch)
+
     k1_ms, k1_plain, k1_bound, k1_by = times["0.05m"]
     emit({"kernels": [
         {"name": "fused_update", "route": "cuda",
@@ -2637,7 +3109,8 @@ def main() -> int:
          "launches": icp_counts["nn_argmin"], "max_abs_err": nn_err,
          **t4["mapper_1x360x16384_qc10000"],
          "fleet_launches": icp_fleet_counts["nn_argmin"],
-         "app_launches": app_k4["nn_argmin"]}]})
+         "app_launches": app_k4["nn_argmin"],
+         "replay_launches": replay_k4["nn_argmin"]}]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

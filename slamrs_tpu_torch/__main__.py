@@ -4,6 +4,8 @@
              [--png out.png] [--npz out.npz] [--device cuda]
     rollout  <config.yaml> [--steps N] [--worlds W] [--seed S]
              [--save-state s.npz] [--resume s.npz] [--device cuda]
+    robot    [--host H] [--port P] [--cdc] [--device cuda]
+    replay   <file.bin>
 
 ``run`` drives the YAML's node graph (``graph/app.py``) headlessly for
 ``--duration`` seconds of simulated time; ``--teleop`` drives its
@@ -20,8 +22,17 @@ RMSE of its pose against ground truth over every world and scan frame.
 ``python -m slamrs_tpu rollout --save-state``) and ``--save-state``
 writes the final state (``utils/checkpoint.py``).
 
+``robot`` serves a virtual robot (``io/virtual_robot.py``, a model of
+the robot's firmware) in a small walled scene, over TCP or, with
+``--cdc``, over a pty standing for the USB-CDC serial port, so a
+``!RobotConnection`` drives it as it would the robot; its lidar raycast
+runs on ``--device``.  ``replay`` parses a recorded Neato ``.bin`` log
+and prints one JSON line, the frame count and the median count of valid
+beams a frame; it only parses bytes and needs no device.
+
 The device defaults to ``cuda`` and nothing falls back: without CUDA it
-stops with an error, and ``--device cpu`` must be asked for.
+stops with an error, and ``--device cpu`` must be asked for.  The JAX
+package's ``bench`` is not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -118,8 +129,113 @@ def cmd_rollout(args) -> dict:
     return report
 
 
+# cmd_robot's scene: a 4 x 4 m room with a box and a slanted wall
+ROBOT_RECTS = [(-2.0, -2.0, 4.0, 4.0), (-0.1, -0.4, 0.5, 0.1)]
+ROBOT_LINES = [(-0.6, -0.4, 0.2, 0.4)]
+
+
+class _SocketMedium:
+    """The virtual robot's side of a TCP connection: 50 ms reads (``b""``
+    on a timeout, None at the end of the stream), and writes with a 5 s
+    window so a frame is never cut when the host's reader lags."""
+
+    def __init__(self, sock):
+        self.sock = sock
+        sock.settimeout(0.05)
+
+    def read(self, n):
+        import socket
+
+        try:
+            data = self.sock.recv(n)
+        except socket.timeout:
+            return b""
+        return data if data else None
+
+    def write(self, data):
+        self.sock.settimeout(5.0)
+        try:
+            self.sock.sendall(data)
+        finally:
+            self.sock.settimeout(0.05)
+
+    def close(self):
+        self.sock.close()
+
+
+def cmd_robot(args) -> None:
+    import socket
+
+    from slamrs_tpu_torch.io.virtual_robot import (UsbCdcServer,
+                                                   VirtualRobot,
+                                                   VirtualRobotServer)
+    from slamrs_tpu_torch.models.simulator import Scene
+
+    device = _device(args.device)
+    scene = Scene.build(rects=ROBOT_RECTS, lines=ROBOT_LINES, device=device)
+
+    def robot():
+        return VirtualRobot(scene=scene, scanner_range=5.0, device=device)
+
+    if args.cdc:
+        # the host opens the printed path as `serial:` of a !RobotConnection
+        server = UsbCdcServer(robot(), realtime=True)
+        print(f"virtual robot (USB-CDC) at {server.path}", file=sys.stderr,
+              flush=True)
+        try:
+            server._thread.join()
+        except KeyboardInterrupt:
+            pass
+        finally:
+            server.close()
+        return
+    srv = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+    srv.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+    srv.bind((args.host, args.port))
+    srv.listen(1)
+    print(f"virtual robot listening on {args.host}:{args.port}",
+          file=sys.stderr, flush=True)
+    try:
+        while True:
+            conn, addr = srv.accept()
+            print(f"host connected: {addr}", file=sys.stderr, flush=True)
+            server = VirtualRobotServer(robot(), _SocketMedium(conn),
+                                        realtime=True)
+            try:
+                server._thread.join()
+            finally:
+                # unblock a read or a send in flight, so the server thread
+                # ends before the process does
+                try:
+                    conn.shutdown(socket.SHUT_RDWR)
+                except OSError:
+                    pass
+                server.close()
+            print("host disconnected", file=sys.stderr, flush=True)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        srv.close()
+
+
+def cmd_replay(args) -> None:
+    import numpy as np
+
+    from slamrs_tpu_torch.io.neato import load_neato_binary
+
+    frames = load_neato_binary(args.file)
+    valid = np.array([(f.valid != 0).sum() for f in frames])
+    print(json.dumps({
+        "frames": len(frames),
+        "valid_beams_median": int(np.median(valid)) if len(frames) else 0,
+    }))
+
+
 def main(argv=None) -> None:
-    p = argparse.ArgumentParser(prog="slamrs_tpu_torch")
+    p = argparse.ArgumentParser(
+        prog="slamrs_tpu_torch",
+        epilog="The JAX package's bench subcommand is not ported yet "
+               "(ROADMAP.md, Queue 1 item 1).")
     sub = p.add_subparsers(dest="cmd", required=True)
 
     r = sub.add_parser("run", help="run a node-graph config headlessly")
@@ -144,6 +260,21 @@ def main(argv=None) -> None:
     ro.add_argument("--resume", help="resume from a .npz checkpoint")
     ro.add_argument("--device", default="cuda")
     ro.set_defaults(fn=cmd_rollout)
+
+    vr = sub.add_parser("robot", help="serve a virtual robot over TCP "
+                                      "(or a pty with --cdc)")
+    vr.add_argument("--host", default="0.0.0.0")
+    vr.add_argument("--port", type=int, default=8080)
+    vr.add_argument("--cdc", action="store_true",
+                    help="serve over a pty (the USB-CDC bridge, "
+                         "tasks/usb.rs); prints the tty path")
+    vr.add_argument("--device", default="cuda",
+                    help="where the lidar raycast runs")
+    vr.set_defaults(fn=cmd_robot)
+
+    rp = sub.add_parser("replay", help="parse a recorded Neato .bin log")
+    rp.add_argument("file")
+    rp.set_defaults(fn=cmd_replay)
     args = p.parse_args(argv)
     args.fn(args)
 

@@ -12,8 +12,9 @@ ICP mapper's published pose within 1e-4 m; the EKF's within 1e-3 m (the
 reference's own EKF gate: the filter is chaotic in float32).  The
 Controls messages are equal.  Also: the YAML loader refusing an unknown
 tag and an unknown field of each of the 13 tags as the JAX package
-does, the robot-I/O tags raising ``NotImplementedError`` when built,
-``apply_config``, no CPU fallback, and the ``run`` CLI on the CPU.
+does, the robot-I/O presets building as many nodes as the JAX package's
+(no live connection is opened), ``apply_config``, no CPU fallback, and
+the ``run`` CLI on the CPU.
 """
 
 from __future__ import annotations
@@ -194,11 +195,19 @@ def test_unknown_field_raises_as_in_jax(tag):
 
 @pytest.mark.parametrize("name", ["neato", "neato_grid_slam",
                                   "neato_replay"])
-def test_robot_io_presets_raise_not_implemented(name):
+def test_robot_io_presets_instantiate(name):
     cfg = parse_config(_yaml(name))  # the fields parse and are checked
-    assert len(cfg.nodes) == len(jparse(_yaml(name)).nodes)
-    with pytest.raises(NotImplementedError, match="robot I/O"):
-        App(cfg, device="cpu")
+    japp = JApp(jparse(_yaml(name)))
+    app = App(cfg, device="cpu")
+    assert len(app.nodes) == len(cfg.nodes) == len(japp.nodes)
+    assert [type(n).__name__ for n in app.nodes] == \
+        [type(n).__name__ for n in japp.nodes]
+    from slamrs_tpu_torch.graph.nodes.robot import RobotConnectionNode
+
+    link = app.node(RobotConnectionNode)
+    assert link is None or link.state == "idle"  # connect() is explicit
+    app.run(frames=2)
+    app.terminate()
 
 
 def test_apply_config_and_presets():

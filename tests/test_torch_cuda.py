@@ -27,6 +27,9 @@ single-world call; K2 on a flattened fleet plan bitwise, every copy
 inside its world; ``update_fleet`` launching K1 once a call.  Host mode
 (the App): K1 once per SLAM update and K4 ten times per ICP update, and
 an App run on the card against the same on the CPU under injected draws.
+Robot I/O: the FileLoader's Scan on the card, K4 ten times per ICP
+update of a short ``neato_replay.yaml`` replay, and the virtual robot's
+card scans within 1 mm of its CPU scans on fewer than 1e-3 of the beams.
 """
 
 import math
@@ -616,3 +619,94 @@ def test_app_update_matches_cpu(dev):
     np.testing.assert_allclose(truth_card, truth_cpu, atol=1e-5, rtol=0)
     assert card.shape == cpu.shape == (7, 3)
     assert np.sqrt(((card - cpu)[:, :2] ** 2).mean()) <= 0.04
+
+
+ROBOT_RECTS = [(-2.0, -2.0, 4.0, 4.0), (-0.1, -0.4, 0.5, 0.1)]
+ROBOT_LINES = [(-0.6, -0.4, 0.2, 0.4)]
+
+
+def _robot_frames(device, seconds, start=(-1.0, -1.2, 0.0)):
+    """The port's virtual robot on ``device`` in ``cmd_robot``'s scene,
+    driven forward with every revolution sent: its ScanFrames."""
+    import numpy as np
+
+    from slamrs_tpu_torch.io import message as msg
+    from slamrs_tpu_torch.io.virtual_robot import VirtualRobot
+    from slamrs_tpu_torch.models.simulator import Scene
+
+    robot = VirtualRobot(scene=Scene.build(rects=ROBOT_RECTS,
+                                           lines=ROBOT_LINES),
+                         scanner_range=5.0, device=device)
+    robot.pose = np.array(start)
+    robot.connect()
+    for m in (msg.CommandMessage.neato_on(),
+              msg.CommandMessage.set_downsampling(0),
+              msg.CommandMessage.drive(0.10, 0.12)):
+        robot.handle_command(m)
+    for _ in range(int(round(seconds / 0.05))):
+        robot.step(0.05)
+    return [msg.RobotMessage.decode(raw)[0].scan_frame
+            for raw in robot.outbox if raw[:1] == b"\x00"]
+
+
+def test_virtual_robot_card_scan_within_1mm_of_cpu(dev):
+    """The same drive on a card robot and a CPU robot: odometry and rpm
+    bitwise, valid masks equal, distances within 1 mm on fewer than 1e-3
+    of the beams."""
+    import numpy as np
+
+    from slamrs_tpu_torch.io.neato import parse_frame
+
+    card, cpu = _robot_frames(dev, 6.05), _robot_frames("cpu", 6.05)
+    assert len(card) == len(cpu) == 30
+    beams = off = 0
+    for a, b in zip(card, cpu):
+        assert (a.odometry, a.rpm) == (b.odometry, b.rpm)
+        fa, fb = parse_frame(a.scan_data), parse_frame(b.scan_data)
+        assert np.array_equal(fa.valid, fb.valid)
+        d = np.abs(fa.distance.astype(int) - fb.distance.astype(int))
+        assert d.max() <= 1
+        beams += d.size
+        off += int((d > 0).sum())
+    assert off < 1e-3 * beams
+
+
+def _replay_app(dev, tmp_path, seconds):
+    frames = _robot_frames("cpu", seconds)
+    path = tmp_path / "robot.bin"
+    path.write_bytes(b"".join(f.scan_data for f in frames))
+    from slamrs_tpu_torch.graph.app import App
+
+    text = _preset("neato_replay.yaml").replace("path: null",
+                                                f"path: {path}")
+    return App.from_yaml(text, device=dev), len(frames)
+
+
+def test_file_loader_scan_is_on_the_card(dev, tmp_path):
+    from slamrs_tpu_torch.graph.nodes.robot import FileLoaderNode
+
+    app, revs = _replay_app(dev, tmp_path, 2.05)
+    sub = app.pubsub.subscribe("robot/observation")
+    app.frame()
+    scan = sub.latest()
+    assert app.node(FileLoaderNode).frames and revs == 10
+    for t in scan:
+        assert t.device.type == "cuda" and t.shape == (360,)
+    assert scan.valid.dtype == torch.bool
+    assert int(scan.valid.sum()) > 300
+
+
+def test_replay_launches_k4_ten_times_an_update(dev, tmp_path):
+    from slamrs_tpu_torch.graph.nodes.robot import FileLoaderNode
+    from slamrs_tpu_torch.graph.nodes.slam import IcpPointMapperNode
+
+    app, revs = _replay_app(dev, tmp_path, 2.05)
+    loader, node = app.node(FileLoaderNode), app.node(IcpPointMapperNode)
+    icp.nearest_neighbors_fused.launches = 0
+    fused.fused_update.launches = 0
+    while not loader.done:
+        app.frame()
+    app.run(frames=2)
+    assert node.updates == revs - 1 == 9
+    assert icp.nearest_neighbors_fused.launches == 10 * node.updates
+    assert fused.fused_update.launches == 0
