@@ -232,11 +232,50 @@ CPU):
     ``terminate()`` returns and the robot process ends at ctrl-C;
     messages/s and the update span.
 
+then sharded fleets (``slamrs_tpu_torch/parallel``): meshes whose
+every entry is ``cuda:0`` (``make_mesh(n, particle_axis=k,
+devices=[cuda:0] * n)``), each sharded run held against the one-device
+run of the same world under the same seed, its world-ticks/s and own
+peak memory printed beside the one-device run's (``mesh_phases_time``
+says how long the phases took):
+
+45. ``mesh_config5_*``: BASELINE config 5 (256 x 10 at 0.02 m, f32) for
+    300 ticks on 8 x 1 (each world shard's flattened copy on write):
+    bitwise the one-device fleet, K1 once per world shard a frame, K2 at
+    most as often; on 4 x 2 (``"local"``, p_loc 5): RMSE <= 0.15 m, K1
+    once per block a frame, one overflow read per world shard a frame;
+46. ``mesh_headline_*``: 2 worlds x 1,024 particles at 0.05 m (bf16
+    ``[80, 128]``) on 2 x 4: ``"gather"`` for 300 ticks bitwise the
+    one-device fleet, K1 once per block a frame; ``"local"`` after one
+    scan frame the per-world multiset of ``"gather"``, over 300 ticks
+    RMSE <= 0.08 m, its overflow fallbacks counted (p_loc 256, spill
+    cap 8);
+47. ``mesh_config3_tiled_2x1_90``: two config-3 worlds (a 2.35 GB tile
+    pool each) on 2 x 1 for 90 ticks: bitwise the one-device tiled
+    fleet, K3 once per world a frame;
+48. ``mesh_grid_slam_yaml_4x2_300`` (dda, 16 worlds, bitwise, no kernel),
+    ``mesh_icp_test_4x1_300`` and ``mesh_landmarks_4x1_300`` (8 worlds:
+    the RMSE gates of phases 14 and 15; ICP poses within 2e-3 m of the
+    one-device fleet every frame, K4 ten times per world shard a frame;
+    the EKF's gap printed);
+49. ``mesh_dryrun_*``: the JAX package's ``dryrun_multichip(8)`` legs,
+    one step each on an 8-entry mesh: dda (256 particles) and fused (64,
+    bf16, ``"local"``) at 4 worlds on 2 x 4, tiled at config-3 geometry
+    (8 particles) at 8 worlds on 8 x 1; dda and tiled bitwise the
+    one-device step;
+50. ``mesh_checkpoint``: a sharded 16-world config-5 fleet on 4 x 2
+    saves the one-device layout's leaves, loads onto its mesh, and 60
+    resumed ticks equal 60 continued ticks bitwise;
+51. ``mesh_no_host_sync_*``: one update per mesh route under
+    ``torch.cuda.set_sync_debug_mode("error")``, only the local
+    relabel's overflow read (once per world shard) let through.
+
 The ``kernels`` line's entries carry the fleet runs' launches
 (``fleet_launches``), for K1 and K2 their times at the fleet's shapes
 (``fleet_ms``, ``fleet_plain_ms``, ``fleet_bound_ms``), and for K1 and
 K4 the launches of the host-graph runs (``app_launches``), and for K4
-those of the replay (``replay_launches``).
+those of the replay (``replay_launches``), and for each kernel its
+launches on the mesh runs (``mesh_launches``).
 
 Every kernel's bound is the larger of the bytes it must move at
 3.35 TB/s and its float32 operations at 67 TFLOP/s (the published H100
@@ -2133,6 +2172,447 @@ def time_fleet(torch, spec):
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
 
 
+# ---- sharded fleets: (world, particle) meshes of the one card ----------
+
+MESH_HEADLINE_WORLDS = 2
+MESH_CONFIG3_WORLDS, MESH_CONFIG3_TICKS = 2, 90
+MESH_OTHER_WORLDS = 8
+
+
+def cuda_mesh(torch, particle_axis, n=8):
+    """An ``n``-entry mesh whose every entry is ``cuda:0``."""
+    from slamrs_tpu_torch.parallel.fleet import make_mesh
+
+    return make_mesh(n, particle_axis=particle_axis,
+                     devices=[torch.device("cuda", 0)] * n)
+
+
+def on_mesh(fw, mesh):
+    import dataclasses
+
+    return dataclasses.replace(fw, mesh=mesh)
+
+
+def with_grid(fw, **kw):
+    import dataclasses
+
+    return dataclasses.replace(fw, grid_config=dataclasses.replace(
+        fw.grid_config, **kw))
+
+
+class FleetRun:
+    """One fleet rollout: ``rollout_cadence`` from a fresh state (placed
+    on ``fw.mesh`` first when it has one), the counts set to 0 just
+    before and read just after; the final state whole.  ``peak`` is the
+    run's own peak device memory: the most allocated during the rollout
+    less what was allocated before its state was made."""
+
+    def __init__(self, torch, fw, worlds, n_steps, seed=0):
+        from slamrs_tpu_torch.parallel import fleet
+
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        state = fw.init((worlds,))
+        if fw.mesh is not None:
+            state = fleet.shard_world_state(state, fw.mesh, worlds)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        state, self.outs = fw.rollout_cadence(state, n_steps, seed=seed)
+        torch.cuda.synchronize()
+        self.seconds = time.perf_counter() - t0
+        self.counts = read_counts()
+        self.peak = torch.cuda.max_memory_allocated() - base
+        if fw.mesh is not None and fleet.mesh_of(state) != fw.mesh:
+            raise AssertionError("a mesh world's rollout left its mesh")
+        self.state = fleet.unshard_world_state(state)
+        self.frames = int(self.outs.fired.shape[0])
+        self.world_ticks_per_s = worlds * n_steps / self.seconds
+
+    def summary(self):
+        return {"seconds": self.seconds,
+                "world_ticks_per_s": self.world_ticks_per_s,
+                "peak_memory_bytes": self.peak,
+                "launch_counts": self.counts}
+
+
+def same_state(torch, a, b) -> bool:
+    from slamrs_tpu_torch.parallel.fleet import tree_leaves
+
+    return all(torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def same_run(torch, a, b) -> bool:
+    return same_state(torch, a.state, b.state) and same_state(torch, a.outs,
+                                                              b.outs)
+
+
+def fleet_rmse(torch, outs, est="grid_pose"):
+    err = getattr(outs, est)[..., :2].float() - outs.pose[..., :2].float()
+    return float(torch.sqrt((err ** 2).mean()))
+
+
+def same_multiset(torch, a, b) -> bool:
+    """Per world, the same (pose, map) particles in any slot order."""
+    for w in range(a.poses.shape[0]):
+        keys = []
+        for s in (a, b):
+            rows = torch.cat([s.poses[w].float().flatten(1),
+                              s.grids[w].float().flatten(1)], 1).cpu()
+            keys.append(sorted(bytes(r.numpy()) for r in rows))
+        if keys[0] != keys[1]:
+            return False
+    return True
+
+
+class OverflowReads:
+    """Counts the local-first resample's overflow reads (one per world
+    shard a resample, its one host read) and the full-gather fallbacks
+    they took; ``allow_sync`` lets exactly that read run under
+    ``set_sync_debug_mode("error")``."""
+
+    def __init__(self, torch, allow_sync=False):
+        from slamrs_tpu_torch.parallel import resample
+
+        self.torch, self.mod, self.allow = torch, resample, allow_sync
+        self.reads = self.fallbacks = 0
+
+    def __enter__(self):
+        self.orig = self.mod._any_overflow
+
+        def read(overflow):
+            mode = self.torch.cuda.get_sync_debug_mode()
+            if self.allow:
+                self.torch.cuda.set_sync_debug_mode("default")
+            try:
+                hit = self.orig(overflow)
+            finally:
+                self.torch.cuda.set_sync_debug_mode(mode)
+            self.reads += 1
+            self.fallbacks += int(hit)
+            return hit
+
+        self.mod._any_overflow = read
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._any_overflow = self.orig
+        return False
+
+
+def mesh_phase(label, sharded, plain=None, **fields):
+    emit({"phase": f"mesh_{label}", **fields, "sharded": sharded.summary(),
+          "unsharded": plain.summary() if plain is not None else None})
+
+
+def require(ok, what):
+    if not ok:
+        raise AssertionError(what)
+
+
+def check_mesh_config5(torch):
+    """BASELINE config 5 (256 x 10 at 0.02 m, f32) for 300 ticks: on an
+    8 x 1 mesh (each world shard's flattened copy on write) bitwise the
+    one-device fleet, K1 once per world shard a frame, K2 at most as
+    often; on a 4 x 2 mesh (``"local"``, p_loc 5) within the fleet's
+    RMSE gate, K1 once per block a frame, K2 never, one overflow read
+    per world shard a frame.  Returns the two runs' counts."""
+    fw = fleet_world(torch)
+    plain = FleetRun(torch, fw, FLEET_WORLDS, 300)
+    dp = FleetRun(torch, on_mesh(fw, cuda_mesh(torch, 1)), FLEET_WORLDS, 300)
+    equal = same_run(torch, dp, plain)
+    mesh_phase("config5_8x1_300", dp, plain, bitwise_equal=equal,
+               frames=dp.frames)
+    require(equal and dp.counts["fused_update"] == 8 * dp.frames
+            and dp.counts["cow_copy"] <= 8 * dp.frames
+            and dp.counts["fused_update_tiled"] == 0,
+            "config 5 on 8 x 1 differs from the one-device fleet or its "
+            "launch counts are off")
+    with OverflowReads(torch) as ov:
+        local = FleetRun(torch, on_mesh(fw, cuda_mesh(torch, 2)),
+                         FLEET_WORLDS, 300)
+    rmse = fleet_rmse(torch, local.outs)
+    mesh_phase("config5_4x2_local_300", local, plain, frames=local.frames,
+               grid_pose_rmse_xy_m=rmse,
+               unsharded_grid_pose_rmse_xy_m=fleet_rmse(torch, plain.outs),
+               overflow_reads=ov.reads, overflow_fallbacks=ov.fallbacks)
+    require(rmse <= GRID_SLAM_RMSE_GATE_M
+            and local.counts["fused_update"] == 8 * local.frames
+            and local.counts["cow_copy"] == 0
+            and ov.reads == 4 * local.frames,
+            f"config 5 on 4 x 2: RMSE {rmse} m or launch counts off")
+    return dp.counts, local.counts
+
+
+def check_mesh_headline(torch):
+    """2 worlds x 1,024 particles at 0.05 m (bf16 ``[80, 128]``) on a 2 x 4
+    mesh: ``"gather"`` for 300 ticks bitwise the one-device fleet;
+    ``"local"`` after one scan frame the per-world multiset of
+    ``"gather"``, over 300 ticks within the headline's RMSE gate, its
+    overflow fallbacks (p_loc 256 against a spill cap of 8) counted.
+    Returns the gather run's counts."""
+    w = MESH_HEADLINE_WORLDS
+    local_fw = headline_world(torch, 0.05)
+    gather_fw = with_grid(local_fw, fleet_resample="gather")
+    mesh = cuda_mesh(torch, 4)
+    first = [FleetRun(torch, on_mesh(f, mesh), w, 7)
+             for f in (local_fw, gather_fw)]
+    multiset = (first[0].frames == 1 and same_multiset(
+        torch, first[0].state.grid, first[1].state.grid))
+    emit({"phase": "mesh_headline_2x4_local_first_frame",
+          "frames": first[0].frames, "same_multiset_as_gather": multiset})
+    require(multiset, "local and gather hold other particles after the "
+            "first frame")
+    plain = FleetRun(torch, gather_fw, w, 300)
+    gather = FleetRun(torch, on_mesh(gather_fw, mesh), w, 300)
+    equal = same_run(torch, gather, plain)
+    mesh_phase("headline_2x4_gather_300", gather, plain, bitwise_equal=equal,
+               frames=gather.frames)
+    require(equal and gather.counts["fused_update"] == 8 * gather.frames
+            and gather.counts["cow_copy"] == 0,
+            "the headline on 2 x 4 (gather) differs from the one-device "
+            "fleet or its K1 count is off")
+    plain = FleetRun(torch, local_fw, w, 300)  # one device: copy on write
+    with OverflowReads(torch) as ov:
+        local = FleetRun(torch, on_mesh(local_fw, mesh), w, 300)
+    rmse = fleet_rmse(torch, local.outs)
+    mesh_phase("headline_2x4_local_300", local, plain, frames=local.frames,
+               grid_pose_rmse_xy_m=rmse,
+               unsharded_grid_pose_rmse_xy_m=fleet_rmse(torch, plain.outs),
+               overflow_reads=ov.reads, overflow_fallbacks=ov.fallbacks)
+    require(rmse <= RMSE_GATE_M
+            and local.counts["fused_update"] == 8 * local.frames
+            and ov.reads == 2 * local.frames,
+            f"the headline on 2 x 4 (local): RMSE {rmse} m or counts off")
+    return gather.counts
+
+
+def check_mesh_config3(torch):
+    """Two worlds of BASELINE config 3 (tiled: a 2.35 GB pool each) on a
+    2 x 1 mesh for 90 ticks: bitwise the one-device tiled fleet, K3 once
+    per world a frame.  Returns the counts."""
+    fw = config3_world(torch)
+    w = MESH_CONFIG3_WORLDS
+    plain = FleetRun(torch, fw, w, MESH_CONFIG3_TICKS)
+    sharded = FleetRun(torch, on_mesh(fw, cuda_mesh(torch, 1, n=2)), w,
+                       MESH_CONFIG3_TICKS)
+    equal = same_run(torch, sharded, plain)
+    mesh_phase("config3_tiled_2x1_90", sharded, plain, bitwise_equal=equal,
+               frames=sharded.frames,
+               pool=list(sharded.state.grid.grids.shape))
+    require(equal and sharded.state.grid.tile_table is not None
+            and sharded.counts["fused_update_tiled"] == w * sharded.frames
+            and sharded.counts["fused_update"] == 0,
+            "config 3 on 2 x 1 differs from the one-device tiled fleet or "
+            "K3 did not run once per world a frame")
+    del plain
+    return sharded.counts
+
+
+def check_mesh_other_filters(torch):
+    """``grid_slam.yaml`` (dda) at 16 worlds on 4 x 2 for 300 ticks,
+    bitwise the one-device fleet, no kernel; ``icp_test.yaml`` and
+    ``landmarks.yaml`` at 8 worlds on 4 x 1 for 300 ticks against the
+    one-device fleets: ICP poses within 2e-3 m every frame (K4 at ``b =
+    W_loc``, ten launches per world shard a frame) and the RMSE gates
+    of phases 14 and 15 (the EKF's batched products sum in another order
+    at another batch, and its float32 chaos grows the gap, so the gap is
+    printed, as phase 28's fleet check does).  Returns the ICP run's
+    counts."""
+    fw = preset_world(torch, "grid_slam.yaml")
+    plain = FleetRun(torch, fw, 16, 300)
+    sharded = FleetRun(torch, on_mesh(fw, cuda_mesh(torch, 2)), 16, 300)
+    equal = same_run(torch, sharded, plain)
+    mesh_phase("grid_slam_yaml_4x2_300", sharded, plain, bitwise_equal=equal,
+               frames=sharded.frames)
+    require(equal and not any(sharded.counts.values()),
+            "grid_slam.yaml on 4 x 2 differs from the one-device fleet or "
+            "launched a kernel")
+    mesh = cuda_mesh(torch, 1, n=4)
+    icp_counts = None
+    for name, est, gate in (("icp_test.yaml", "icp_pose", ICP_RMSE_GATE_M),
+                            ("landmarks.yaml", "ekf_pose", EKF_RMSE_GATE_M)):
+        fw = preset_world(torch, name)
+        plain = FleetRun(torch, fw, MESH_OTHER_WORLDS, 300)
+        sharded = FleetRun(torch, on_mesh(fw, mesh), MESH_OTHER_WORLDS, 300)
+        gap = float((getattr(sharded.outs, est)[..., :2]
+                     - getattr(plain.outs, est)[..., :2]).abs().max())
+        rmse = fleet_rmse(torch, sharded.outs, est)
+        mesh_phase(f"{name.split('.')[0]}_4x1_300", sharded, plain,
+                   frames=sharded.frames, max_pose_diff_m=gap,
+                   rmse_xy_m=rmse, bitwise_equal=same_run(torch, sharded,
+                                                          plain))
+        require((gap <= ICP_CPU_GATE_M or est != "icp_pose")
+                and rmse <= gate,
+                f"{name} on 4 x 1: {gap} m from the one-device fleet, RMSE "
+                f"{rmse} m")
+        if est == "icp_pose":
+            icp_counts = sharded.counts
+            require(sharded.counts["nn_argmin"]
+                    == 4 * fw.icp_config.iterations * sharded.frames,
+                    "the ICP fleet on 4 x 1 did not launch K4 once an "
+                    "iteration per world shard")
+    return icp_counts
+
+
+def flagship(torch, particles, width, integrate, mesh, **kw):
+    """``__graft_entry__._flagship``: the fused world at ``width`` m, 0.05 m
+    cells, 360 beams, a scan every tick."""
+    from slamrs_tpu_torch.graph.compile import make_fused
+    from slamrs_tpu_torch.models.gridslam import GridSlamConfig
+    from slamrs_tpu_torch.models.simulator import SimParams
+
+    cfg = GridSlamConfig(position_x=-width / 2, position_y=-width / 2,
+                         width=width, height=width, resolution=0.05,
+                         n_particles=particles, max_scan_range=1.0,
+                         resample_neff_frac=1.0, integrate=integrate, **kw)
+    return make_fused(params=SimParams.make(update_period=0.0),
+                      grid_config=cfg, num_beams=360, mesh=mesh,
+                      device=mesh.first_device)
+
+
+def check_mesh_dryrun_legs(torch):
+    """The JAX package's ``dryrun_multichip(8)`` legs
+    (``__graft_entry__.py:86-199``) on an 8-entry mesh of the card, one
+    step each: dda (256 particles, 4 x 4 m) and fused (64, bf16, the
+    local relabel) at 4 worlds on 2 x 4, tiled at config-3 geometry (8
+    particles, 50 x 50 m) at 8 worlds on 8 x 1.  Gates: the scan fires,
+    poses ``[W, 3]``, the maps on all 8 blocks (tiled: one pool per
+    world shard, tables present), finite n_eff; the dda and tiled steps
+    bitwise the one-device step."""
+    from slamrs_tpu_torch.core.types import Command
+    from slamrs_tpu_torch.parallel import fleet
+
+    mesh24, mesh81 = cuda_mesh(torch, 4), cuda_mesh(torch, 1)
+    legs = {"dda": (flagship(torch, 256, 4.0, "dda", mesh24), 4),
+            "fused": (flagship(torch, 64, 4.0, "fused", mesh24,
+                               grid_dtype="bfloat16"), 4),
+            "tiled": (flagship(torch, 8, 50.0, "fused", mesh81,
+                               grid_dtype="bfloat16", resample_cow="tiled"),
+                      8)}
+    cmd = Command(torch.tensor(0.05, device="cuda"),
+                  torch.tensor(0.08, device="cuda"))
+    out = {}
+    for name, (fw, w) in legs.items():
+        reset_counts()
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        state, row = fw.step(fw.init((w,)), cmd, generator=gen)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        grid = state.grid
+        blocks = sum(len(r) for r in grid.grids.blocks)
+        ok = (row.fired and tuple(state.pose.shape) == (w, 3)
+              and blocks == 8
+              and (grid.tile_table is not None) == (name == "tiled")
+              and bool(torch.isfinite(row.n_eff).all()))
+        equal = None
+        if name != "fused":
+            plain = on_mesh(fw, None)
+            p_state, p_row = plain.step(
+                plain.init((w,)), cmd,
+                generator=torch.Generator(device="cuda").manual_seed(0))
+            equal = (same_state(torch, fleet.unshard_world_state(state),
+                                p_state)
+                     and torch.equal(row.grid_pose, p_row.grid_pose))
+            ok = ok and equal
+        out[name] = [float(x) for x in row.n_eff]
+        emit({"phase": f"mesh_dryrun_{name}", "worlds": w,
+              "mesh": fleet.mesh_of(state).shape, "grid_blocks": blocks,
+              "launch_counts": counts, "n_eff": out[name],
+              "bitwise_equal_unsharded": equal, "ok": ok})
+        require(ok, f"the dryrun leg {name} failed")
+    return out
+
+
+def check_mesh_checkpoint(torch, tmp):
+    """A sharded config-5 fleet (16 worlds, 4 x 2, ``"local"``) after 30
+    ticks: saved in the one-device layout (the leaves of saving its
+    unsharded state), loaded onto its template's mesh, and 60 resumed
+    ticks bitwise 60 ticks continued in memory."""
+    import numpy as np
+
+    from slamrs_tpu_torch.parallel import fleet
+    from slamrs_tpu_torch.utils import checkpoint
+
+    mesh = cuda_mesh(torch, 2)
+    fw = on_mesh(fleet_world(torch), mesh)
+    state, _ = fw.rollout_cadence(fw.init((16,)), 30, seed=1)
+    sharded, whole = Path(tmp) / "sharded.npz", Path(tmp) / "whole.npz"
+    checkpoint.save(str(sharded), state)
+    checkpoint.save(str(whole), fleet.unshard_world_state(state))
+    with np.load(sharded) as a, np.load(whole) as b:
+        same_file = a.files == b.files and all(
+            a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k])
+            for k in a.files)
+    loaded = checkpoint.load(str(sharded), fleet.shard_world_state(
+        fw.init((16,)), mesh, 16))
+    on_its_mesh = fleet.mesh_of(loaded) == mesh
+    resumed, r_outs = fw.rollout_cadence(loaded, 60, seed=2)
+    kept, k_outs = fw.rollout_cadence(state, 60, seed=2)
+    equal = (same_state(torch, fleet.unshard_world_state(resumed),
+                        fleet.unshard_world_state(kept))
+             and same_state(torch, r_outs, k_outs))
+    emit({"phase": "mesh_checkpoint", "bytes": sharded.stat().st_size,
+          "same_leaves_as_unsharded_save": same_file,
+          "loaded_on_the_mesh": on_its_mesh, "resumed_equals_continued":
+          equal})
+    require(same_file and on_its_mesh and equal,
+            "the sharded checkpoint does not round-trip")
+
+
+def check_mesh_no_host_sync(torch):
+    """One update per mesh route under ``set_sync_debug_mode("error")``:
+    config 5 on 8 x 1 (copy on write per world shard), the headline's 2
+    worlds on 2 x 4 (``"gather"`` and ``"local"``: only the overflow
+    read, once per world shard, is let through), a tiled fleet on 2 x 1
+    and ``grid_slam.yaml`` (dda) at 16 worlds on 4 x 2."""
+    from slamrs_tpu_torch.core.types import OdometryReading
+    from slamrs_tpu_torch.models import gridslam as gs
+    from slamrs_tpu_torch.models.simulator import lidar_scan
+    from slamrs_tpu_torch.parallel import fleet
+
+    headline = headline_world(torch, 0.05)
+    tiled = fleet_world(torch, position_x=-3.2, position_y=-6.4, width=6.4,
+                        height=12.8, resolution=0.05, n_particles=64,
+                        grid_dtype="bfloat16", resample_cow="tiled")
+    routes = {"config5_8x1": (fleet_world(torch), FLEET_WORLDS, 1, 8),
+              "headline_2x4_gather": (with_grid(headline,
+                                                fleet_resample="gather"),
+                                      2, 4, 8),
+              "headline_2x4_local": (headline, 2, 4, 8),
+              "tiled_2x1": (tiled, 2, 1, 2),
+              "grid_slam_yaml_4x2": (preset_world(torch, "grid_slam.yaml"),
+                                     16, 2, 8)}
+    for label, (fw, w, axis, n) in routes.items():
+        mesh = cuda_mesh(torch, axis, n)
+        st = fleet.shard_world_state(fw.init((w,)), mesh, w).grid
+        pose = torch.zeros(w, 3, device="cuda")
+        pose[:, 0] = torch.linspace(-0.5, 0.5, w, device="cuda")
+        scan = lidar_scan(pose, fw.scene, 1.0, fw.num_beams)
+        odo = OdometryReading(torch.full((w,), 0.01, device="cuda"),
+                              torch.full((w,), 0.012, device="cuda"),
+                              fw.params.wheel_base)
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        torch.cuda.synchronize()
+        with OverflowReads(torch, allow_sync=True) as ov:
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                st, out = gs.update_fleet(st, scan, odo, fw.grid_config,
+                                          generator=gen)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        want_reads = 2 if label == "headline_2x4_local" else 0
+        emit({"phase": f"mesh_no_host_sync_{label}", "ok": True,
+              "overflow_reads": ov.reads,
+              "pose_finite": bool(torch.isfinite(out.pose).all())})
+        require(ov.reads == want_reads and bool(
+            torch.isfinite(out.pose).all()),
+            f"{label}: {ov.reads} overflow reads, expected {want_reads}")
+
+
 # ---- the host graph: App, its nodes and the CLI ------------------------
 
 # preset -> (its SLAM node's class, the topic that node publishes its pose on)
@@ -3080,6 +3560,18 @@ def main() -> int:
                     text=replay_yaml(log_path))
     check_robot_link_card(torch)
 
+    # sharded fleets: (world, particle) meshes whose entries are the card
+    t0 = time.perf_counter()
+    c5_dp_counts, c5_local_counts = check_mesh_config5(torch)
+    headline_mesh_counts = check_mesh_headline(torch)
+    c3_mesh_counts = check_mesh_config3(torch)
+    icp_mesh_counts = check_mesh_other_filters(torch)
+    check_mesh_dryrun_legs(torch)
+    with tempfile.TemporaryDirectory() as tmp:
+        check_mesh_checkpoint(torch, tmp)
+    check_mesh_no_host_sync(torch)
+    emit({"phase": "mesh_phases_time", "seconds": time.perf_counter() - t0})
+
     k1_ms, k1_plain, k1_bound, k1_by = times["0.05m"]
     emit({"kernels": [
         {"name": "fused_update", "route": "cuda",
@@ -3090,19 +3582,27 @@ def main() -> int:
          "bound_by": k1_by, "library_ms": None,
          "fleet_launches": fleet_counts["fused_update"],
          **{f"fleet_{k}": v for k, v in t_fleet.items()},
-         "app_launches": app_k1["fused_update"]},
+         "app_launches": app_k1["fused_update"],
+         "mesh_launches": {
+             "config5_8x1_300": c5_dp_counts["fused_update"],
+             "config5_4x2_local_300": c5_local_counts["fused_update"],
+             "headline_2x4_gather_300":
+             headline_mesh_counts["fused_update"]}},
         {"name": "cow_copy", "route": "cuda",
          "source": "slamrs_tpu_torch/csrc/cow_copy.cu",
          "replaces": "slamrs_tpu/ops/cow.py:187",
          "launches": cow_counts["cow_copy"], "max_abs_err": cow_err,
          **t3["cow_copy"], "fleet_launches": fleet_counts["cow_copy"],
-         **{f"fleet_{k}": v for k, v in cow_fleet.items()}},
+         **{f"fleet_{k}": v for k, v in cow_fleet.items()},
+         "mesh_launches": {"config5_8x1_300": c5_dp_counts["cow_copy"]}},
         {"name": "fused_update_tiled", "route": "cuda",
          "source": "slamrs_tpu_torch/csrc/fused_update_tiled.cu",
          "replaces": "slamrs_tpu/ops/tiles.py:533",
          "launches": tiled_counts["fused_update_tiled"],
          "max_abs_err": tiled_err, **t3["fused_update_tiled"],
-         "fleet_launches": tiled_fleet_counts["fused_update_tiled"]},
+         "fleet_launches": tiled_fleet_counts["fused_update_tiled"],
+         "mesh_launches": {"config3_tiled_2x1_90":
+                           c3_mesh_counts["fused_update_tiled"]}},
         {"name": "nn_argmin", "route": "cuda",
          "source": "slamrs_tpu_torch/csrc/nn_argmin.cu",
          "replaces": "slamrs_tpu/ops/icp.py:111",
@@ -3110,7 +3610,9 @@ def main() -> int:
          **t4["mapper_1x360x16384_qc10000"],
          "fleet_launches": icp_fleet_counts["nn_argmin"],
          "app_launches": app_k4["nn_argmin"],
-         "replay_launches": replay_k4["nn_argmin"]}]})
+         "replay_launches": replay_k4["nn_argmin"],
+         "mesh_launches": {"icp_test_4x1_300": icp_mesh_counts["nn_argmin"]}}
+    ]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -12,6 +12,7 @@ SLAM.  The layout mirrors it so each module has an obvious counterpart:
   point mapper and the EKF;
 * ``graph/``   the YAML loader, the fused world (rollouts) and the host
   node graph (pub/sub, the nodes, ``App``);
+* ``parallel/`` fleets sharded over a ``(world, particle)`` device mesh;
 * ``utils/``, ``viz/``, ``io/``  timing and spans, checkpoints, the shape
   renderer and framebuffer, keyboard teleop;
 * ``kernels/`` build and load of the hand-written CUDA kernels in ``csrc/``.

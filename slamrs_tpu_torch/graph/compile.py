@@ -29,6 +29,17 @@ scan tick draws, from the one generator and in this order: grid SLAM's
 ``landmark_noise=`` arguments take the same shapes behind a leading
 frame axis.  Grid SLAM runs through ``update_fleet`` (one fused kernel
 launch for the fleet); ICP and the EKF take the worlds as a batch axis.
+
+Sharded fleets (``mesh``, ``parallel/``): :meth:`FusedWorld.step`,
+:meth:`~FusedWorld.rollout` and :meth:`~FusedWorld.rollout_cadence`
+take a state placed by ``parallel.shard_world_state`` (a FusedWorld with
+a mesh places a one-device state on it first).  Each world shard's
+simulator, raycast, ICP (K4 at ``b = W_loc``) and EKF run on its row's
+first device; grid SLAM goes through ``update_fleet`` on the mesh.  The
+draws are made once per frame at the full ``[W, P]`` (and ``[W, L]``)
+from the one generator, on the mesh's first device, in the order above,
+then sliced to the shards: a seed draws what it draws unsharded.  The
+outputs are whole, on the mesh's first device.
 """
 
 from __future__ import annotations
@@ -52,6 +63,7 @@ from slamrs_tpu_torch.models import ekf as ekf_model
 from slamrs_tpu_torch.models import gridslam as gs_model
 from slamrs_tpu_torch.models import icp_mapper as icp_model
 from slamrs_tpu_torch.models import simulator as sim_model
+from slamrs_tpu_torch.parallel import fleet as pf
 
 Tensor = torch.Tensor
 
@@ -121,6 +133,9 @@ class FusedWorld:
     num_beams: int = 360
     icp_config: Optional[icp_model.IcpMapConfig] = None
     ekf_config: Optional[ekf_model.EkfConfig] = None
+    # a (world, particle) device mesh (parallel/fleet.Mesh) that fleet
+    # states run sharded on; None runs a state where it lies
+    mesh: Optional[pf.Mesh] = None
 
     def init(self, worlds: tuple[int, ...] = ()) -> WorldState:
         """A fresh state; ``worlds=(W,)`` gives a fleet of W worlds."""
@@ -145,6 +160,10 @@ class FusedWorld:
         advanced): the lidar feeds grid SLAM, then the ICP mapper; the
         landmark sensor feeds the EKF.  Returns the filters' new states
         and ``(grid_pose, icp_pose, ekf_pose, n_eff)``."""
+        mesh = pf.mesh_of(state)
+        if mesh is not None:
+            return self._scan_update_sharded(state, mesh, generator, noise,
+                                             landmark_noise)
         odometry = OdometryReading(state.accum_left, state.accum_right,
                                    self.params.wheel_base)
         grid, icp, ekf = state.grid, state.icp, state.ekf
@@ -172,6 +191,87 @@ class FusedWorld:
             ekf_pose = eout.pose
         return grid, icp, ekf, (grid_pose, icp_pose, ekf_pose, n_eff)
 
+    def _scan_update_sharded(self, state: WorldState, mesh, generator,
+                             noise, landmark_noise):
+        """:meth:`_scan_update` of a sharded state: each world shard's
+        lidar scan, ICP and EKF on its row's first device, grid SLAM
+        through ``update_fleet`` on the mesh, the landmark draws whole on
+        the mesh's first device (after grid SLAM's, in
+        ``update_fleet``)."""
+        n_rows = mesh.devices.shape[0]
+        dev0 = mesh.first_device
+        poses = [state.pose.row(r) for r in range(n_rows)]
+        grid, icp, ekf = state.grid, state.icp, state.ekf
+        grid_pose = icp_pose = ekf_pose = n_eff = None
+
+        def whole(rows):
+            return torch.cat([x.to(dev0, non_blocking=True) for x in rows])
+
+        def sharded(rows):
+            return pf.from_rows(mesh, rows,
+                                pf.tree_map(lambda _: pf.WORLD, rows[0]))
+
+        if grid is not None or icp is not None:
+            scans = [sim_model.lidar_scan(pose, self._scene_on(pose.device),
+                                          self.params.scanner_range,
+                                          self.num_beams)
+                     for pose in poses]
+        if grid is not None:
+            grid, gout = gs_model.update_fleet(
+                grid, sharded(scans),
+                OdometryReading(state.accum_left, state.accum_right,
+                                self.params.wheel_base),
+                self.grid_config, generator=generator, noise=noise)
+            grid_pose, n_eff = gout.pose, gout.n_eff
+        if icp is not None:
+            done = [icp_model.update(pf.rows_of(icp, r), scans[r],
+                                     self.icp_config)
+                    for r in range(n_rows)]
+            icp = sharded([st for st, _ in done])
+            icp_pose = whole([out.pose for _, out in done])
+        if ekf is not None:
+            if landmark_noise is None:  # landmark_scan's draws, whole
+                shape = (state.pose.shape[0],
+                         self.scene.landmarks.shape[-2])
+                landmark_noise = tuple(
+                    torch.randn(shape, generator=generator, device=dev0)
+                    for _ in range(2))
+            done = []
+            for r in range(n_rows):
+                landmarks = sim_model.landmark_scan(
+                    poses[r], self._scene_on(poses[r].device), self.params,
+                    noise_a=pf.world_part(landmark_noise[0], mesh, r),
+                    noise_d=pf.world_part(landmark_noise[1], mesh, r))
+                odometry = OdometryReading(state.accum_left.row(r),
+                                           state.accum_right.row(r),
+                                           self.params.wheel_base)
+                done.append(ekf_model.update(pf.rows_of(ekf, r), landmarks,
+                                             odometry, self.ekf_config))
+            ekf = sharded([st for st, _ in done])
+            ekf_pose = whole([out.pose for _, out in done])
+        return grid, icp, ekf, (grid_pose, icp_pose, ekf_pose, n_eff)
+
+    def _scene_on(self, device) -> sim_model.Scene:
+        if device == self.scene.segments.device:
+            return self.scene
+        return sim_model.Scene(*(x.to(device) for x in self.scene))
+
+    def _placed(self, state: WorldState):
+        """``(state, mesh)``: the state on the mesh it runs on (this
+        world's mesh places a one-device fleet on it), or on one
+        device with ``mesh`` None."""
+        mesh = pf.mesh_of(state)
+        if self.mesh is None or mesh == self.mesh:
+            return state, mesh
+        if mesh is not None:
+            raise ValueError("the state lies on another mesh than the "
+                             "FusedWorld's")
+        return (pf.shard_world_state(state, self.mesh, state.pose.shape[0]),
+                self.mesh)
+
+    def _out_device(self, mesh):
+        return self.device if mesh is None else mesh.first_device
+
     def step(self, state: WorldState, cmd: Command,
              generator: torch.Generator | None = None,
              force_fire: bool = False,
@@ -183,34 +283,44 @@ class FusedWorld:
         ``landmark_noise`` (``(noise_a, noise_d)``) replace the
         generator's draws for grid SLAM and the landmark sensor.  Returns
         ``(state, row)`` with ``row`` the tick's ``(fired, pose,
-        grid_pose, icp_pose, ekf_pose, n_eff)``."""
-        pose, accum_l, accum_r, timer, fired = sim_model.advance(
-            state.pose, state.accum_left, state.accum_right,
-            state.scan_timer, cmd, self.params, self.dt)
+        grid_pose, icp_pose, ekf_pose, n_eff)``.  A sharded state (see the
+        module docstring) stays sharded; the row's tensors are whole."""
+        state, mesh = self._placed(state)
+        moved = []
+        for pose, al, ar in _sim_rows(state, mesh):
+            dev = pose.device
+            pose, al, ar, timer, fired = sim_model.advance(
+                pose, al, ar, state.scan_timer,
+                Command(*(c.to(dev, non_blocking=True)
+                          if isinstance(c, Tensor) else c for c in cmd)),
+                self.params, self.dt)
+            moved.append((pose, al, ar))
         fired = fired or force_fire or self.params.update_period == 0.0
 
+        pose, accum_l, accum_r = (_join(mesh, rows) for rows in zip(*moved))
         state = state._replace(pose=pose, accum_left=accum_l,
                                accum_right=accum_r)
         grid, icp, ekf = state.grid, state.icp, state.ekf
         if fired:
             grid, icp, ekf, (grid_pose, icp_pose, ekf_pose, n_eff) = \
                 self._scan_update(state, generator, noise, landmark_noise)
-            accum_l = torch.zeros_like(accum_l)
-            accum_r = torch.zeros_like(accum_r)
+            accum_l = _join(mesh, [torch.zeros_like(a) for _, a, _ in moved])
+            accum_r = _join(mesh, [torch.zeros_like(a) for _, _, a in moved])
         else:  # carry each filter's previous estimate
-            grid_pose = grid.best_pose if grid is not None else None
-            icp_pose = icp.pose if icp is not None else None
-            ekf_pose = ekf.mean[..., 0:3] if ekf is not None else None
+            grid_pose = _whole(grid.best_pose) if grid is not None else None
+            icp_pose = _whole(icp.pose) if icp is not None else None
+            ekf_pose = (_whole(ekf.mean)[..., 0:3] if ekf is not None
+                        else None)
             n_eff = None
         if n_eff is None:
             n_eff = torch.zeros(pose.shape[:-1], dtype=torch.float32,
-                                device=self.device)
+                                device=self._out_device(mesh))
         new_state = WorldState(pose=pose, accum_left=accum_l,
                                accum_right=accum_r, scan_timer=timer,
                                scan_counter=state.scan_counter + int(fired),
                                grid=grid, icp=icp, ekf=ekf)
-        return new_state, _Row(fired, pose, grid_pose, icp_pose, ekf_pose,
-                               n_eff)
+        return new_state, _Row(fired, _whole(pose), grid_pose, icp_pose,
+                               ekf_pose, n_eff)
 
     def commands_for(self, n_steps: int) -> Command:
         """The Controls script as per-tick f32 speed tensors: row
@@ -230,8 +340,8 @@ class FusedWorld:
         return Command(torch.from_numpy(left).to(self.device),
                        torch.from_numpy(right).to(self.device))
 
-    def _generator(self, seed: int) -> torch.Generator:
-        gen = torch.Generator(device=self.device)
+    def _generator(self, seed: int, mesh) -> torch.Generator:
+        gen = torch.Generator(device=self._out_device(mesh))
         gen.manual_seed(seed)
         return gen
 
@@ -245,7 +355,8 @@ class FusedWorld:
         landmark draws."""
         if commands is None:
             commands = self.commands_for(n_steps)
-        gen = self._generator(seed)
+        state, mesh = self._placed(state)
+        gen = self._generator(seed, mesh)
         rows = []
         frame = 0
         for i in range(n_steps):
@@ -258,7 +369,7 @@ class FusedWorld:
                 generator=gen, landmark_noise=draws)
             frame += int(row.fired)
             rows.append(row)
-        return state, _stack_outputs(rows, self.device)
+        return state, _stack_outputs(rows, self._out_device(mesh))
 
     def _frame_draws(self, draws, f: int):
         """Frame ``f`` of per-frame numpy draws, as tensors (None stays)."""
@@ -297,19 +408,15 @@ class FusedWorld:
         if fire_idx.size == 0:
             return self.rollout(state, n_steps, seed, commands)
 
-        gen = self._generator(seed)
+        state, mesh = self._placed(state)
+        gen = self._generator(seed, mesh)
         sl_all = commands.speed_left * float(dt)
         sr_all = commands.speed_right * float(dt)
-        wb = self.params.wheel_base
         rows = []
         start = 0
         for f, e in enumerate(fire_idx):
-            pose, al, ar = state.pose, state.accum_left, state.accum_right
-            for i in range(start, e):
-                pose = motion.integrate_exact(pose, sl_all[i], sr_all[i], wb)
-                al, ar = al + sl_all[i], ar + sr_all[i]
-            state = state._replace(pose=pose, accum_left=al, accum_right=ar,
-                                   scan_timer=float(period))
+            state = self._idle(state, mesh, sl_all, sr_all, start, e)
+            state = state._replace(scan_timer=float(period))
             frame_noise = None if noise is None else gs_model.UpdateNoise(
                 *self._frame_draws(noise, f))
             state, row = self.step(
@@ -319,13 +426,47 @@ class FusedWorld:
             rows.append(row)
             start = e + 1
 
-        pose, al, ar = state.pose, state.accum_left, state.accum_right
-        for i in range(start, n_steps):  # idle ticks after the last scan
-            pose = motion.integrate_exact(pose, sl_all[i], sr_all[i], wb)
-            al, ar = al + sl_all[i], ar + sr_all[i]
-        state = state._replace(pose=pose, accum_left=al, accum_right=ar,
-                               scan_timer=float(timer))
-        return state, _stack_outputs(rows, self.device)
+        # idle ticks after the last scan
+        state = self._idle(state, mesh, sl_all, sr_all, start, n_steps)
+        state = state._replace(scan_timer=float(timer))
+        return state, _stack_outputs(rows, self._out_device(mesh))
+
+    def _idle(self, state: WorldState, mesh, sl_all: Tensor, sr_all: Tensor,
+              start: int, stop: int) -> WorldState:
+        """Ticks ``[start, stop)`` of motion only (wheel travel ``sl_all``,
+        ``sr_all`` a tick), on each world shard's device."""
+        wb = self.params.wheel_base
+        moved = []
+        for pose, al, ar in _sim_rows(state, mesh):
+            sl = sl_all.to(pose.device, non_blocking=True)
+            sr = sr_all.to(pose.device, non_blocking=True)
+            for i in range(start, stop):
+                pose = motion.integrate_exact(pose, sl[i], sr[i], wb)
+                al, ar = al + sl[i], ar + sr[i]
+            moved.append((pose, al, ar))
+        pose, al, ar = (_join(mesh, rows) for rows in zip(*moved))
+        return state._replace(pose=pose, accum_left=al, accum_right=ar)
+
+
+def _sim_rows(state: WorldState, mesh) -> list:
+    """``(pose, accum_left, accum_right)`` of each world shard (one row
+    for a one-device state)."""
+    if mesh is None:
+        return [(state.pose, state.accum_left, state.accum_right)]
+    return [(state.pose.row(r), state.accum_left.row(r),
+             state.accum_right.row(r))
+            for r in range(mesh.devices.shape[0])]
+
+
+def _join(mesh, rows: list):
+    """The inverse of :func:`_sim_rows` for one field."""
+    if mesh is None:
+        return rows[0]
+    return pf.Sharded(mesh, pf.WORLD, [[x] for x in rows])
+
+
+def _whole(x):
+    return x.full() if isinstance(x, pf.Sharded) else x
 
 
 def make_fused(scene: Optional[sim_model.Scene] = None,
@@ -335,15 +476,19 @@ def make_fused(scene: Optional[sim_model.Scene] = None,
                ekf_config: Optional[ekf_model.EkfConfig] = None,
                control_script: Optional[list] = None,
                num_beams: int = 360, dt: float = sim_model.DEFAULT_DT,
-               *, device) -> FusedWorld:
+               mesh: Optional[pf.Mesh] = None, *, device) -> FusedWorld:
     """Programmatic FusedWorld builder (benchmarks, entry points).  The
     default scene is the JAX package's: three rectangles, a line and
-    seven landmarks.
+    seven landmarks.  With ``mesh``, fleets run sharded over it, and
+    ``device`` must be its first device.
 
     Gives a fused grid config the simulator's static 1-degree beam
     spacing, which selects the static bin-units pipeline of the kernel.
     """
     device = torch.device(device)
+    if mesh is not None and pf.canonical_device(device) != mesh.first_device:
+        raise ValueError(f"make_fused: device {device} is not the mesh's "
+                         f"first device {mesh.first_device}")
     if scene is None:
         scene = sim_model.Scene.build(
             rects=[(-1.0, -1.0, 2.0, 2.0), (-0.1, -0.4, 0.5, 0.1),
@@ -362,7 +507,8 @@ def make_fused(scene: Optional[sim_model.Scene] = None,
                       grid_config=grid_config,
                       control_script=control_script or [[1e9, 0.05, 0.08]],
                       device=device, num_beams=num_beams,
-                      icp_config=icp_config, ekf_config=ekf_config)
+                      icp_config=icp_config, ekf_config=ekf_config,
+                      mesh=mesh)
 
 
 def _scan_topic_aliases(config: Config, source_topic: Optional[str],

@@ -53,8 +53,17 @@ maps (block-diagonal ancestors, world ``w``'s offset by ``w*P``), or by
 the whole-set gather or the deferred lineage where the config asks for
 the JAX package's slot-exact fallback; the dda and dense integrators run
 as one batched call over ``W*P`` particles; tiled pools run the tiled
-update once per world, as the JAX package does.  The device mesh
-(sharded fleets) is not ported.
+update once per world, as the JAX package does.
+
+Sharded fleets (``update_fleet(mesh=...)``, ``parallel/``): a fleet cut
+over a ``(world, particle)`` mesh, routed as the JAX package's
+``update_fleet(mesh=)``.  On a mesh over worlds only, each world shard
+runs the one-device fleet update on its own worlds (the flattened copy
+on write, or the tiled loop); otherwise every mesh block samples its
+particles and runs K1 (or the dda or dense update) on its own maps, each
+world shard weighs and selects its worlds on its first device, and the
+maps move by the local-first relabel (``fleet_resample="local"``,
+``parallel/resample.py``) or the slot-exact gather.
 """
 
 from __future__ import annotations
@@ -75,6 +84,9 @@ from slamrs_tpu_torch.ops.grid import (GridSpec2D, dense_window_for,
                                        grid_log_likelihood)
 from slamrs_tpu_torch.ops.tiles import (fused_update_tiled, init_tiled,
                                         materialize_one)
+from slamrs_tpu_torch.parallel import fleet as pf
+from slamrs_tpu_torch.parallel.resample import gather_row, resample_fleet
+from slamrs_tpu_torch.parallel.shard import fused_update_batched
 
 Tensor = torch.Tensor
 
@@ -92,8 +104,10 @@ class GridSlamConfig:
     here, but it still selects the resample mechanism and so the slot
     order (:func:`resample_mechanism`).  ``fleet_resample`` applies to
     batched worlds (:func:`update_fleet`): ``"gather"`` asks for the
-    slot-exact whole-set gather, any other value for the flattened copy
-    on write; its mesh-local relabel has no counterpart on one device.
+    slot-exact whole-set gather; any other value for the flattened copy
+    on write on one device or a mesh over worlds only, and for the
+    local-first relabel (``parallel/resample.py``) on a mesh that cuts
+    the particles.
     """
 
     position_x: float = -2.0
@@ -410,7 +424,7 @@ def _take_particles(poses: Tensor, idx: Tensor) -> Tensor:
 def update_fleet(state: GridSlamState, scan: Scan,
                  odometry: OdometryReading, config: GridSlamConfig,
                  generator: torch.Generator | None = None,
-                 noise: UpdateNoise | None = None
+                 noise: UpdateNoise | None = None, mesh=None
                  ) -> tuple[GridSlamState, GridSlamOutputs]:
     """One SLAM update of every world of a fleet on one device
     (``slamrs_tpu/models/gridslam.py:493-652`` with ``mesh=None``).
@@ -438,17 +452,33 @@ def update_fleet(state: GridSlamState, scan: Scan,
 
     The fused launch covers the whole fleet; on a CUDA tensor it launches
     or raises.  The fused and tiled routes update ``state``'s map storage
-    in place, as :func:`update` does."""
+    in place, as :func:`update` does.
+
+    A sharded state (``parallel.shard_world_state``), or a ``mesh`` (the
+    state is then placed on it first), takes the mesh routes of
+    :func:`_update_fleet_sharded`; the draws are made as above on the
+    mesh's first device and sliced to the blocks, so a seed draws what it
+    draws unsharded.  The outputs come back whole on the mesh's first
+    device."""
     check_supported(config)
+    state_mesh = pf.mesh_of(state)
+    if mesh is not None and state_mesh is not None and mesh != state_mesh:
+        raise ValueError("update_fleet: the state lies on another mesh")
+    mesh = mesh if mesh is not None else state_mesh
     w, p = state.poses.shape[0], config.n_particles
     dev = state.poses.device
-    if state.poses.shape != (w, p, 3):
+    if tuple(state.poses.shape) != (w, p, 3):
         raise ValueError(f"a fleet state has poses [W, {p}, 3], got "
                          f"{list(state.poses.shape)}")
     if noise is None:
         if generator is None:
             raise ValueError("update_fleet needs noise or a generator")
         noise = draw_noise(generator, p, dev, worlds=(w,))
+    if mesh is not None:
+        if state_mesh is None:
+            state = pf.place(state, mesh, pf.grid_shardings(state))
+        return _update_fleet_sharded(state, scan, odometry, config, noise,
+                                     mesh)
     if state.tile_table is not None:
         return _update_fleet_tiled(state, scan, odometry, config, noise)
     if config.integrate != "fused":
@@ -536,6 +566,178 @@ def update_fleet(state: GridSlamState, scan: Scan,
         ancestors=pending.contiguous())
     return new_state, GridSlamOutputs(pose=best_pose, n_eff=n_eff,
                                       resampled=do_resample)
+
+
+def _parts(tup, part):
+    """A named tuple's fields through ``part`` (None stays)."""
+    return type(tup)(*(None if v is None else part(v) for v in tup))
+
+
+def _whole(outs: list, device) -> GridSlamOutputs:
+    """Per-world-shard outputs joined on ``device``."""
+    return GridSlamOutputs(*(torch.cat([o[i].to(device, non_blocking=True)
+                                        for o in outs])
+                             for i in range(len(GridSlamOutputs._fields))))
+
+
+def _update_fleet_sharded(state: GridSlamState, scan: Scan,
+                          odometry: OdometryReading, config: GridSlamConfig,
+                          noise: UpdateNoise, mesh
+                          ) -> tuple[GridSlamState, GridSlamOutputs]:
+    """A sharded fleet's update (``gridslam.py:515-593``, ``:668-676``).
+    ``noise`` is whole on the mesh's first device; ``scan`` and
+    ``odometry`` are whole or cut over worlds.
+
+    - tiled pools, on a mesh over worlds only: the tiled loop once per
+      world inside each world shard (K3); with particle shards it raises,
+      as the JAX package does;
+    - fused on a mesh over worlds only, unless ``resample_cow=False``,
+      ``fused_resident=True`` or ``fleet_resample="gather"``: the
+      one-device fleet update (K1 in place, then K2) on each world
+      shard's worlds; ``cow_plan`` keeps every copy in its world, so the
+      slots are the unsharded fleet's;
+    - otherwise (fused, dda, dense) :func:`_update_fleet_blocks`."""
+    n_rows, n_cols = mesh.devices.shape
+    if state.tile_table is not None and n_cols != 1:
+        raise ValueError("tiled fleets shard over worlds only (the tile "
+                         "pool and its CoW plan are per-world)")
+    if state.tile_table is None and not (
+            config.integrate == "fused" and n_cols == 1
+            and config.resample_cow is not False
+            and config.fused_resident is not True
+            and config.fleet_resample != "gather"):
+        return _update_fleet_blocks(state, scan, odometry, config, noise,
+                                    mesh)
+    rows, outs = [], []
+    for r in range(n_rows):
+        def part(x):
+            return pf.world_part(x, mesh, r)
+
+        st, out = update_fleet(pf.rows_of(state, r), _parts(scan, part),
+                               _parts(odometry, part), config,
+                               noise=_parts(noise, part))
+        rows.append(st)
+        outs.append(out)
+    return (pf.from_rows(mesh, rows, pf.grid_shardings(state)),
+            _whole(outs, mesh.first_device))
+
+
+def _update_fleet_blocks(state: GridSlamState, scan: Scan,
+                         odometry: OdometryReading, config: GridSlamConfig,
+                         noise: UpdateNoise, mesh
+                         ) -> tuple[GridSlamState, GridSlamOutputs]:
+    """The mesh route over particle blocks (``gridslam.py:538-593``):
+    each block samples its particles' poses, runs K1 in place on its
+    maps (:func:`~slamrs_tpu_torch.parallel.shard.fused_update_batched`),
+    or the dda or dense likelihood and integrate, and the motion
+    log-probability; each world shard gathers its ``[W_loc, P]``
+    likelihoods on its first device and weighs and selects there, over
+    the whole particle set; the maps are resampled by the local-first
+    relabel (fused, ``"local"``, more than one particle shard) or by the
+    slot-exact gather across the shards (dda and dense always: the JAX
+    package runs them as ``vmap(update)``)."""
+    n_rows, n_cols = mesh.devices.shape
+    p = config.n_particles
+    spec = config.grid_spec
+    wp = pf.WORLD_PARTICLE
+
+    def blocks(fn):
+        return pf.Sharded(mesh, wp, [[fn(r, t) for t in range(n_cols)]
+                                     for r in range(n_rows)])
+
+    def odo(r, t):
+        return [_per_world(pf.world_part(v, mesh, r, mesh.device(r, t)))
+                for v in odometry]
+
+    new_poses = blocks(lambda r, t: motion.sample(
+        state.poses.blocks[r][t], *odo(r, t),
+        eps=(pf.block_part(noise.eps_c, mesh, r, t),
+             pf.block_part(noise.eps_t, mesh, r, t))))
+    log_motion = blocks(lambda r, t: motion.log_prob(
+        state.poses.blocks[r][t], new_poses.blocks[r][t], *odo(r, t)))
+    nb = scan.angles.shape[-1]
+    if config.integrate == "fused":
+        dphi = (pf.by_rows(lambda a: a[:, 1] - a[:, 0], mesh, scan.angles)
+                if nb > 1 else torch.full((), 2.0 * torch.pi,
+                                          dtype=torch.float32,
+                                          device=mesh.first_device))
+        grids, log_lik = fused_update_batched(
+            state.grids, new_poses, pf.by_rows(lambda a: a[:, 0], mesh,
+                                               scan.angles),
+            scan.distances, scan.valid, scan.present, spec, nb,
+            config.max_scan_range, dphi, mesh=mesh,
+            dphi_static=config.beam_spacing)
+    else:
+        maps, liks = [], []
+        for r in range(n_rows):
+            maps.append([])
+            liks.append([])
+            for t in range(n_cols):
+                g = state.grids.blocks[r][t]
+                wl, pl = g.shape[:2]
+
+                def rows(x):  # each world's scan, once per particle
+                    x = pf.world_part(x, mesh, r, g.device)
+                    return x[:, None].expand(wl, pl, *x.shape[1:]).reshape(
+                        wl * pl, *x.shape[1:])
+
+                flat = g.reshape(wl * pl, *g.shape[2:])
+                args = (spec, new_poses.blocks[r][t].reshape(wl * pl, 3),
+                        rows(scan.angles), rows(scan.distances),
+                        rows(scan.valid), rows(scan.present))
+                liks[r].append(grid_log_likelihood(flat, *args)
+                               .reshape(wl, pl))
+                if config.integrate == "dense":
+                    new = grid_integrate_dense(
+                        flat, *args,
+                        dense_window_for(spec, config.max_scan_range))
+                else:
+                    new = grid_integrate(flat, *args, config.max_ray_steps)
+                maps[r].append(new.reshape(g.shape))
+        grids, log_lik = pf.Sharded(mesh, wp, maps), pf.Sharded(mesh, wp, liks)
+
+    weights, ancestors, best_pose, best_idx, outs = [], [], [], [], []
+    for r in range(n_rows):
+        dev0 = mesh.device(r)
+
+        def joined(x):  # the world shard's [W_loc, P, ...] on dev0
+            return torch.cat([b.to(dev0, non_blocking=True)
+                              for b in x.blocks[r]], dim=1)
+
+        w_r, anc, idx, n_eff, fired = _weigh_and_select(
+            joined(log_lik), joined(log_motion), joined(state.weights),
+            config.resample_neff_frac, p,
+            pf.world_part(noise.u01, mesh, r))
+        pl = p // n_cols
+        weights.append([w_r[:, t * pl:(t + 1) * pl].to(
+            mesh.device(r, t), non_blocking=True).contiguous()
+            for t in range(n_cols)])
+        ancestors.append(anc)
+        best_idx.append([idx])
+        best_pose.append([_take_particles(joined(new_poses),
+                                          idx[:, None])[:, 0]])
+        outs.append(GridSlamOutputs(best_pose[-1][0], n_eff, fired))
+
+    if (config.integrate == "fused" and config.fleet_resample == "local"
+            and n_cols > 1):
+        grids, new_poses = resample_fleet(
+            grids, new_poses,
+            pf.Sharded(mesh, pf.WORLD, [[a] for a in ancestors]), mesh)
+    else:
+        grids, new_poses = (
+            pf.Sharded(mesh, wp, [gather_row(x.blocks[r], ancestors[r],
+                                             list(mesh.devices[r]))
+                                  for r in range(n_rows)])
+            for x in (grids, new_poses))
+    pl = p // n_cols
+    identity = blocks(lambda r, t: torch.arange(
+        t * pl, (t + 1) * pl, dtype=torch.int32, device=mesh.device(r, t))
+        .expand(state.poses.blocks[r][t].shape[0], pl).contiguous())
+    new_state = GridSlamState(
+        poses=new_poses, grids=grids, weights=pf.Sharded(mesh, wp, weights),
+        best_pose=pf.Sharded(mesh, pf.WORLD, best_pose),
+        best_idx=pf.Sharded(mesh, pf.WORLD, best_idx), ancestors=identity)
+    return new_state, _whole(outs, mesh.first_device)
 
 
 def _update_fleet_tiled(state: GridSlamState, scan: Scan,

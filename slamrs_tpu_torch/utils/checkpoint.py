@@ -15,6 +15,11 @@ as ``WorldState`` or ``GridSlamState``) goes into one ``.npz`` file:
 So a file written by ``python -m slamrs_tpu rollout --save-state``
 resumes here, and :func:`load` refuses a file whose leaf count or leaf
 shapes differ from the template's, as the JAX package's does.
+
+A sharded state (``parallel.shard_world_state``) is saved in the
+one-device layout, the leaves of saving ``unshard_world_state(state)``,
+and a sharded template places each loaded leaf on its mesh, as the JAX
+package's ``load`` does (``checkpoint.py:96-98``).
 """
 
 from __future__ import annotations
@@ -24,6 +29,8 @@ from typing import Any
 
 import numpy as np
 import torch
+
+from slamrs_tpu_torch.parallel.fleet import Sharded
 
 
 def _is_node(x) -> bool:
@@ -51,6 +58,8 @@ def _rebuild(like: Any, it) -> Any:
 
 
 def _to_numpy(leaf) -> np.ndarray:
+    if isinstance(leaf, Sharded):
+        leaf = leaf.full()
     if isinstance(leaf, torch.Tensor):
         if leaf.dtype == torch.bfloat16:
             leaf = leaf.float()
@@ -72,7 +81,7 @@ def save(path: str, state: Any) -> None:
 
 
 def _shape(leaf) -> tuple:
-    if isinstance(leaf, torch.Tensor):
+    if isinstance(leaf, (torch.Tensor, Sharded)):
         return tuple(leaf.shape)
     return tuple(np.shape(leaf))
 
@@ -90,7 +99,7 @@ def _warn_narrowing(i: int, saved: np.dtype, target_bytes: int,
 def load(path: str, like: Any) -> Any:
     """Restore a state written by :func:`save` (or by the JAX package's
     ``save``) onto the structure, dtypes and devices of ``like`` (build
-    it with the same config)."""
+    it with the same config), sharded as ``like`` is."""
     tmpl = leaves(like)
     with np.load(path) as data:
         n = sum(1 for k in data.files if k.startswith("leaf_"))
@@ -103,11 +112,13 @@ def load(path: str, like: Any) -> Any:
             if tuple(arr.shape) != _shape(t):
                 raise ValueError(f"leaf {i}: checkpoint shape {arr.shape} "
                                  f"!= template {_shape(t)}")
-            if isinstance(t, torch.Tensor):
-                _warn_narrowing(i, arr.dtype, t.element_size(),
+            if isinstance(t, (torch.Tensor, Sharded)):
+                _warn_narrowing(i, arr.dtype, t.dtype.itemsize,
                                 t.dtype == torch.bfloat16)
-                out.append(torch.from_numpy(np.array(arr)).to(
-                    device=t.device, dtype=t.dtype))
+                leaf = torch.from_numpy(np.array(arr)).to(device=t.device,
+                                                          dtype=t.dtype)
+                out.append(Sharded.place(leaf, t.mesh, t.spec)
+                           if isinstance(t, Sharded) else leaf)
             elif isinstance(t, bool):
                 out.append(bool(arr))
             elif isinstance(t, int):

@@ -24,7 +24,11 @@ dda scatter bitwise reproducible on the card.  Fleets: K1 with the world
 axis (a beam table per world, one launch for every world) against its
 plain version at the same gates, a one-world call bitwise the
 single-world call; K2 on a flattened fleet plan bitwise, every copy
-inside its world; ``update_fleet`` launching K1 once a call.  Host mode
+inside its world; ``update_fleet`` launching K1 once a call.  Sharded
+fleets on an 8-entry mesh of the one card: bitwise the one-device fleet
+(``"gather"``, the world-only copy on write, the tiled loop) or its
+per-world multiset (``"local"``), K1 once per block a frame; the
+local-first resample on the card slot for slot its CPU result.  Host mode
 (the App): K1 once per SLAM update and K4 ten times per ICP update, and
 an App run on the card against the same on the CPU under injected draws.
 Robot I/O: the FileLoader's Scan on the card, K4 ten times per ICP
@@ -546,6 +550,95 @@ def test_update_fleet_launches_k1_once(dev, change):
     assert bool(torch.isfinite(out.pose).all())
     torch.testing.assert_close(st.weights.sum(-1),
                                torch.ones(worlds, device=dev))
+
+
+# mesh -> (particle axis, fleet_resample, worlds, tiled)
+MESH_CASES = {"gather_2x4": (4, "gather", 4, False),
+              "local_2x4": (4, "local", 4, False),
+              "cow_8x1": (1, "local", 8, False),
+              "tiled_2x1": (1, "local", 2, True)}
+
+
+@pytest.mark.parametrize("case", list(MESH_CASES))
+def test_sharded_fleet_rollout_on_the_card(dev, case):
+    """A fleet on an 8-entry mesh of the one card against the one-device
+    fleet under the same seed, 40 ticks (six scan frames): ``"gather"``,
+    the world-only copy on write and the tiled loop bitwise, ``"local"``
+    the same per-world multiset after its first frame; K1 once per
+    block a frame (once per world shard on the copy-on-write route, K2
+    at most as often), K3 once per world a frame."""
+    from slamrs_tpu_torch.graph.compile import make_fused
+    from slamrs_tpu_torch.models.gridslam import GridSlamConfig
+    from slamrs_tpu_torch.parallel import fleet
+
+    axis, mode, worlds, tiled = MESH_CASES[case]
+    kw = dict(resolution=0.05, n_particles=8, integrate="fused",
+              grid_dtype="bfloat16", resample_neff_frac=1.0,
+              fleet_resample=mode)
+    if tiled:
+        kw.update(position_x=-3.2, position_y=-6.4, width=6.4, height=12.8,
+                  resample_cow="tiled")
+    mesh = fleet.make_mesh(8 if not tiled else 2, particle_axis=axis,
+                           devices=[dev] * 8)
+    plain = make_fused(grid_config=GridSlamConfig(**kw), device=dev)
+    sharded = make_fused(grid_config=GridSlamConfig(**kw), device=dev,
+                         mesh=mesh)
+    ticks = 8 if case == "local_2x4" else 40
+    s0, o0 = plain.rollout_cadence(plain.init((worlds,)), ticks, seed=4)
+    counts = (fused.fused_update.launches, cow.cow_copy.launches,
+              tiles.fused_update_tiled.launches)
+    s1, o1 = sharded.rollout_cadence(plain.init((worlds,)), ticks, seed=4)
+    torch.cuda.synchronize()
+    k1, k2, k3 = (now - before for now, before in zip(
+        (fused.fused_update.launches, cow.cow_copy.launches,
+         tiles.fused_update_tiled.launches), counts))
+    frames = int(o1.fired.shape[0])
+    blocks = mesh.devices.size
+    whole = fleet.unshard_world_state(s1)
+    if tiled:
+        assert (k1, k2, k3) == (0, 0, worlds * frames)
+    elif case == "cow_8x1":
+        assert k1 == blocks * frames and k2 <= blocks * frames
+    else:
+        assert (k1, k2) == (blocks * frames, 0)
+    if case == "local_2x4":
+        for w in range(worlds):
+            a = torch.cat([whole.grid.poses[w].flatten(1), whole.grid.grids[w]
+                           .float().flatten(1)], 1).cpu().numpy()
+            b = torch.cat([s0.grid.poses[w].flatten(1), s0.grid.grids[w]
+                           .float().flatten(1)], 1).cpu().numpy()
+            assert sorted(map(bytes, a)) == sorted(map(bytes, b))
+        return
+    for x, y in zip(fleet.tree_leaves(whole), fleet.tree_leaves(s0)):
+        assert torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+    assert torch.equal(o1.grid_pose, o0.grid_pose)
+
+
+def test_resample_fleet_card_equals_cpu(dev):
+    """The local-first relabel and its overflow fallback on a 2 x 4 mesh of
+    the card, slot for slot the same on the CPU."""
+    from slamrs_tpu_torch.ops import resample
+    from slamrs_tpu_torch.parallel import fleet
+    from slamrs_tpu_torch.parallel import resample as pres
+
+    g = torch.Generator().manual_seed(2)
+    grids = torch.randn(2, 64, 8, 128, generator=g)
+    poses = torch.randn(2, 64, 3, generator=g)
+    anc = resample.systematic_resample(
+        torch.softmax(torch.randn(2, 64, generator=g) * 2, -1),
+        torch.rand(2, 1, generator=g))
+    wp = fleet.WORLD_PARTICLE
+    for cap in (8, 1):
+        out = []
+        for d in (torch.device("cpu"), dev):
+            mesh = fleet.make_mesh(8, particle_axis=4, devices=[d] * 8)
+            got = pres.resample_fleet(
+                fleet.Sharded.place(grids.to(d), mesh, wp),
+                fleet.Sharded.place(poses.to(d), mesh, wp), anc.to(d), mesh,
+                spill_cap=cap)
+            out.append([x.full().cpu() for x in got])
+        for a, b in zip(*out):
+            assert torch.equal(a, b)
 
 
 def _preset(name, particles=None):
