@@ -270,12 +270,36 @@ says how long the phases took):
     ``torch.cuda.set_sync_debug_mode("error")``, only the local
     relabel's overflow read (once per world shard) let through.
 
+Since PR 11 every ``rollout_cadence`` above on a one-device state runs
+captured (``graph/capture.py``: one CUDA graph replay a scan frame), so
+the gates above hold on the captured path; the meshes run the eager
+loop.  Then the captured rollout against the eager loop
+(``capture_phases_time`` says how long they took):
+
+52. ``capture_*``: on each route, fresh states, the eager loop
+    (``capture=False``) beside the captured run (``capture=True``):
+    headline lineage at 0.05 m (300 ticks) and 0.02 m (150), config 3
+    tiled (K3) and copy on write (K1 in place + K2), gather (headline,
+    K1 in place), ``grid_slam.yaml`` dda and dense, dda at the
+    headline shape, ``icp_test.yaml`` (K4 ten times a frame),
+    ``landmarks.yaml`` and the 256 x 10 fleet.  Gates: state and
+    outputs bitwise under injected numpy draws and under the seed; the
+    wrappers' launch counts equal the eager run's and the route's
+    kernels a frame (K1/K2/K3 once, K4 ten times); the profiler's kernel
+    names count the same; at least one graph replayed.  Printed beside
+    the eager run's: graphs, capture seconds, bytes copied back a
+    frame, host launch calls a frame (runtime launch, graph launch,
+    memcpy and memset calls under the profiler; the eager profile over
+    its first 10 frames), ticks/s (world-ticks/s), device busy time,
+    idle share and each run's own peak memory.
+
 The ``kernels`` line's entries carry the fleet runs' launches
 (``fleet_launches``), for K1 and K2 their times at the fleet's shapes
 (``fleet_ms``, ``fleet_plain_ms``, ``fleet_bound_ms``), and for K1 and
 K4 the launches of the host-graph runs (``app_launches``), and for K4
-those of the replay (``replay_launches``), and for each kernel its
-launches on the mesh runs (``mesh_launches``).
+those of the replay (``replay_launches``), for each kernel its
+launches on the mesh runs (``mesh_launches``) and on the captured runs
+of phase 52 by route (``captured_launches``).
 
 Every kernel's bound is the larger of the bytes it must move at
 3.35 TB/s and its float32 operations at 67 TFLOP/s (the published H100
@@ -292,6 +316,7 @@ power limit; the last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import statistics
@@ -465,14 +490,9 @@ def headline_world(torch, resolution, integrate="fused",
 
 def counters():
     """The launch counters of every kernel wrapper, by name."""
-    from slamrs_tpu_torch.ops import cow, fused, icp, tiles
+    from slamrs_tpu_torch.graph.capture import launch_counters
 
-    return {"fused_update": (fused.fused_update, "launches"),
-            "fused_update_in_place": (fused.fused_update,
-                                      "in_place_launches"),
-            "cow_copy": (cow.cow_copy, "launches"),
-            "fused_update_tiled": (tiles.fused_update_tiled, "launches"),
-            "nn_argmin": (icp.nearest_neighbors_fused, "launches")}
+    return launch_counters()
 
 
 def reset_counts():
@@ -481,8 +501,9 @@ def reset_counts():
 
 
 def read_counts():
-    return {name: getattr(fn, attr) for name, (fn, attr) in
-            counters().items()}
+    from slamrs_tpu_torch.graph.capture import launch_counts
+
+    return launch_counts()
 
 
 def check_rollout(torch, fw, n_steps, label, rmse_gate=None, expect=None):
@@ -3377,6 +3398,209 @@ def check_robot_link_card(torch):
         raise AssertionError("robot_link_card failed its gates")
 
 
+# --- the captured rollout: one CUDA graph replay a frame ---------------
+
+# the kernels by the names the profiler shows, and their wrapper counters
+PROFILED_KERNELS = {"fused_update": "fused_update_kernel",
+                    "cow_copy": "cow_copy_kernel",
+                    "fused_update_tiled": "fused_update_tiled_kernel",
+                    "nn_argmin": "nn_argmin_kernel"}
+# runtime calls by which the host puts work on the card
+HOST_LAUNCH_CALLS = ("LaunchKernel", "GraphLaunch", "Memcpy", "Memset")
+
+
+def capture_routes(torch):
+    """(label, world, worlds, ticks, kernel launches a frame) of every
+    route the captured rollout covers."""
+    k1 = {"fused_update": 1, "fused_update_in_place": 0,
+          "fused_update_tiled": 0, "cow_copy": 0, "nn_argmin": 0}
+    in_place = dict(k1, fused_update_in_place=1)
+    return [
+        ("headline_0.05m", lambda: headline_world(torch, 0.05), (), 300, k1),
+        ("headline_0.02m", lambda: headline_world(torch, 0.02), (), 150, k1),
+        ("config3_tiled", lambda: config3_world(torch), (), 300,
+         dict(k1, fused_update=0, fused_update_tiled=1)),
+        ("config3_cow", lambda: config3_world(torch, resample_cow=True), (),
+         300, dict(in_place, cow_copy=1)),
+        ("gather_0.05m", lambda: with_grid(
+            headline_world(torch, 0.05), resample_cow=False,
+            fused_resident=False), (), 300, in_place),
+        ("dda_grid_slam_yaml", lambda: preset_world(torch, "grid_slam.yaml"),
+         (), 300, NO_KERNELS),
+        ("dense_grid_slam_yaml", lambda: with_grid(
+            preset_world(torch, "grid_slam.yaml"), integrate="dense"), (),
+         300, NO_KERNELS),
+        ("dda_0.05m", lambda: headline_world(torch, 0.05, "dda", "float32"),
+         (), 300, NO_KERNELS),
+        ("icp_test_yaml", lambda: preset_world(torch, "icp_test.yaml"), (),
+         300, dict(NO_KERNELS, nn_argmin=10)),
+        ("landmarks_yaml", lambda: preset_world(torch, "landmarks.yaml"), (),
+         300, NO_KERNELS),
+        ("fleet_256x10_0.02m", lambda: fleet_world(torch), (FLEET_WORLDS,),
+         300, dict(in_place, cow_copy=1)),
+    ]
+
+
+def capture_draws(fw, worlds, n_steps, seed):
+    """Injected draws for every frame: the grid's (numpy) and, for a world
+    with the EKF, the landmark sensor's."""
+    import numpy as np
+
+    kw = {}
+    if fw.grid_config is not None:
+        kw["noise"] = injected_grid_noise(fw, n_steps, seed, worlds)
+    if fw.ekf_config is not None:
+        frames = fw.fire_schedule(n_steps, 0.0)[0].size
+        lanes = fw.scene.landmarks.shape[0]
+        rng = np.random.default_rng(seed + 1)
+        kw["landmark_noise"] = tuple(
+            rng.standard_normal((frames, *worlds, lanes)).astype(np.float32)
+            for _ in range(2))
+    return kw
+
+
+def capture_run(torch, fw, worlds, n_steps, capture, profiled=False, **kw):
+    """One ``rollout_cadence`` from a fresh state, the counts set to 0 just
+    before and read just after.  Returns a dict: state, outs, counts,
+    seconds, the run's own peak memory, and with ``profiled`` the device
+    busy time, the host's launch calls and the kernels by name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    state = fw.init(worlds)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
+        if profiled else contextlib.nullcontext()
+    with prof:
+        reset_counts()
+        t0 = time.perf_counter()
+        state, outs = fw.rollout_cadence(state, n_steps, seed=0,
+                                         capture=capture, **kw)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = read_counts()
+    run = {"state": state, "outs": outs, "counts": counts,
+           "seconds": seconds,
+           "peak": torch.cuda.max_memory_allocated() - base}
+    if profiled:
+        events = prof.key_averages()
+        device = [e for e in events if e.device_type.name == "CUDA"]
+        busy = sum(e.self_device_time_total for e in device) / 1e6
+        run.update(
+            busy=busy, idle=1 - busy / seconds,
+            host_calls=sum(e.count for e in events
+                           if e.device_type.name == "CPU"
+                           and e.key.startswith("cu")
+                           and any(c in e.key for c in HOST_LAUNCH_CALLS)),
+            by_name={name: sum(e.count for e in device if kern in e.key)
+                     for name, kern in PROFILED_KERNELS.items()})
+    return run
+
+
+def check_capture(torch, label, make, worlds, n_steps, per_frame):
+    """The captured rollout against the eager loop on one route: bitwise
+    under injected draws and under the seed; launches a frame from the
+    wrappers' counters and the profiler's kernel names; host launch calls
+    a frame, idle share, ticks/s and each run's own peak memory beside
+    the eager run's.  Returns the captured run's counts."""
+    import dataclasses
+
+    t0 = time.perf_counter()
+    fw = make()
+    kw = capture_draws(fw, worlds, n_steps, 11)
+    runs = {}
+    for capture in (False, True):  # injected draws
+        runs[capture] = capture_run(torch, fw, worlds, n_steps, capture, **kw)
+    same_injected = (same_state(torch, runs[False]["state"],
+                                runs[True]["state"])
+                     and same_state(torch, runs[False]["outs"],
+                                    runs[True]["outs"]))
+    runs.clear()
+    for capture in (False, True):  # the seed, timed
+        runs[capture] = capture_run(torch, fw, worlds, n_steps, capture)
+    stats = dataclasses.replace(fw.capture_stats)
+    same_seed = (same_state(torch, runs[False]["state"], runs[True]["state"])
+                 and same_state(torch, runs[False]["outs"],
+                                runs[True]["outs"]))
+    frames = int(runs[True]["outs"].fired.shape[0])
+    eager_counts, counts = runs[False]["counts"], runs[True]["counts"]
+    timed = {c: (runs[c]["seconds"], runs[c]["peak"]) for c in runs}
+    runs.clear()
+    # the eager loop is the same every frame: its profile covers its
+    # first 10 frames (the profiler's own cost grows with the launches)
+    fires = fw.fire_schedule(n_steps, 0.0)[0]
+    eager_ticks = int(fires[min(9, fires.size - 1)]) + 1
+    prof = {c: capture_run(torch, fw, worlds,
+                           n_steps if c else eager_ticks, c, profiled=True)
+            for c in (False, True)}
+    prof_frames = {c: int(prof[c]["outs"].fired.shape[0]) for c in prof}
+    n_worlds = worlds[0] if worlds else 1
+    emit({"phase": f"capture_{label}", "ticks": n_steps, "worlds": n_worlds,
+          "frames": frames, "graphs": stats.graphs,
+          "idle_counts": sorted(stats.launches), "eager_frames":
+          stats.eager_frames, "replays": stats.replays,
+          "capture_s": stats.capture_seconds,
+          "bitwise_injected": same_injected, "bitwise_seed": same_seed,
+          "launch_counts": counts, "eager_launch_counts": eager_counts,
+          "profiled_kernels": prof[True]["by_name"],
+          "eager_profiled_kernels": prof[False]["by_name"],
+          "host_launch_calls_per_frame": {
+              c: prof[b]["host_calls"] / prof_frames[b]
+              for c, b in (("eager", False), ("captured", True))},
+          "profiled_ticks": {"eager": eager_ticks, "captured": n_steps},
+          "copy_back_bytes_per_frame": {str(k): v for k, v in
+                                        stats.copy_back_bytes.items()},
+          "ticks_per_s": {"eager": n_steps / timed[False][0],
+                          "captured": n_steps / timed[True][0]},
+          "world_ticks_per_s": {"eager": n_worlds * n_steps / timed[False][0],
+                                "captured":
+                                n_worlds * n_steps / timed[True][0]},
+          "device_busy_s": {"eager": prof[False]["busy"],
+                            "captured": prof[True]["busy"]},
+          "idle_share": {"eager": prof[False]["idle"],
+                         "captured": prof[True]["idle"]},
+          "wall_s_profiled": {"eager": prof[False]["seconds"],
+                              "captured": prof[True]["seconds"]},
+          "peak_memory_bytes": {"eager": timed[False][1],
+                                "captured": timed[True][1]},
+          "seconds": time.perf_counter() - t0})
+    require(same_injected and same_seed,
+            f"capture {label}: the captured run differs from the eager loop")
+    require(counts == eager_counts,
+            f"capture {label}: launches {counts} != eager {eager_counts}")
+    require(stats.graphs >= 1 and stats.replays >= 1,
+            f"capture {label}: no graph was replayed")
+    for name, n in per_frame.items():
+        want = n * frames
+        require(counts[name] == want,
+                f"capture {label}: {counts[name]} {name} launches, "
+                f"expected {want}")
+        if name in PROFILED_KERNELS:
+            for c in (False, True):
+                want = counts[name] * prof_frames[c] // frames
+                require(prof[c]["by_name"][name] == want,
+                        f"capture {label}: the profiler saw "
+                        f"{prof[c]['by_name'][name]} {name} kernels "
+                        f"(captured={c}), expected {want}")
+    require(prof[True]["busy"] > 0, f"capture {label}: no device events")
+    return counts
+
+
+def check_captures(torch):
+    """Every captured route; returns each route's captured launch counts."""
+    t0 = time.perf_counter()
+    counts = {label: check_capture(torch, label, make, worlds, n, per_frame)
+              for label, make, worlds, n, per_frame in capture_routes(torch)}
+    emit({"phase": "capture_phases_time", "seconds": time.perf_counter() - t0})
+    return counts
+
+
+def captured_launches(counts, name):
+    return {label: c[name] for label, c in counts.items() if c[name]}
+
+
 def _spec(geom):
     from slamrs_tpu_torch.ops.grid import GridSpec2D
 
@@ -3572,6 +3796,9 @@ def main() -> int:
     check_mesh_no_host_sync(torch)
     emit({"phase": "mesh_phases_time", "seconds": time.perf_counter() - t0})
 
+    # the cadence rollout as CUDA graphs, against the eager loop
+    cap = check_captures(torch)
+
     k1_ms, k1_plain, k1_bound, k1_by = times["0.05m"]
     emit({"kernels": [
         {"name": "fused_update", "route": "cuda",
@@ -3582,6 +3809,7 @@ def main() -> int:
          "bound_by": k1_by, "library_ms": None,
          "fleet_launches": fleet_counts["fused_update"],
          **{f"fleet_{k}": v for k, v in t_fleet.items()},
+         "captured_launches": captured_launches(cap, "fused_update"),
          "app_launches": app_k1["fused_update"],
          "mesh_launches": {
              "config5_8x1_300": c5_dp_counts["fused_update"],
@@ -3594,6 +3822,7 @@ def main() -> int:
          "launches": cow_counts["cow_copy"], "max_abs_err": cow_err,
          **t3["cow_copy"], "fleet_launches": fleet_counts["cow_copy"],
          **{f"fleet_{k}": v for k, v in cow_fleet.items()},
+         "captured_launches": captured_launches(cap, "cow_copy"),
          "mesh_launches": {"config5_8x1_300": c5_dp_counts["cow_copy"]}},
         {"name": "fused_update_tiled", "route": "cuda",
          "source": "slamrs_tpu_torch/csrc/fused_update_tiled.cu",
@@ -3601,6 +3830,7 @@ def main() -> int:
          "launches": tiled_counts["fused_update_tiled"],
          "max_abs_err": tiled_err, **t3["fused_update_tiled"],
          "fleet_launches": tiled_fleet_counts["fused_update_tiled"],
+         "captured_launches": captured_launches(cap, "fused_update_tiled"),
          "mesh_launches": {"config3_tiled_2x1_90":
                            c3_mesh_counts["fused_update_tiled"]}},
         {"name": "nn_argmin", "route": "cuda",
@@ -3610,6 +3840,7 @@ def main() -> int:
          **t4["mapper_1x360x16384_qc10000"],
          "fleet_launches": icp_fleet_counts["nn_argmin"],
          "app_launches": app_k4["nn_argmin"],
+         "captured_launches": captured_launches(cap, "nn_argmin"),
          "replay_launches": replay_k4["nn_argmin"],
          "mesh_launches": {"icp_test_4x1_300": icp_mesh_counts["nn_argmin"]}}
     ]})

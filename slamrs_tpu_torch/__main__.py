@@ -14,13 +14,16 @@
 
 ``rollout`` runs the fused world of a YAML node graph through
 ``rollout_cadence``, as one world or as a fleet of ``W`` worlds on one
-device, and prints one JSON report: steps, worlds, scans, final
+device (on the card each scan frame is a CUDA graph replay,
+``graph/capture.py``; on the CPU the eager frame loop), and prints one
+JSON report: steps, worlds, scans, final
 ground-truth pose (one per world for a fleet), and, for each filter the
 world runs (grid SLAM's best particle, the ICP mapper, the EKF), the
 RMSE of its pose against ground truth over every world and scan frame.
 ``--resume`` starts from a checkpoint (the port's, or one written by
 ``python -m slamrs_tpu rollout --save-state``) and ``--save-state``
-writes the final state (``utils/checkpoint.py``).
+writes the final state (``utils/checkpoint.py``): ordinary tensors, the
+captured run's static buffers, which outlive its graphs.
 
 ``robot`` serves a virtual robot (``io/virtual_robot.py``, a model of
 the robot's firmware) in a small walled scene, over TCP or, with

@@ -57,8 +57,7 @@ def grid_state_from_numpy(poses, grids, weights, best_pose, best_idx,
         grids=_f32(grids, device).to(dtype),
         weights=_f32(weights, device),
         best_pose=_f32(best_pose, device),
-        best_idx=torch.from_numpy(np.asarray(best_idx, np.int64).copy()
-                                  ).to(device),
+        best_idx=_i32(best_idx, device),
         ancestors=_i32(ancestors, device),
         tile_table=None if tile_table is None else _i32(tile_table, device))
 

@@ -71,6 +71,22 @@ class Scan(NamedTuple):
         py = origin[..., 1:2] + torch.sin(a) * self.distances
         return torch.stack([px, py], dim=-1), self.valid & self.present
 
+    @staticmethod
+    def empty(num_beams: int = 360, batch_shape=(), device=None) -> "Scan":
+        """A scan with no returns: 1-degree beam angles, zero distances
+        and strengths, every lane absent and invalid."""
+        sh = (*batch_shape, num_beams)
+        angles = torch.deg2rad(torch.arange(num_beams, dtype=torch.float32,
+                                            device=device)).expand(sh)
+
+        def zeros(dtype):
+            return torch.zeros(sh, dtype=dtype, device=device)
+
+        return Scan(angles=angles.contiguous(),
+                    distances=zeros(torch.float32),
+                    strengths=zeros(torch.float32), valid=zeros(torch.bool),
+                    present=zeros(torch.bool))
+
 
 class OdometryReading(NamedTuple):
     """Measured wheel travel since the previous reading (meters)."""
@@ -115,6 +131,16 @@ class LandmarkScan(NamedTuple):
     @property
     def num_lanes(self) -> int:
         return self.angles.shape[-1]
+
+    @staticmethod
+    def empty(num_lanes: int, batch_shape=(), device=None) -> "LandmarkScan":
+        """``num_lanes`` invalid lanes of zeros."""
+        sh = (*batch_shape, num_lanes)
+        return LandmarkScan(
+            angles=torch.zeros(sh, dtype=torch.float32, device=device),
+            distances=torch.zeros(sh, dtype=torch.float32, device=device),
+            association=torch.zeros(sh, dtype=torch.int32, device=device),
+            valid=torch.zeros(sh, dtype=torch.bool, device=device))
 
 
 @dataclasses.dataclass

@@ -16,7 +16,10 @@ motion and resample draws (``models/gridslam.update``), then the
 landmark sensor's bearing noise, then its range noise
 (``models/simulator.landmark_scan``).  ICP draws nothing.  So
 :meth:`FusedWorld.rollout` and :meth:`FusedWorld.rollout_cadence` draw
-the same numbers for the same seed.
+the same numbers for the same seed.  On one CUDA device
+:meth:`FusedWorld.rollout_cadence` replays each scan frame from a
+captured CUDA graph (``graph/capture.py``) that draws, and computes,
+what the eager frame loop does.
 
 Fleets: :meth:`FusedWorld.init` with ``worlds=(W,)`` gives ``W`` worlds
 on one device, every state field with a leading ``[W]`` axis, as the JAX
@@ -136,6 +139,9 @@ class FusedWorld:
     # a (world, particle) device mesh (parallel/fleet.Mesh) that fleet
     # states run sharded on; None runs a state where it lies
     mesh: Optional[pf.Mesh] = None
+    # the last frame-program rollout's graph_capture.CaptureStats
+    capture_stats: object = dataclasses.field(default=None, repr=False,
+                                              compare=False)
 
     def init(self, worlds: tuple[int, ...] = ()) -> WorldState:
         """A fresh state; ``worlds=(W,)`` gives a fleet of W worlds."""
@@ -378,11 +384,27 @@ class FusedWorld:
         return tuple(torch.from_numpy(np.array(x[f])).to(self.device)
                      for x in draws)
 
+    def fire_schedule(self, n_steps: int, timer: float
+                      ) -> tuple[np.ndarray, float]:
+        """``(fire_idx, timer)``: the ticks of ``n_steps`` that fire from
+        the float32 host ``timer``, and the timer after the last tick."""
+        dt = np.float32(self.dt)
+        period = np.float32(self.params.update_period)
+        timer = np.float32(timer)
+        fired = np.zeros(n_steps, bool)
+        for i in range(n_steps):
+            timer = np.float32(timer + dt)
+            if timer > period:
+                fired[i] = True
+                timer = np.float32(timer - period)
+        return np.flatnonzero(fired), float(timer)
+
     def rollout_cadence(self, state: WorldState, n_steps: int, seed: int = 0,
                         commands: Optional[Command] = None,
                         initial_timer: Optional[float] = None,
                         noise: Optional[gs_model.UpdateNoise] = None,
-                        landmark_noise: Optional[tuple] = None
+                        landmark_noise: Optional[tuple] = None,
+                        capture: Optional[bool] = None
                         ) -> tuple[WorldState, WorldOutputs]:
         """The same ticks as :meth:`rollout`, grouped into frames of idle
         ticks (motion only) followed by one scan tick; outputs are per
@@ -391,56 +413,84 @@ class FusedWorld:
         ``noise`` (tests) holds each frame's pre-drawn grid-SLAM draws
         and ``landmark_noise`` each frame's ``(noise_a, noise_d)``, with a
         leading frame axis, in place of the seeded generator's.
+
+        ``capture``: None replays each frame from a captured CUDA graph
+        (``graph/capture.py``) when the state lies on one CUDA device, and
+        runs the eager frame loop on the CPU and on a mesh (the
+        ``"local"`` relabel's overflow check reads the host); False runs
+        the eager loop on any device; True captures, and raises on the
+        CPU (``ValueError``) and on a mesh (``NotImplementedError``).  A
+        capture or replay that fails raises.  Both draw the same numbers
+        and give the same bits.
         """
         if commands is None:
             commands = self.commands_for(n_steps)
-        dt = np.float32(self.dt)
-        period = np.float32(self.params.update_period)
-        timer = np.float32(state.scan_timer if initial_timer is None
-                           else initial_timer)
-        fired = np.zeros(n_steps, bool)
-        for i in range(n_steps):
-            timer = np.float32(timer + dt)
-            if timer > period:
-                fired[i] = True
-                timer = np.float32(timer - period)
-        fire_idx = np.flatnonzero(fired)
+        mesh = pf.mesh_of(state) if self.mesh is None else self.mesh
+        on_cuda = state.pose.device.type == "cuda"
+        if capture is True and mesh is not None:
+            raise NotImplementedError(
+                "rollout_cadence(capture=True) runs one-device states; a "
+                "mesh runs the eager loop (capture=None or False)")
+        if capture is True and not on_cuda:
+            raise ValueError("rollout_cadence(capture=True) needs a state on "
+                             f"a CUDA device, got {state.pose.device}")
+        if capture is not False and on_cuda and mesh is None:
+            from slamrs_tpu_torch.graph import capture as graph_capture
+
+            return graph_capture.run_program(
+                self, state, n_steps, seed, commands, initial_timer, noise,
+                landmark_noise, graphs=True)
+        fire_idx, timer = self.fire_schedule(
+            n_steps, state.scan_timer if initial_timer is None
+            else initial_timer)
         if fire_idx.size == 0:
             return self.rollout(state, n_steps, seed, commands)
 
         state, mesh = self._placed(state)
         gen = self._generator(seed, mesh)
-        sl_all = commands.speed_left * float(dt)
-        sr_all = commands.speed_right * float(dt)
+        speeds = torch.stack([commands.speed_left, commands.speed_right])
         rows = []
         start = 0
         for f, e in enumerate(fire_idx):
-            state = self._idle(state, mesh, sl_all, sr_all, start, e)
-            state = state._replace(scan_timer=float(period))
             frame_noise = None if noise is None else gs_model.UpdateNoise(
                 *self._frame_draws(noise, f))
-            state, row = self.step(
-                state, Command(commands.speed_left[e], commands.speed_right[e]),
-                generator=gen, force_fire=True, noise=frame_noise,
-                landmark_noise=self._frame_draws(landmark_noise, f))
+            state, row = self.frame(
+                state, speeds[:, start:e + 1], gen, frame_noise,
+                self._frame_draws(landmark_noise, f), mesh)
             rows.append(row)
             start = e + 1
-
-        # idle ticks after the last scan
-        state = self._idle(state, mesh, sl_all, sr_all, start, n_steps)
-        state = state._replace(scan_timer=float(timer))
+        state = self.idle(state, speeds[:, start:], mesh)
+        state = state._replace(scan_timer=timer)
         return state, _stack_outputs(rows, self._out_device(mesh))
 
-    def _idle(self, state: WorldState, mesh, sl_all: Tensor, sr_all: Tensor,
-              start: int, stop: int) -> WorldState:
-        """Ticks ``[start, stop)`` of motion only (wheel travel ``sl_all``,
-        ``sr_all`` a tick), on each world shard's device."""
+    def frame(self, state: WorldState, speeds: Tensor,
+              generator: torch.Generator | None = None,
+              noise: gs_model.UpdateNoise | None = None,
+              landmark_noise: tuple[Tensor, Tensor] | None = None,
+              mesh=None) -> tuple[WorldState, _Row]:
+        """One frame of :meth:`rollout_cadence`: the idle ticks
+        ``speeds[:, :-1]`` (motion only), then the scan tick at
+        ``speeds[:, -1]`` with the timer forced to fire.  ``speeds`` is
+        f32[2, k + 1], the left and right wheel speeds of the frame's
+        ticks.  Returns ``(state, row)`` as :meth:`step` does; this is
+        the program that ``graph/capture.py`` captures."""
+        state = self.idle(state, speeds[:, :-1], mesh)
+        state = state._replace(
+            scan_timer=float(np.float32(self.params.update_period)))
+        return self.step(state, Command(speeds[0, -1], speeds[1, -1]),
+                         generator=generator, force_fire=True, noise=noise,
+                         landmark_noise=landmark_noise)
+
+    def idle(self, state: WorldState, speeds: Tensor, mesh=None
+             ) -> WorldState:
+        """Ticks of motion only, one per column of ``speeds`` (f32[2, k]
+        wheel speeds), on each world shard's device."""
+        travel = speeds * float(np.float32(self.dt))
         wb = self.params.wheel_base
         moved = []
         for pose, al, ar in _sim_rows(state, mesh):
-            sl = sl_all.to(pose.device, non_blocking=True)
-            sr = sr_all.to(pose.device, non_blocking=True)
-            for i in range(start, stop):
+            sl, sr = travel.to(pose.device, non_blocking=True)
+            for i in range(travel.shape[1]):
                 pose = motion.integrate_exact(pose, sl[i], sr[i], wb)
                 al, ar = al + sl[i], ar + sr[i]
             moved.append((pose, al, ar))

@@ -191,7 +191,7 @@ class GridSlamState(NamedTuple):
     grids: Tensor
     weights: Tensor  # f32[P] normalized
     best_pose: Tensor  # f32[3] argmax-weight particle pose
-    best_idx: Tensor  # i64[] (0-dim)
+    best_idx: Tensor  # i32[] (0-dim), as the JAX state's
     # pending resample lineage: particle i's map is grids[ancestors[i]]
     # (tiled: tile_table[ancestors[i]]); identity after cow and gather
     ancestors: Tensor  # i32[P]
@@ -226,7 +226,7 @@ class GridSlamState(NamedTuple):
             grids=grids,
             weights=torch.full((*w, p), 1.0 / p, dtype=f32, device=device),
             best_pose=torch.zeros((*w, 3), dtype=f32, device=device),
-            best_idx=torch.zeros(w, dtype=torch.int64, device=device),
+            best_idx=torch.zeros(w, dtype=torch.int32, device=device),
             ancestors=torch.arange(p, dtype=torch.int32, device=device)
             .expand(*w, p).contiguous(),
             tile_table=tile_table)
@@ -265,7 +265,7 @@ def _weigh_and_select(log_lik: Tensor, log_motion: Tensor,
     world over any leading worlds axes."""
     log_w = torch.log(prev_weights) + log_lik + log_motion
     weights = _resample.normalize_log_weights(log_w)
-    best_idx = torch.argmax(weights, dim=-1)
+    best_idx = torch.argmax(weights, dim=-1).to(torch.int32)
     n_eff = _resample.effective_particles(weights)
     do_resample = n_eff <= frac * p
     ancestors = _resample.systematic_resample(weights, u01=u01)

@@ -94,6 +94,13 @@ class GridSpec2D:
         return torch.stack([(xy[..., 0] - self.position_x) / res,
                             (xy[..., 1] - self.position_y) / res], dim=-1)
 
+    def new_grid(self, batch_shape=(), dtype=torch.float32,
+                 device=None) -> Tensor:
+        """A fresh log-odds grid at the prior (probability 0.5 is log-odds
+        0), ``[*batch_shape, rows, cols]``."""
+        return torch.zeros((*batch_shape, self.rows, self.cols), dtype=dtype,
+                           device=device)
+
     def max_ray_steps(self, max_range_m: float) -> int:
         """Static bound on DDA steps for rays up to ``max_range_m``."""
         cells = max_range_m / self.resolution

@@ -167,10 +167,17 @@ _COUNTERS: dict[tuple[int, int], Tensor] = {}
 def _arrival_counters(device: torch.device, stream: int, n: int) -> Tensor:
     """K4's per-tile arrival counters on ``device`` for ``stream``: zeros
     that the kernel leaves at zero, kept across calls (grown, never
-    shrunk), one set per stream so that concurrent calls do not share."""
+    shrunk), one set per stream so that concurrent calls do not share.
+    A CUDA graph captured on ``stream`` keeps the set's address, so the
+    set must exist before the capture (``graph/capture.py`` runs a frame
+    eagerly on the capture stream first); making one inside it raises."""
     key = (device.index, stream)
     cnt = _COUNTERS.get(key)
     if cnt is None or cnt.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "K4's arrival counters for this stream must be made before "
+                "a CUDA graph capture (run the call once on the stream)")
         cnt = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
         _COUNTERS[key] = cnt
     return cnt

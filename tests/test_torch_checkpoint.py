@@ -11,14 +11,24 @@ rollout at ``tests/test_torch_world.py``'s gates (best pose 1e-4 m, N_eff
 rtol 1e-3, ground truth 1e-5 m, map flip fraction < 1e-3; ICP 1e-4 m,
 EKF 1e-3 m).  A leaf count or shape that differs from the template's
 raises, as in the JAX package.  Also ``rollout --save-state/--resume``.
+
+The other way: a checkpoint the port writes (fused, dda, a 3-world fleet,
+ICP, EKF) has the JAX layout leaf for leaf: every leaf's dtype is the
+one the JAX package's ``save`` writes for its own state (the dtypes of
+``jax.tree.leaves``, bf16 widened to f32; ``best_idx`` is int32), it
+loads in the JAX package with warnings as errors, and the JAX package
+resumes from it (the fused world at the gates above, the port fed the
+JAX draws).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import warnings
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -189,3 +199,68 @@ def test_cli_save_state_and_resume(tmp_path, capsys):
     state, outs = fw.rollout_cadence(state, 13, seed=1)
     assert resumed["final_pose"] == state.pose.tolist()
     assert resumed["scans"] == int(outs.fired.sum()) == 2
+
+
+_PRESETS = {"dda": "grid_slam.yaml", "icp": "icp_test.yaml",
+            "ekf": "landmarks.yaml"}
+
+
+def _both_worlds(kind: str):
+    """The JAX and the port's world of ``kind``, and its worlds axis."""
+    if kind in _PRESETS:
+        path = str(ROOT / "configs" / _PRESETS[kind])
+        jw = jcompile.compile_world(jparse(Path(path).read_text()))
+        tw = tcompile.compile_world(parse_config(Path(path).read_text()),
+                                    device="cpu")
+        if kind == "dda":
+            jw.grid_config = dataclasses.replace(jw.grid_config,
+                                                 n_particles=4)
+            tw.grid_config = dataclasses.replace(tw.grid_config,
+                                                 n_particles=4)
+        return jw, tw, ()
+    text = _headline_text(6 if kind == "fleet" else 16)
+    return (jcompile.compile_world(jparse(text)),
+            tcompile.compile_world(parse_config(text), device="cpu"),
+            (3,) if kind == "fleet" else ())
+
+
+@pytest.mark.parametrize("kind", ["fused", "dda", "fleet", "icp", "ekf"])
+def test_port_checkpoint_resumes_in_jax(kind, tmp_path):
+    jw, tw, worlds = _both_worlds(kind)
+    ticks = 95 if kind == "dda" else 19  # 3 scan frames (dda: 1 s apart)
+    tst, _ = tw.rollout_cadence(tw.init(worlds), ticks, seed=0)
+    path = str(tmp_path / "port.npz")
+    checkpoint.save(path, tst)
+    jpath = str(tmp_path / "jax.npz")
+    jinit = jw.init(worlds)
+    jckpt.save(jpath, jinit)
+    jleaves = jax.tree.leaves(jinit)
+    with np.load(path) as ours, np.load(jpath) as theirs:
+        assert len(jleaves) == sum(k.startswith("leaf_") for k in ours.files)
+        for i, leaf in enumerate(jleaves):
+            want = np.float32 if leaf.dtype == jnp.bfloat16 else leaf.dtype
+            assert ours[f"leaf_{i}"].dtype == want == \
+                theirs[f"leaf_{i}"].dtype, i
+    if tst.grid is not None:
+        assert tst.grid.best_idx.dtype == torch.int32
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        jst = jckpt.load(path, jinit)
+    assert int(jst.scan_counter) == tst.scan_counter == 3
+    timer = float(jst.scan_timer)
+    assert timer == tst.scan_timer
+    jst2, jo = jw.rollout_cadence(jst, ticks, seed=1, initial_timer=timer)
+    assert int(jst2.scan_counter) == 6
+    assert all(bool(jnp.isfinite(x).all()) for x in jax.tree.leaves(jo))
+    if kind != "fused":
+        return
+    tst2, to = tw.rollout_cadence(
+        tst, 19, seed=1, noise=rollout_grid_noise(jw, jst, 19, 1, timer))
+    np.testing.assert_allclose(to.grid_pose.numpy(),
+                               np.asarray(jo.grid_pose), atol=1e-4)
+    np.testing.assert_allclose(to.n_eff.numpy(), np.asarray(jo.n_eff),
+                               rtol=1e-3)
+    np.testing.assert_allclose(tst2.pose.numpy(), np.asarray(jst2.pose),
+                               atol=1e-5)
+    np.testing.assert_array_equal(tst2.grid.best_idx.numpy(),
+                                  np.asarray(jst2.grid.best_idx))

@@ -17,6 +17,8 @@ from slamrs_tpu.core import math as jm  # noqa: E402
 from slamrs_tpu.core import motion as jmotion  # noqa: E402
 from slamrs_tpu_torch.core import math as tm  # noqa: E402
 from slamrs_tpu_torch.core import motion as tmotion  # noqa: E402
+from slamrs_tpu.core import types as jtypes  # noqa: E402
+from slamrs_tpu_torch.core import types as ttypes  # noqa: E402
 from slamrs_tpu_torch.core.types import Pose2  # noqa: E402
 
 ATOL = 1e-6
@@ -135,3 +137,28 @@ def test_probability_algebra(fn):
     got = getattr(tm, fn)(*(torch.from_numpy(a) for a in args))
     assert got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=ATOL)
+
+
+def _same_arrays(jax_tuple, torch_tuple):
+    for name in jax_tuple._fields:
+        j = np.asarray(getattr(jax_tuple, name))
+        t = getattr(torch_tuple, name)
+        assert t.device.type == "cpu", name
+        assert t.numpy().dtype == j.dtype and t.shape == j.shape, name
+        np.testing.assert_array_equal(t.numpy(), j, err_msg=name)
+
+
+@pytest.mark.parametrize("beams,batch", [(360, ()), (90, (3,)), (1, (2, 4))])
+def test_scan_empty(beams, batch):
+    _same_arrays(jtypes.Scan.empty(beams, batch),
+                 ttypes.Scan.empty(beams, batch, device="cpu"))
+    scan = ttypes.Scan.empty(beams, batch, device="cpu")
+    assert scan.num_beams == beams
+    scan.distances.add_(1.0)  # the fields are tensors of their own
+    assert float(scan.strengths.abs().sum()) == 0.0
+
+
+@pytest.mark.parametrize("lanes,batch", [(7, ()), (3, (2,))])
+def test_landmark_scan_empty(lanes, batch):
+    _same_arrays(jtypes.LandmarkScan.empty(lanes, batch),
+                 ttypes.LandmarkScan.empty(lanes, batch, device="cpu"))

@@ -270,3 +270,17 @@ def test_scatter_is_reproducible():
     a = tg.grid_integrate(grids, *args)
     b = tg.grid_integrate(grids, *args)
     assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("geom", [HEADLINE, FINE])
+@pytest.mark.parametrize("batch", [(), (3,)])
+def test_new_grid(geom, batch):
+    js, ts = _specs(geom)
+    for jdt, tdt in ((jnp.float32, torch.float32),
+                     (jnp.bfloat16, torch.bfloat16)):
+        j = js.new_grid(batch, jdt)
+        t = ts.new_grid(batch, tdt, device="cpu")
+        assert t.shape == j.shape and t.dtype == tdt
+        np.testing.assert_array_equal(t.float().numpy(),
+                                      np.asarray(j, np.float32))
+    assert ts.new_grid().dtype == torch.float32
