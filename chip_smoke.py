@@ -171,7 +171,10 @@ f32 ``[256, 10, 200, 256]``, ``integrate="fused"``):
 then the host graph (``graph/app.py``), each preset through
 ``App.from_file(..., device="cuda")`` frame by frame, the counts set to 0
 just before each run and read just after, the published pose held
-against the simulator's pose at the scan:
+against the simulator's pose at the scan.  The App on the card runs
+its nodes' device updates as captured CUDA graphs (the default
+``capture=None``), so phases 31-44 hold their gates on the captured
+path:
 
 31. ``app_grid_slam_fused_300``: the headline preset at its full size
     (1,024 particles, bf16 ``[1024, 80, 128]``) for 300 frames: K1 once
@@ -183,9 +186,13 @@ against the simulator's pose at the scan:
 33. ``app_grid_slam_yaml_300`` (dda): the card and the CPU under the same
     numpy draws, best poses within 0.04 m RMSE, no kernel;
 34. ``app_landmarks_300``: EKF RMSE <= 0.03 m, no kernel;
-35. ``app_no_host_sync``: 30 idle simulator ticks and one frame whose
-    SLAM update publishes a pose and no map, under
-    ``torch.cuda.set_sync_debug_mode("error")``;
+35. ``app_no_host_sync``: after frames that capture and replay every
+    graph, 30 idle simulator ticks and one frame whose SLAM update
+    publishes a pose and a map, every node update a replay, under
+    ``torch.cuda.set_sync_debug_mode("error")``; then 60 frames of the
+    captured ``landmarks.yaml`` App under ``"error"`` and 60 of
+    ``icp_test.yaml`` under ``"warn"``, whose only syncs must be the ICP
+    node's count read, once an update;
 36. a profiled 300-frame App run of each preset: device busy time, idle
     share, CUDA launches a frame;
 37. ``cli_run``: ``python -m slamrs_tpu_torch run
@@ -291,12 +298,39 @@ loop.  Then the captured rollout against the eager loop
     frame, host launch calls a frame (runtime launch, graph launch,
     memcpy and memset calls under the profiler; the eager profile over
     its first 10 frames), ticks/s (world-ticks/s), device busy time,
-    idle share and each run's own peak memory.
+    idle share and each run's own peak memory;
+
+then the App's node programs (``graph/capture.Program``, one per node;
+``app_capture_phases_time`` says how long these took):
+
+53. ``app_capture_*``: ``grid_slam_fused.yaml`` at its full size
+    (1,024 particles, bf16 ``[1024, 80, 128]``, 300 frames),
+    ``icp_test.yaml`` (900), ``grid_slam.yaml`` (dda, 300),
+    ``landmarks.yaml`` (300) and ``neato_replay.yaml`` over the robot's
+    log, each from fresh Apps with ``capture=False`` (op by op) and
+    ``capture=True``.  Gates: every published message, every node state
+    and the launch counts bitwise under injected numpy draws (the grid
+    node's and the landmark sensor's seams) and under the seed; K1 once
+    a grid update and K4 ten times an ICP update by counter and by the
+    profiler's kernel names, no other kernel; every programmed node
+    replaying.  Printed beside the op-by-op run's: frames/s, and over a
+    profiled window after the graphs are captured host launch calls a
+    frame, device busy time and idle share; per node its graphs,
+    replays, capture seconds, launches a replay and bytes copied back a
+    replay;
+54. ``longrun_fused_vs_dda_500``: ``tests/torch_longrun.py`` on the
+    card, 500 updates of dda (f32) and fused (bf16) through the grid
+    node's captured update program under the JAX package's seed-7
+    draws: ``tests/test_longrun.py``'s gates (tail drift <= 0.10 m dda,
+    <= 0.15 m fused, path RMSE <= 0.10 m, occupancy agreement >= 0.80),
+    the four numbers beside the JAX run's on the CPU, K1 once per fused
+    update, 499 replays each.
 
 The ``kernels`` line's entries carry the fleet runs' launches
 (``fleet_launches``), for K1 and K2 their times at the fleet's shapes
 (``fleet_ms``, ``fleet_plain_ms``, ``fleet_bound_ms``), and for K1 and
-K4 the launches of the host-graph runs (``app_launches``), and for K4
+K4 the launches of the host-graph runs (``app_launches``) and of the
+captured App runs of phase 53 (``app_capture_launches``), and for K4
 those of the replay (``replay_launches``), for each kernel its
 launches on the mesh runs (``mesh_launches``) and on the captured runs
 of phase 52 by route (``captured_launches``).
@@ -2832,9 +2866,12 @@ def check_app_landmarks(torch):
 
 
 def check_app_no_host_sync(torch):
-    """The headline App: 30 idle simulator ticks, then one frame whose
-    tick fires and whose SLAM update publishes its pose but no map, all
-    under ``torch.cuda.set_sync_debug_mode("error")``."""
+    """The headline App, captured: frames until every graph has been
+    captured and replayed (the simulator's idle and firing ticks, the
+    SLAM update and its map), then 30 idle frames and one frame whose
+    tick fires and whose SLAM update publishes its pose and map, every
+    node update a replay, under ``torch.cuda.set_sync_debug_mode(
+    "error")``."""
     from slamrs_tpu_torch.graph.app import App
     from slamrs_tpu_torch.graph.nodes.sim import SimulatorNode
     from slamrs_tpu_torch.graph.nodes.slam import GridMapSlamNode
@@ -2845,9 +2882,15 @@ def check_app_no_host_sync(torch):
                         device="cuda")
     sim, node = app.node(SimulatorNode), app.node(GridMapSlamNode)
     node.cfg.publish_map_every = 2
+    # the map graph replays from the 4th update; the next update maps
+    while node.updates < 5 or node.updates % 2 == 0:
+        app.frame()
     sim.set_parameters(update_period=1e6)
-    app.frame()  # the controls publish their first command
+    eager = {k: s.eager for k, s in app.program_stats().items()}
+    replays = {k: s.replays for k, s in app.program_stats().items()}
     poses = app.pubsub.subscribe("robot/pose")
+    maps = app.pubsub.subscribe("slam/map")
+    ticks = sim.ticks
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -2860,12 +2903,64 @@ def check_app_no_host_sync(torch):
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     msgs = poses.drain()
-    emit({"phase": "app_no_host_sync", "idle_ticks": idle - 1,
+    stats = app.program_stats()
+    emit({"phase": "app_no_host_sync", "idle_ticks": idle - ticks,
           "updates": node.updates, "poses_published": len(msgs),
-          "map_published": app.node(VisualizerNode).latest("slam/map")
-          is not None, "pose": [float(v) for v in msgs[0].pose]})
-    if idle != 31 or node.updates != 1 or len(msgs) != 1:
-        raise AssertionError("app_no_host_sync did not run its ticks")
+          "maps_published": len(maps.drain()),
+          "replays": {k: s.replays - replays[k] for k, s in stats.items()},
+          "eager_runs": {k: s.eager - eager[k] for k, s in stats.items()},
+          "map_shape": list(app.node(VisualizerNode).latest("slam/map")
+                            .data.shape),
+          "pose": [float(v) for v in msgs[0].pose]})
+    require(sim.ticks == idle + 1 and len(msgs) == 1,
+            "app_no_host_sync did not run its ticks")
+    require(all(s.eager == eager[k] for k, s in stats.items()),
+            f"app_no_host_sync: a node ran eagerly ({stats})")
+    require(stats["SimulatorNode"].replays - replays["SimulatorNode"]
+            == sim.ticks - ticks and stats["GridMapSlamNode"].replays
+            - replays["GridMapSlamNode"] == 2,
+            f"app_no_host_sync: replays {stats}")
+
+
+def check_app_no_host_sync_icp_ekf(torch):
+    """``landmarks.yaml`` and ``icp_test.yaml`` captured, warmed until
+    their graphs replay: 60 frames of the EKF App under
+    ``set_sync_debug_mode("error")``, and 60 of the ICP App under
+    ``"warn"`` with every warning recorded, which must be the ICP node's
+    count read alone, once an update."""
+    import warnings
+
+    from slamrs_tpu_torch.graph.app import App
+
+    root = Path(__file__).resolve().parent
+    fields = {"phase": "app_no_host_sync_icp_ekf", "frames": 60}
+    for name, mode in (("landmarks.yaml", "error"), ("icp_test.yaml",
+                                                      "warn")):
+        app = App.from_file(str(root / "configs" / name), device="cuda")
+        node = app_slam_node(app)
+        while node.updates < 2:
+            app.frame()
+        before = node.updates
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode(mode)
+            try:
+                app.run(frames=60)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        syncs = sum("synchroniz" in str(w.message) for w in caught)
+        updates = node.updates - before
+        stats = app.program_stats()
+        fields[name] = {"updates": updates, "syncs": syncs,
+                        "eager_runs": {k: v.eager for k, v in stats.items()},
+                        "replays": {k: v.replays for k, v in stats.items()}}
+        want = updates if name == "icp_test.yaml" else 0
+        require(updates >= 9 and syncs == want,
+                f"app_no_host_sync {name}: {syncs} syncs over {updates} "
+                "updates")
+    emit(fields)
 
 
 def profile_app(torch, name, frames, text=None):
@@ -3597,6 +3692,322 @@ def check_captures(torch):
     return counts
 
 
+# the host graph's node programs against the op-by-op nodes: (label,
+# preset, frames, warm frames before the profile, profiled frames,
+# kernel launches an update of the SLAM node).  A profiled window holds
+# 10-15 SLAM updates: over 65 replay updates (~1,100 graph nodes each)
+# the profiler missed some K4 kernels in some windows while the counters
+# held every launch; the 10-update windows missed none
+APP_CAPTURES = [
+    ("grid_slam_fused", "grid_slam_fused.yaml", 300, 30, 60,
+     {"fused_update": 1}),
+    ("icp_test", "icp_test.yaml", 900, 30, 60, {"nn_argmin": 10}),
+    ("grid_slam_yaml", "grid_slam.yaml", 300, 60, 120, {}),
+    ("landmarks", "landmarks.yaml", 300, 30, 60, {}),
+]
+APP_TOPICS = ("robot/pose", "slam/pose", "slam/map",
+              "robot/observation_odometry", "robot/observation")
+
+
+def app_values(torch, msg) -> list:
+    """Every array a message carries, on the host."""
+    import dataclasses
+
+    import numpy as np
+
+    if dataclasses.is_dataclass(msg):
+        msg = tuple(getattr(msg, f.name) for f in dataclasses.fields(msg))
+    if isinstance(msg, tuple):
+        return [v for x in msg for v in app_values(torch, x)]
+    if isinstance(msg, torch.Tensor):
+        return [msg.cpu().numpy()]
+    if isinstance(msg, (bool, int, float)):
+        return [np.asarray(msg)]
+    return [np.asarray(getattr(msg, a)) for a in
+            ("pose", "position", "data", "points", "means", "covariances",
+             "seen") if hasattr(type(msg), a)]
+
+
+def app_slam_node(app):
+    from slamrs_tpu_torch.graph.nodes import slam
+
+    return next(n for n in app.nodes
+                if isinstance(n, (slam.GridMapSlamNode,
+                                  slam.IcpPointMapperNode,
+                                  slam.EKFLandmarkSlamNode)))
+
+
+def app_frames(app, frames):
+    """``frames`` frames; None: until the FileLoader is done, and two more
+    (the last scan mapped).  Returns the frames run."""
+    from slamrs_tpu_torch.graph.nodes.robot import FileLoaderNode
+
+    if frames is not None:
+        app.run(frames=frames)
+        return frames
+    loader, n = app.node(FileLoaderNode), 2
+    while not loader.done:
+        app.frame()
+        n += 1
+    app.run(frames=2)
+    return n
+
+
+def app_capture_run(torch, text, frames, capture, draws=None):
+    """A fresh App on the card, captured or op by op, for ``frames``
+    frames, the counts set to 0 just before and read just after;
+    ``draws`` (device tensors, an update or a tick a row) replace the
+    grid node's and the landmark sensor's draws."""
+    from slamrs_tpu_torch.graph.app import App
+    from slamrs_tpu_torch.graph.nodes.sim import SimulatorNode
+    from slamrs_tpu_torch.graph.nodes.slam import GridMapSlamNode
+    from slamrs_tpu_torch.models.gridslam import UpdateNoise
+
+    app = App.from_yaml(text, device="cuda", capture=capture)
+    if draws is not None:
+        grid, sim = app.node(GridMapSlamNode), app.node(SimulatorNode)
+        if grid is not None:
+            grid.noise_for_update = lambda i: UpdateNoise(
+                *(x[i] for x in draws["grid"]))
+        if sim is not None:
+            sim.landmark_noise = lambda i: tuple(x[i]
+                                                 for x in draws["landmarks"])
+    subs = {t: app.pubsub.subscribe(t) for t in APP_TOPICS}
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    n = app_frames(app, frames)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return {"app": app, "counts": read_counts(), "seconds": seconds,
+            "frames": n, "updates": app_slam_node(app).updates,
+            "msgs": {t: [app_values(torch, m) for m in s.drain()]
+                     for t, s in subs.items()}}
+
+
+def same_app_run(torch, a, b) -> bool:
+    """Every message, every node state and the launch counts bitwise."""
+    import numpy as np
+
+    from slamrs_tpu_torch.graph.capture import _tensor_leaves
+
+    if a["counts"] != b["counts"] or a["frames"] != b["frames"]:
+        return False
+    for t in APP_TOPICS:
+        ma, mb = a["msgs"][t], b["msgs"][t]
+        if len(ma) != len(mb) or any(
+                len(x) != len(y) or not all(
+                    u.dtype == v.dtype and np.array_equal(u, v)
+                    for u, v in zip(x, y)) for x, y in zip(ma, mb)):
+            return False
+    for na, nb in zip(a["app"].nodes, b["app"].nodes):
+        if isinstance(getattr(na, "state", None), tuple) and not all(
+                torch.equal(x, y) for x, y in
+                zip(_tensor_leaves(na.state), _tensor_leaves(nb.state))):
+            return False
+    return True
+
+
+def app_profile(torch, text, capture, warm, frames):
+    """A profiled window of ``frames`` frames after ``warm`` frames of a
+    fresh App: device busy time, idle
+    share, the host's launch calls, the kernels by name, the SLAM
+    node's updates in the window."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from slamrs_tpu_torch.graph.app import App
+    from slamrs_tpu_torch.utils import trace
+
+    app = App.from_yaml(text, device="cuda", capture=capture)
+    app.run(frames=warm)
+    node = app_slam_node(app)
+    before = node.updates
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        n = app_frames(app, frames)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = set(trace.all_stats())
+    events = prof.key_averages()
+    device = [e for e in events
+              if e.device_type.name == "CUDA" and e.key not in spans]
+    busy = sum(e.self_device_time_total for e in device) / 1e6
+    return {"frames": n, "updates": node.updates - before, "wall": wall,
+            "busy": busy, "idle": 1 - busy / wall,
+            "host_calls": sum(e.count for e in events
+                              if e.device_type.name == "CPU"
+                              and e.key.startswith("cu")
+                              and any(c in e.key for c in HOST_LAUNCH_CALLS)),
+            "by_name": {name: sum(e.count for e in device if kern in e.key)
+                        for name, kern in PROFILED_KERNELS.items()}}
+
+
+def graph_label(key) -> str:
+    """A node program's graph key as text: the simulator's ``idle`` or
+    ``fire``, grid SLAM's ``update`` or ``map``."""
+    kind = key[0]
+    if isinstance(kind, tuple):  # the simulator's (fired, dt, params)
+        return "fire" if kind[0] else "idle"
+    return str(kind)
+
+
+def app_draws(torch, text, frames, seed):
+    """Numpy draws for every grid update and every simulator tick of an
+    App run, on the card."""
+    import numpy as np
+
+    from slamrs_tpu_torch.graph.config import parse_config
+    from slamrs_tpu_torch.graph.nodes.sim import SimulatorNodeConfig
+    from slamrs_tpu_torch.graph.nodes.slam import GridMapSlamNodeConfig
+
+    rng = np.random.default_rng(seed)
+    cfg = parse_config(text)
+    draws = {"grid": None, "landmarks": None}
+    for _, node in cfg.nodes:
+        if isinstance(node, GridMapSlamNodeConfig):
+            p = node.slam_config().n_particles
+            draws["grid"] = (rng.standard_normal((frames, p), np.float32),
+                             rng.standard_normal((frames, p), np.float32),
+                             rng.random((frames, 1), np.float32))
+        if isinstance(node, SimulatorNodeConfig):
+            lanes = max(len(node.landmarks), 1)
+            draws["landmarks"] = tuple(
+                rng.standard_normal((frames + 2, lanes), np.float32)
+                for _ in range(2))
+    return {k: None if v is None else tuple(
+        torch.from_numpy(x).to("cuda") for x in v) for k, v in draws.items()}
+
+
+def check_app_capture(torch, label, text, frames, warm, profiled,
+                      per_update):
+    """The App's node programs as CUDA graphs (``App(capture=True)``)
+    against the op-by-op App (``capture=False``) on one preset: every
+    message, node state and launch count bitwise under injected draws and
+    under the seed; K1/K4 an update by counter and by the profiler's
+    kernel names, no other kernel; every programmed node replaying.
+    Printed beside the op-by-op run's: frames/s, host launch calls a
+    frame, device busy time and idle share over a profiled window after
+    ``warm`` frames, and per node the graphs, replays, capture seconds,
+    launches a replay and bytes copied back a replay."""
+    t0 = time.perf_counter()
+    draws = app_draws(torch, text, 1000 if frames is None else frames, 13)
+    same = {}
+    for kind, kw in (("injected", {"draws": draws}), ("seed", {})):
+        runs = {c: app_capture_run(torch, text, frames, c, **kw)
+                for c in (False, True)}
+        same[kind] = same_app_run(torch, runs[False], runs[True])
+    eager, captured = runs[False], runs[True]
+    stats = captured["app"].program_stats()
+    updates, n = captured["updates"], captured["frames"]
+    counts = captured["counts"]
+    del runs, eager["app"]
+    prof = {c: app_profile(torch, text, c, warm, profiled)
+            for c in (False, True)}
+    emit({"phase": f"app_capture_{label}", "frames": n, "updates": updates,
+          "bitwise_injected": same["injected"], "bitwise_seed": same["seed"],
+          "launch_counts": counts, "eager_launch_counts": eager["counts"],
+          "frames_per_s": {"eager": n / eager["seconds"],
+                           "captured": n / captured["seconds"]},
+          "profiled_frames": {c: prof[b]["frames"] for c, b in
+                              (("eager", False), ("captured", True))},
+          "profiled_kernels": {c: prof[b]["by_name"] for c, b in
+                               (("eager", False), ("captured", True))},
+          "host_launch_calls_per_frame": {
+              c: prof[b]["host_calls"] / prof[b]["frames"]
+              for c, b in (("eager", False), ("captured", True))},
+          "device_busy_s": {"eager": prof[False]["busy"],
+                            "captured": prof[True]["busy"]},
+          "idle_share": {"eager": prof[False]["idle"],
+                         "captured": prof[True]["idle"]},
+          "wall_s_profiled": {"eager": prof[False]["wall"],
+                              "captured": prof[True]["wall"]},
+          "nodes": {node: {
+              "eager": s.eager, "replays": s.replays, "graphs": s.graphs,
+              "capture_s": s.capture_seconds,
+              "launches_per_replay": {graph_label(k): v for k, v in
+                                      s.launches.items() if any(v.values())},
+              "copy_back_bytes_per_replay": {graph_label(k): v for k, v in
+                                             s.copy_back_bytes.items()}}
+              for node, s in stats.items()},
+          "seconds": time.perf_counter() - t0})
+    require(same["injected"] and same["seed"],
+            f"app capture {label}: the captured App differs from op by op")
+    for name in PROFILED_KERNELS:
+        want = per_update.get(name, 0)
+        require(counts[name] == want * updates,
+                f"app capture {label}: {counts[name]} {name} launches over "
+                f"{updates} updates")
+        for c in (False, True):
+            got = prof[c]["by_name"][name]
+            require(got == want * prof[c]["updates"],
+                    f"app capture {label}: the profiler saw {got} {name} "
+                    f"kernels over {prof[c]['updates']} updates "
+                    f"(captured={c})")
+    require(counts["fused_update_in_place"] == 0,
+            f"app capture {label}: K1 ran in place")
+    for node, s in stats.items():
+        require(s.graphs >= 1 and s.replays >= 1 and s.eager == s.graphs,
+                f"app capture {label}: {node} {s}")
+    require(prof[True]["busy"] > 0, f"app capture {label}: no device events")
+    return counts
+
+
+def check_app_captures(torch, log_path):
+    """Every preset and the replay; returns each one's captured counts."""
+    t0 = time.perf_counter()
+    counts = {label: check_app_capture(
+        torch, label, (Path(__file__).resolve().parent / "configs"
+                       / preset).read_text(), frames, warm, profiled,
+        per_update)
+        for label, preset, frames, warm, profiled, per_update
+        in APP_CAPTURES}
+    counts["neato_replay"] = check_app_capture(
+        torch, "neato_replay", replay_yaml(log_path), None, 10, 15,
+        {"nn_argmin": 10})
+    emit({"phase": "app_capture_phases_time",
+          "seconds": time.perf_counter() - t0})
+    return counts
+
+
+def check_longrun(torch):
+    """``tests/torch_longrun.py`` on the card: 500 grid-SLAM updates for
+    dda (f32) and fused (bf16) through the grid node's update program,
+    captured, under the JAX package's seed-7 draws; the JAX test's four
+    gates, the numbers beside the JAX run's on the CPU; K1 once per fused
+    update; each node: its update and its map eager once, 499 update
+    replays."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    import torch_longrun
+
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    numbers, nodes = torch_longrun.run("cuda", graphs=True)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    stats = {k: n.program.stats for k, n in nodes.items()}
+    emit({"phase": "longrun_fused_vs_dda_500", **numbers,
+          "jax_cpu": torch_longrun.JAX_CPU, "gates": torch_longrun.GATES,
+          "launch_counts": counts, "seconds": seconds,
+          "nodes": {k: {"eager": s.eager, "replays": s.replays,
+                        "graphs": s.graphs, "capture_s": s.capture_seconds,
+                        "copy_back_bytes_per_replay": {
+                            graph_label(g): v
+                            for g, v in s.copy_back_bytes.items()}}
+                    for k, s in stats.items()}})
+    failed = torch_longrun.failed_gates(numbers)
+    require(not failed, f"longrun: {failed} missed ({numbers})")
+    require(counts == dict(NO_KERNELS, fused_update=torch_longrun.UPDATES,
+                           fused_update_in_place=0),
+            f"longrun launches {counts}")
+    for k, s in stats.items():
+        require((s.eager, s.replays, s.graphs)
+                == (2, torch_longrun.UPDATES - 1, 2), f"longrun {k}: {s}")
+
+
 def captured_launches(counts, name):
     return {label: c[name] for label, c in counts.items() if c[name]}
 
@@ -3761,6 +4172,7 @@ def main() -> int:
     check_app_grid_slam_yaml(torch)
     check_app_landmarks(torch)
     check_app_no_host_sync(torch)
+    check_app_no_host_sync_icp_ekf(torch)
     for name in APP_PRESETS:
         profile_app(torch, name, 300)
     with tempfile.TemporaryDirectory() as tmp:
@@ -3782,6 +4194,8 @@ def main() -> int:
         check_file_loader_no_host_sync(torch, log_path)
         profile_app(torch, "neato_replay.yaml", 70,
                     text=replay_yaml(log_path))
+        # the App's node programs as CUDA graphs against op by op
+        app_cap = check_app_captures(torch, log_path)
     check_robot_link_card(torch)
 
     # sharded fleets: (world, particle) meshes whose entries are the card
@@ -3798,6 +4212,8 @@ def main() -> int:
 
     # the cadence rollout as CUDA graphs, against the eager loop
     cap = check_captures(torch)
+    # fused against dda over 500 captured node updates
+    check_longrun(torch)
 
     k1_ms, k1_plain, k1_bound, k1_by = times["0.05m"]
     emit({"kernels": [
@@ -3811,6 +4227,7 @@ def main() -> int:
          **{f"fleet_{k}": v for k, v in t_fleet.items()},
          "captured_launches": captured_launches(cap, "fused_update"),
          "app_launches": app_k1["fused_update"],
+         "app_capture_launches": captured_launches(app_cap, "fused_update"),
          "mesh_launches": {
              "config5_8x1_300": c5_dp_counts["fused_update"],
              "config5_4x2_local_300": c5_local_counts["fused_update"],
@@ -3840,6 +4257,7 @@ def main() -> int:
          **t4["mapper_1x360x16384_qc10000"],
          "fleet_launches": icp_fleet_counts["nn_argmin"],
          "app_launches": app_k4["nn_argmin"],
+         "app_capture_launches": captured_launches(app_cap, "nn_argmin"),
          "captured_launches": captured_launches(cap, "nn_argmin"),
          "replay_launches": replay_k4["nn_argmin"],
          "mesh_launches": {"icp_test_4x1_300": icp_mesh_counts["nn_argmin"]}}

@@ -13,6 +13,16 @@ wall clock.  The nodes run on ``device``, which defaults to ``cuda`` and
 never falls back: without CUDA the App raises, and the CPU runs only
 when asked for (``device="cpu"``).  Every torch operation runs on the
 thread that calls :meth:`App.frame`.
+
+On a CUDA device the frame runs on one side stream, and each node's
+device update is a captured CUDA graph (``graph/capture.Program``; the
+JAX nodes' ``jax.jit``): the first update of each kind runs op by op
+and is captured, every later one is a replay.  The simulator has an
+idle-tick and a firing-tick graph; grid SLAM an update graph and a
+probability-map graph; the ICP mapper and the EKF one update graph each.
+Messages that leave a graph are copies: device observations are cloned,
+and pose and map messages start their host copy right after the replay,
+on the same stream.
 """
 
 from __future__ import annotations
@@ -23,6 +33,7 @@ from typing import Optional
 
 import torch
 
+from slamrs_tpu_torch.graph.capture import on_capture_stream
 from slamrs_tpu_torch.graph.config import Config, load_config, parse_config
 from slamrs_tpu_torch.graph.pubsub import PubSub
 from slamrs_tpu_torch.utils import PerfStats
@@ -40,13 +51,24 @@ def check_device(device) -> torch.device:
 
 
 class App:
+    """``capture``: None runs the nodes' device updates as captured CUDA
+    graphs on a CUDA device and op by op elsewhere; True captures and
+    raises on the CPU; False runs them op by op.  Captured and op by op
+    give the same bits."""
+
     def __init__(self, config: Config, frame_dt: float = 1.0 / 30.0,
                  realtime: bool = False, with_renderer: bool = False,
-                 device="cuda"):
+                 device="cuda", capture: Optional[bool] = None):
         self.device = check_device(device)
+        on_cuda = self.device.type == "cuda"
+        if capture is True and not on_cuda:
+            raise ValueError("App(capture=True) needs a CUDA device, got "
+                             f"{self.device}")
+        # the nodes' mode: None op by op, else use_programs(graphs)
+        self._graphs = True if capture is not False and on_cuda else None
         self.pubsub = PubSub()
         self.config = config
-        self.nodes = config.instantiate_nodes(self.pubsub, self.device)
+        self.nodes = self._instantiate()
         self.frame_dt = frame_dt
         self.realtime = realtime
         self.frame_stats = PerfStats()
@@ -69,9 +91,31 @@ class App:
     def from_yaml(contents: str, **kwargs) -> "App":
         return App(parse_config(contents), **kwargs)
 
+    def _instantiate(self) -> list:
+        nodes = self.config.instantiate_nodes(self.pubsub, self.device)
+        if self._graphs is not None:
+            for n in nodes:
+                n.use_programs(self._graphs)
+        return nodes
+
+    def use_programs(self, graphs: bool = True) -> None:
+        """Run the nodes' device updates through their programs from the
+        next frame on: captured CUDA graphs with ``graphs`` (CUDA only),
+        else the same programs uncaptured, on any device (the CPU tests
+        hold them to the op-by-op nodes)."""
+        self._graphs = graphs
+        for n in self.nodes:
+            n.use_programs(graphs)
+
+    def program_stats(self) -> dict:
+        """Each node program's ``capture.ProgramStats``, by node class."""
+        return {type(n).__name__: n.program.stats for n in self.nodes
+                if n.program is not None}
+
     def frame(self) -> None:
-        """One app frame."""
-        with self.frame_stats.timeit():
+        """One app frame, on the device's capture stream
+        (``graph/capture.on_capture_stream``)."""
+        with self.frame_stats.timeit(), on_capture_stream(self.device):
             self.pubsub.tick()
             for n in self.nodes:
                 advance = getattr(n, "advance", None)
@@ -108,7 +152,7 @@ class App:
             n.terminate()
         self.config = parse_config(contents)
         self.pubsub = PubSub()
-        self.nodes = self.config.instantiate_nodes(self.pubsub, self.device)
+        self.nodes = self._instantiate()
         self.time = 0.0
 
     @staticmethod

@@ -1,11 +1,20 @@
-"""The cadence rollout as captured CUDA graphs, one replay a frame.
+"""Device work as captured CUDA graphs: the cadence rollout, one replay a
+frame, and the App's node updates, one replay an update.
 
-Counterpart of the JAX package's compiled rollout: ``jax.jit`` over a
+Counterpart of the JAX package's compiled programs: ``jax.jit`` over a
 ``lax.scan`` of frames in ``FusedWorld.rollout_cadence``
-(``slamrs_tpu/graph/compile.py:313-432``).  The eager loop issues some
-50 host launches a grid tick and 200 an ICP tick; here each scan frame
-(``FusedWorld.frame``: ``k`` idle ticks, then the scan tick with K1-K4
-inside) is one ``torch.cuda.CUDAGraph`` replay.
+(``slamrs_tpu/graph/compile.py:313-432``), and the ``jax.jit`` of each
+node's update (``slamrs_tpu/graph/nodes/sim.py:94``,
+``slamrs_tpu/graph/nodes/slam.py:65,71,137,173``).  Issued op by op, a
+grid tick takes some 50 host launches and an ICP tick 200; here each is
+one ``torch.cuda.CUDAGraph`` replay.
+
+:class:`Program` holds what every captured call needs: a static state,
+copy-back of the leaves the work writes fresh, static input buffers, the
+generator registered with each graph, one graph pool, and the launch
+counters and statistics of each graph.  :class:`FrameProgram` is the
+rollout's; the nodes of ``graph/nodes/`` hold one each
+(``App(capture=...)``).
 
 The frame program (:class:`FrameProgram`) is ``FusedWorld.frame`` on
 static buffers:
@@ -63,7 +72,10 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import gc
+import inspect
 import time
+import weakref
 from typing import Optional
 
 import numpy as np
@@ -102,21 +114,35 @@ def _add_counts(delta: dict, sign: int = 1) -> None:
 
 
 @dataclasses.dataclass
-class CaptureStats:
-    """What one captured rollout did (``FusedWorld.capture_stats``)."""
+class ProgramStats:
+    """What a :class:`Program` did: its runs made eagerly (the first of
+    each key, or every run without graphs), its graph replays, the
+    seconds spent capturing, and per graph (by key) the wrapper launches
+    a replay adds and the bytes its program copies back into the static
+    state."""
 
-    frames: int = 0
-    eager_frames: int = 0  # frame 0 and the first of each idle count
+    eager: int = 0
     replays: int = 0
     capture_seconds: float = 0.0
-    # per graph, by idle count k: wrapper launches a replay adds, and
-    # the bytes its program copies back into the static state a frame
     launches: dict = dataclasses.field(default_factory=dict)
     copy_back_bytes: dict = dataclasses.field(default_factory=dict)
 
     @property
     def graphs(self) -> int:
         return len(self.launches)
+
+
+@dataclasses.dataclass
+class CaptureStats(ProgramStats):
+    """What one captured rollout did (``FusedWorld.capture_stats``); its
+    graphs are keyed by idle count k."""
+
+    frames: int = 0
+
+    @property
+    def eager_frames(self) -> int:
+        """Frame 0 and the first frame of each idle count."""
+        return self.eager
 
 
 def _tensor_leaves(tree) -> list:
@@ -128,16 +154,62 @@ def _storage(t: Tensor) -> int:
     return t.untyped_storage().data_ptr()
 
 
-class FrameProgram:
-    """The static buffers of a captured rollout and the frame program
-    over them; :meth:`run` is what a graph captures."""
+def _check_leaf(static: Tensor, new: Tensor, what: str) -> None:
+    if new.shape != static.shape or new.dtype != static.dtype:
+        raise RuntimeError(
+            f"{what} changed from {static.dtype}{list(static.shape)} to "
+            f"{new.dtype}{list(new.shape)}")
 
-    def __init__(self, fw, first_state, first_row, caller_state, frames: int,
-                 generator, draws, landmark_draws, graphs: bool):
-        self.fw = fw
+
+class Program:
+    """Device work on static buffers (``state`` and ``inputs``), run
+    eagerly the first time for each key and, with ``graphs``, captured
+    into a CUDA graph right after and replayed from then on.
+
+    ``body(key)`` is the work (a bound method is held weakly, so the
+    program frees with its owner): it reads ``state`` and ``inputs``, hands a
+    new state to :meth:`copy_back` and returns its outputs.  Outputs of a
+    replay are the tensors the capture made, in the graph's pool: a
+    caller copies what it keeps before the program's next replay.  The
+    state and the input buffers live outside the pool.
+
+    The program owns one graph pool, registers ``generator`` (if any)
+    with each graph, so a replay draws what the eager run would, and
+    keeps each graph's launch counts (taken off the counters at capture
+    and added back on every replay).  It captures on the current stream,
+    which must be a side stream (:func:`on_capture_stream`), without a
+    device sync or ``empty_cache``.  A capture or a replay that fails
+    raises; nothing falls back to the eager run.
+    """
+
+    def __init__(self, body, device, graphs: bool, generator=None,
+                 stats: Optional[ProgramStats] = None):
+        self.device = torch.device(device)
+        if graphs and self.device.type != "cuda":
+            raise ValueError(f"CUDA graphs need a CUDA device, got "
+                             f"{self.device}")
+        # a bound method of the program's owner is held weakly: a cycle
+        # through it would leave the program and its graphs to the cyclic
+        # collector, which may run inside a later capture, where
+        # destroying a graph invalidates that capture
+        self._body_fn = (weakref.WeakMethod(body) if inspect.ismethod(body)
+                         else lambda: body)
+        self.graphs = graphs
         self.generator = generator
-        self.stats = CaptureStats(frames=frames, eager_frames=1)  # frame 0
-        # the static state: the first frame's result, each storage once
+        self.stats = ProgramStats() if stats is None else stats
+        self.state = None
+        self.inputs: dict = {}  # name -> the static form of a filled value
+        self._buffers: dict = {}
+        self._caller: set[int] = set()
+        self._graphs: dict = {}
+        self._outputs: dict = {}
+        self._given: dict = {}
+        self._pool = torch.cuda.graph_pool_handle() if graphs else None
+        self._copied = 0
+
+    def own(self, state, caller=None) -> None:
+        """Take ``state`` as the static state, each storage owned once; a
+        leaf of ``caller`` (a state the caller keeps) is never written."""
         seen: set[int] = set()
 
         def own(x):
@@ -148,9 +220,154 @@ class FrameProgram:
             seen.add(_storage(x))
             return x
 
-        self.state = pf.tree_map(own, first_state)
-        self._caller = {_storage(t) for t in _tensor_leaves(caller_state)}
+        self.state = pf.tree_map(own, state)
+        self._caller = {_storage(t) for t in _tensor_leaves(caller)}
+
+    def load(self, state) -> None:
+        """Make the static state hold ``state``: on first use a copy of
+        each of its tensors; after that each tensor that is not already
+        the static leaf is copied into it (a state set from outside).
+        Host values are taken as they are."""
+        if self.state is None:
+            self.own(pf.tree_map(
+                lambda x: x.clone() if isinstance(x, Tensor) else x, state))
+            return
+
+        def into(s, n):
+            if not isinstance(s, Tensor):
+                return n
+            if n is not s:
+                _check_leaf(s, n, "a loaded state leaf")
+                s.copy_(n)
+            return s
+
+        self.state = pf.tree_map(into, self.state, state)
+
+    def fill(self, name, value) -> tuple:
+        """Copy ``value`` (a tensor or a named tuple of them) into the
+        static input buffers ``name``, made on first use; ``inputs[name]``
+        is its static form.  Returns the non-tensor leaves, which a
+        capture holds as constants: they belong in the caller's key."""
+        consts: list = []
+        self.inputs[name] = self._static((name,), value, consts)
+        return tuple(consts)
+
+    def _static(self, path: tuple, v, consts: list):
+        if isinstance(v, tuple):
+            items = [self._static((*path, i), x, consts)
+                     for i, x in enumerate(v)]
+            return type(v)(*items) if hasattr(v, "_fields") else tuple(items)
+        if not isinstance(v, Tensor):
+            consts.append(v)
+            return v
+        buf = self._buffers.get(path)
+        if buf is None:
+            buf = self._buffers[path] = torch.empty(
+                v.shape, dtype=v.dtype, device=self.device)
+        _check_leaf(buf, v, f"input {path}")
+        buf.copy_(v)
+        return buf
+
+    def copy_back(self, new_state) -> None:
+        """Copy each leaf the body wrote as a fresh tensor into its static
+        leaf; leaves updated in place are left alone."""
+        for s, n in zip(_tensor_leaves(self.state),
+                        _tensor_leaves(new_state), strict=True):
+            if n.data_ptr() == s.data_ptr():
+                continue
+            _check_leaf(s, n, "a state leaf")
+            if _storage(s) in self._caller:
+                raise RuntimeError("program: a fresh leaf would be copied "
+                                   "into the caller's state")
+            s.copy_(n)
+            self._copied += s.numel() * s.element_size()
+
+    def __call__(self, kind, state, **inputs):
+        """One call: ``state`` loaded (:meth:`load`), each input that is
+        not None filled (:meth:`fill`), then the program keyed by
+        ``kind``, the names filled and their constants (:meth:`run`).  The
+        body reads this call's inputs with :meth:`given`.  With
+        ``graphs`` the call runs on the capture stream
+        (:func:`on_capture_stream`)."""
+        with on_capture_stream(self.device) if self.graphs \
+                else contextlib.nullcontext():
+            self.load(state)
+            self._given = {name: self.fill(name, v)
+                           for name, v in inputs.items() if v is not None}
+            return self.run((kind, tuple(self._given.items())))
+
+    def given(self, name):
+        """The static form of input ``name`` when this call filled it,
+        else None."""
+        return self.inputs[name] if name in self._given else None
+
+    def _body(self, key):
+        self._copied = 0
+        return self._body_fn()(key)
+
+    def run(self, key, capture_after: bool = True):
+        """The program of ``key``: a replay of its graph, or else the body
+        run eagerly, then captured when ``graphs`` and
+        ``capture_after``.  Returns the body's outputs."""
+        graph = self._graphs.get(key)
+        if graph is not None:
+            graph.replay()
+            _add_counts(self.stats.launches[key])
+            self.stats.replays += 1
+            return self._outputs[key]
+        out = self._body(key)
+        self.stats.eager += 1
+        if self.graphs and capture_after:
+            self.capture(key)
+        return out
+
+    def capture(self, key) -> None:
+        """Capture the program of ``key`` into a graph (nothing runs,
+        nothing is drawn); its launches are kept for the replays and
+        taken off the counters."""
+        graph = torch.cuda.CUDAGraph()
+        if self.generator is not None:
+            graph.register_generator_state(self.generator)
+        before = launch_counts()
+        t0 = time.perf_counter()
+        # on the current (capture) stream, after the eager runs queued
+        # there; unlike torch.cuda.graph, no device sync and no
+        # empty_cache, which would free and re-allocate the caller's pool
+        # no cyclic collection inside the capture either: it could free a
+        # graph or an event of other work, which a capture does not permit
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            graph.capture_begin(pool=self._pool,
+                                capture_error_mode="thread_local")
+            try:
+                out = self._body(key)
+            finally:
+                graph.capture_end()
+        finally:
+            if collecting:
+                gc.enable()
+        self.stats.capture_seconds += time.perf_counter() - t0
+        after = launch_counts()
+        delta = {name: after[name] - before[name] for name in after}
+        _add_counts(delta, -1)
+        self.stats.launches[key] = delta
+        self.stats.copy_back_bytes[key] = self._copied
+        self._graphs[key] = graph
+        self._outputs[key] = out
+
+
+class FrameProgram(Program):
+    """The static buffers of a captured rollout and the frame program
+    over them, keyed by idle count k."""
+
+    def __init__(self, fw, first_state, first_row, caller_state, frames: int,
+                 generator, draws, landmark_draws, graphs: bool):
         dev = first_state.pose.device
+        super().__init__(self._frame, dev, graphs, generator,
+                         CaptureStats(frames=frames, eager=1))  # frame 0
+        self.fw = fw
+        self.own(first_state, caller_state)
         self.index = torch.zeros(1, dtype=torch.int64, device=dev)
         self.outputs = {
             name: torch.empty((frames, *v.shape), dtype=v.dtype, device=dev)
@@ -159,14 +376,6 @@ class FrameProgram:
             and (name != "n_eff" or first_row.grid_pose is not None)}
         self.draws = draws  # [F, ...] on the device, or None
         self.landmark_draws = landmark_draws
-        self.noise = None if draws is None else gs_model.UpdateNoise(
-            *(torch.empty_like(x[0]) for x in draws))
-        self.landmark_noise = None if landmark_draws is None else tuple(
-            torch.empty_like(x[0]) for x in landmark_draws)
-        self.speeds: dict[int, Tensor] = {}
-        self._graphs: dict[int, torch.cuda.CUDAGraph] = {}
-        self._pool = torch.cuda.graph_pool_handle() if graphs else None
-        self._copied = 0
         self._write_row(first_row)
 
     def _write_row(self, row) -> None:
@@ -174,84 +383,27 @@ class FrameProgram:
             buf.index_copy_(0, self.index, getattr(row, name).unsqueeze(0))
         self.index.add_(1)
 
-    def _copy_back(self, new_state) -> None:
-        """Copy each leaf the frame wrote as a fresh tensor into its
-        static leaf; in-place leaves are left alone."""
-        self._copied = 0
-        for s, n in zip(_tensor_leaves(self.state),
-                        _tensor_leaves(new_state), strict=True):
-            if n.data_ptr() == s.data_ptr():
-                continue
-            if n.shape != s.shape or n.dtype != s.dtype:
-                raise RuntimeError(
-                    f"frame program: a state leaf changed from {s.dtype}"
-                    f"{list(s.shape)} to {n.dtype}{list(n.shape)}")
-            if _storage(s) in self._caller:
-                raise RuntimeError("frame program: a fresh leaf would be "
-                                   "copied into the caller's state")
-            s.copy_(n)
-            self._copied += s.numel() * s.element_size()
-
-    def run(self, k: int) -> None:
+    def _frame(self, k: int) -> None:
         """The frame program of ``k`` idle ticks on the static buffers."""
-        new_state, row = self.fw.frame(self.state, self.speeds[k],
-                                       self.generator, self.noise,
-                                       self.landmark_noise)
+        new_state, row = self.fw.frame(
+            self.state, self.inputs[("speeds", k)], self.generator,
+            self.inputs.get("noise"), self.inputs.get("landmark_noise"))
         self._write_row(row)
-        self._copy_back(new_state)
-
-    def _fill(self, k: int, speeds: Tensor, f: int) -> None:
-        if k not in self.speeds:
-            self.speeds[k] = torch.empty_like(speeds)
-        self.speeds[k].copy_(speeds)
-        if self.draws is not None:
-            for buf, x in zip(self.noise, self.draws):
-                buf.copy_(x[f])
-        if self.landmark_draws is not None:
-            for buf, x in zip(self.landmark_noise, self.landmark_draws):
-                buf.copy_(x[f])
+        self.copy_back(new_state)
 
     def frame(self, k: int, speeds: Tensor, f: int,
               capture_after: bool) -> None:
         """Frame ``f`` (``k`` idle ticks at ``speeds``): a replay of k's
         graph, or else the program run eagerly, then captured when
         ``capture_after``."""
-        self._fill(k, speeds, f)
-        graph = self._graphs.get(k)
-        if graph is not None:
-            graph.replay()
-            _add_counts(self.stats.launches[k])
-            self.stats.replays += 1
-            return
-        self.run(k)
-        self.stats.eager_frames += 1
-        if capture_after:
-            self.capture(k)
-
-    def capture(self, k: int) -> None:
-        """Capture the program of ``k`` idle ticks into a graph (nothing
-        runs, nothing is drawn); its launches are kept for the replays
-        and taken off the counters."""
-        graph = torch.cuda.CUDAGraph()
-        graph.register_generator_state(self.generator)
-        before = launch_counts()
-        t0 = time.perf_counter()
-        # on the current (capture) stream, after the eager frames queued
-        # there; unlike torch.cuda.graph, no device sync and no
-        # empty_cache, which would free and re-allocate the caller's pool
-        graph.capture_begin(pool=self._pool,
-                            capture_error_mode="thread_local")
-        try:
-            self.run(k)
-        finally:
-            graph.capture_end()
-        self.stats.capture_seconds += time.perf_counter() - t0
-        after = launch_counts()
-        delta = {name: after[name] - before[name] for name in after}
-        _add_counts(delta, -1)
-        self.stats.launches[k] = delta
-        self.stats.copy_back_bytes[k] = self._copied
-        self._graphs[k] = graph
+        self.fill(("speeds", k), speeds)
+        if self.draws is not None:
+            self.fill("noise", gs_model.UpdateNoise(
+                *(x[f] for x in self.draws)))
+        if self.landmark_draws is not None:
+            self.fill("landmark_noise",
+                      tuple(x[f] for x in self.landmark_draws))
+        self.run(k, capture_after)
 
 
 _STREAMS: dict[int, torch.cuda.Stream] = {}
@@ -267,6 +419,31 @@ def capture_stream(device: torch.device) -> torch.cuda.Stream:
     if index not in _STREAMS:
         _STREAMS[index] = torch.cuda.Stream(index)
     return _STREAMS[index]
+
+
+@contextlib.contextmanager
+def on_capture_stream(device):
+    """Run the block on ``device``'s capture stream, after the work
+    queued on the current stream, which waits for the block's work at
+    the end; already on it, or on the CPU, nothing changes.  Memory
+    allocated on the capture stream is reused only by later work there,
+    which starts after this wait, so tensors handed to the caller need
+    no ``record_stream``."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        yield
+        return
+    stream = capture_stream(device)
+    main = torch.cuda.current_stream(device)
+    if main == stream:
+        yield
+        return
+    stream.wait_stream(main)
+    try:
+        with torch.cuda.stream(stream):
+            yield
+    finally:
+        main.wait_stream(stream)
 
 
 def _device_draws(draws, device):

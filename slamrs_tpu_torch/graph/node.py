@@ -21,10 +21,20 @@ import torch
 
 
 class Node:
-    """A node of the graph: ``update`` runs once per app frame."""
+    """A node of the graph: ``update`` runs once per app frame.  A node
+    with device updates runs them through ``program``
+    (``graph/capture.Program``) once :meth:`use_programs` is called, and
+    op by op while it is None."""
+
+    program = None
 
     def update(self) -> None:
         pass
+
+    def use_programs(self, graphs: bool) -> None:
+        """Run the device updates as programs on static buffers: captured
+        CUDA graphs with ``graphs``, uncaptured without.  A node with no
+        device update has none."""
 
     def draw(self, viz: Optional[Any] = None) -> None:  # optional viz hook
         pass

@@ -13,20 +13,27 @@ Randomness: a ``torch.Generator`` on the node's device, seeded from
 each tick that fires.  ``landmark_noise`` is a seam for tests: a
 callable taking the tick's index and returning ``(noise_a, noise_d)``,
 asked on every tick and used on the ticks that fire.
+
+With :meth:`SimulatorNode.use_programs` (the App's default on the card)
+each tick is a replay of an idle-tick or a firing-tick program
+(``graph/capture.Program``), picked by the host timer.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
 from slamrs_tpu_torch.core.types import Command
+from slamrs_tpu_torch.graph import capture
 from slamrs_tpu_torch.graph.node import (LandmarkOdometry, Node, NodeConfig,
                                          PoseMsg, ScanOdometry)
 from slamrs_tpu_torch.models import simulator as sim_model
+from slamrs_tpu_torch.parallel import fleet as pf
 
 
 @dataclasses.dataclass
@@ -103,6 +110,10 @@ class SimulatorNode(Node):
             self.accumulator -= self.dt
             self._one_tick()
 
+    def use_programs(self, graphs: bool) -> None:
+        self.program = capture.Program(self._tick_body, self.device, graphs,
+                                       self.generator)
+
     def _one_tick(self) -> None:
         cmd = self.sub_cmd.latest()
         if cmd is not None:
@@ -110,9 +121,12 @@ class SimulatorNode(Node):
         draws = (self.landmark_noise(self.ticks)
                  if self.landmark_noise is not None else None)
         self.ticks += 1
-        self.state, out = sim_model.tick(
-            self.state, self.cmd, self.params, self.scene, self.dt,
-            generator=self.generator, landmark_noise=draws)
+        if self.program is None:
+            self.state, out = sim_model.tick(
+                self.state, self.cmd, self.params, self.scene, self.dt,
+                generator=self.generator, landmark_noise=draws)
+        else:
+            out = self._program_tick(draws)
         if out.fired:
             if self.pub_pose:
                 self.pub_pose.publish(PoseMsg(out.pose))
@@ -121,6 +135,41 @@ class SimulatorNode(Node):
             if self.pub_landmarks:
                 self.pub_landmarks.publish(
                     LandmarkOdometry(out.landmarks, out.odometry))
+
+    def _program_tick(self, draws) -> sim_model.SimOutputs:
+        """The tick through the program: an idle graph or a firing one,
+        picked by the host timer.  The graphs hold ``dt`` and every
+        parameter but the period (the host timer's alone) as constants,
+        so a changed parameter makes new graphs.  What a firing tick
+        publishes is copied out of the graph's buffers: two ticks can fire
+        in one frame, and the second replay would overwrite the first
+        tick's message."""
+        p = self.program
+        timer, fired = sim_model.timer_step(self.state.scan_timer,
+                                            self.params, self.dt)
+        kind = (fired, self.dt, self.params._replace(update_period=0.0))
+        out = p(kind, self.state, cmd=self.cmd,
+                landmark_noise=draws if fired else None)
+        self.state = p.state._replace(
+            scan_timer=timer, scan_counter=self.state.scan_counter + int(fired))
+        if not fired:
+            return out
+        own = functools.partial(pf.tree_map, lambda x: x.clone()
+                                if isinstance(x, torch.Tensor) else x)
+        return out._replace(scan=own(out.scan), odometry=own(out.odometry),
+                            landmarks=own(out.landmarks))
+
+    def _tick_body(self, key) -> sim_model.SimOutputs:
+        p = self.program
+        new, out = sim_model.tick(
+            p.state, p.inputs["cmd"], self.params, self.scene, self.dt,
+            generator=self.generator,
+            landmark_noise=p.given("landmark_noise"))
+        if out.fired != key[0][0]:
+            raise RuntimeError("simulator program: the tick's timer "
+                               "disagrees with its graph")
+        p.copy_back(new)
+        return out
 
     def set_parameters(self, **kwargs) -> None:
         """Change the running node's parameters (and ``running``); the
@@ -154,7 +203,9 @@ class SimulatorNode(Node):
             viz.sr.end()
 
     def get_pose(self) -> np.ndarray:
-        return self.state.pose.cpu().numpy()
+        """The ground-truth pose, a copy (the program updates its pose
+        buffer in place)."""
+        return self.state.pose.cpu().numpy().copy()
 
     def terminate(self) -> None:
         self.running = False

@@ -13,6 +13,11 @@ Grid SLAM's draws come from a ``torch.Generator`` on the node's device
 seeded from ``seed`` (``models/gridslam.draw_noise``), or from
 ``noise_for_update``, a seam for tests: a callable taking the update's
 index and returning its ``UpdateNoise``.
+
+With ``use_programs`` (the App's default on the card) each node's update
+is a replay of its program (``graph/capture.Program``): grid SLAM's
+update and map, the ICP update with K4 ten times inside, the EKF update.
+The observations are copied into the program's input buffers.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from slamrs_tpu_torch.graph import capture
 from slamrs_tpu_torch.graph.node import (GridMapMessage, LandmarkMapMessage,
                                          LandmarkOdometry, Node, NodeConfig,
                                          PointMapMessage, PoseMsg,
@@ -77,28 +83,64 @@ class GridMapSlamNode(Node):
         self._position = np.array([self.slam_cfg.position_x,
                                    self.slam_cfg.position_y], np.float32)
 
+    def use_programs(self, graphs: bool) -> None:
+        self.program = capture.Program(self._program_body, self.device,
+                                       graphs, self.generator)
+
     def update(self) -> None:
         msg = self.sub.try_recv()  # one observation a frame
         if msg is None:
             return
         with span("GridMapSlam::update"), self.stats.timeit():
-            if self.noise_for_update is not None:
-                noise = self.noise_for_update(self.updates)
-            else:
-                noise = gs_model.draw_noise(self.generator,
-                                            self.slam_cfg.n_particles,
-                                            self.device)
-            self.state, out = gs_model.update(self.state, msg.scan,
-                                              msg.odometry, self.slam_cfg,
-                                              noise=noise)
+            noise = (self.noise_for_update(self.updates)
+                     if self.noise_for_update is not None else None)
+            out = self.step(msg.scan, msg.odometry, noise)
             self.pub_pose.publish(PoseMsg(out.pose))
             self.updates += 1
             if self.updates % self.cfg.publish_map_every == 0:
                 self.pub_map.publish(GridMapMessage(
                     position=self._position,
                     resolution=self.slam_cfg.resolution,
-                    data=gs_model.estimated_probability_grid(
-                        self.state, self.slam_cfg)))
+                    data=self.probability_map()))
+
+    def step(self, scan, odometry, noise=None) -> gs_model.GridSlamOutputs:
+        """One SLAM update of the node's state, its draws from the node's
+        generator unless ``noise`` is given; through the node's program
+        when it has one (whose outputs hold until its next update)."""
+        p = self.program
+        if p is None:
+            if noise is None:
+                noise = self._draw()
+            self.state, out = gs_model.update(self.state, scan, odometry,
+                                              self.slam_cfg, noise=noise)
+            return out
+        out = p("update", self.state, scan=scan, odometry=odometry,
+                noise=noise)
+        self.state = p.state
+        return out
+
+    def probability_map(self) -> torch.Tensor:
+        """The best particle's map as occupancy probabilities, unpadded
+        (the JAX node's second ``jit``)."""
+        if self.program is None:
+            return gs_model.estimated_probability_grid(self.state,
+                                                       self.slam_cfg)
+        return self.program("map", self.state)
+
+    def _draw(self) -> gs_model.UpdateNoise:
+        return gs_model.draw_noise(self.generator, self.slam_cfg.n_particles,
+                                   self.device)
+
+    def _program_body(self, key):
+        p = self.program
+        if key[0] == "map":
+            return gs_model.estimated_probability_grid(p.state, self.slam_cfg)
+        noise = p.given("noise")
+        new, out = gs_model.update(
+            p.state, p.inputs["scan"], p.inputs["odometry"], self.slam_cfg,
+            noise=self._draw() if noise is None else noise)
+        p.copy_back(new)
+        return out
 
 
 @dataclasses.dataclass
@@ -135,9 +177,9 @@ class IcpPointMapperNodeConfig(NodeConfig):
 class IcpPointMapperNode(Node):
     def __init__(self, config: IcpPointMapperNodeConfig, pubsub, device):
         self.cfg = config
+        self.device = torch.device(device)
         self.map_cfg = config.mapper_config()
-        self.state = icp_model.IcpMapState.init(self.map_cfg,
-                                                torch.device(device))
+        self.state = icp_model.IcpMapState.init(self.map_cfg, self.device)
         self.sub = pubsub.subscribe(config.topic_observation)
         self.pub_pose = pubsub.publish(config.topic_pose, PoseMsg)
         self.pub_map = pubsub.publish(config.topic_pointmap, PointMapMessage)
@@ -150,12 +192,27 @@ class IcpPointMapperNode(Node):
             return
         scan = msg.scan if isinstance(msg, ScanOdometry) else msg
         with self.stats.timeit():
-            self.state, out = icp_model.update(self.state, scan, self.map_cfg)
+            if self.program is None:
+                self.state, out = icp_model.update(self.state, scan,
+                                                   self.map_cfg)
+            else:
+                out = self.program("update", self.state, scan=scan)
+                self.state = self.program.state
             self.pub_pose.publish(PoseMsg(out.pose))
             self.updates += 1
             count = int(self.state.count)  # waits for the device
             self.pub_map.publish(PointMapMessage(
                 points=self.state.points[:count]))
+
+    def use_programs(self, graphs: bool) -> None:
+        self.program = capture.Program(self._program_body, self.device,
+                                       graphs)
+
+    def _program_body(self, key) -> icp_model.IcpMapOutputs:
+        p = self.program
+        new, out = icp_model.update(p.state, p.inputs["scan"], self.map_cfg)
+        p.copy_back(new)
+        return out
 
 
 @dataclasses.dataclass
@@ -175,9 +232,9 @@ class EKFLandmarkSlamNodeConfig(NodeConfig):
 class EKFLandmarkSlamNode(Node):
     def __init__(self, config: EKFLandmarkSlamNodeConfig, pubsub, device):
         self.cfg = config
+        self.device = torch.device(device)
         self.ekf_cfg = config.ekf_config()
-        self.state = ekf_model.EkfState.init(self.ekf_cfg,
-                                             torch.device(device))
+        self.state = ekf_model.EkfState.init(self.ekf_cfg, self.device)
         self.sub = pubsub.subscribe(config.topic_observation_landmark,
                                     LandmarkOdometry)
         self.pub_pose = pubsub.publish(config.topic_pose, PoseMsg)
@@ -188,13 +245,29 @@ class EKFLandmarkSlamNode(Node):
         msg = self.sub.try_recv()
         if msg is None:
             return
-        self.state, out = ekf_model.update(self.state, msg.landmarks,
-                                           msg.odometry, self.ekf_cfg)
+        if self.program is None:
+            self.state, out = ekf_model.update(self.state, msg.landmarks,
+                                               msg.odometry, self.ekf_cfg)
+        else:
+            out = self.program("update", self.state, landmarks=msg.landmarks,
+                               odometry=msg.odometry)
+            self.state = self.program.state
         self.pub_pose.publish(PoseMsg(out.pose))
         self.updates += 1
         self.pub_map.publish(LandmarkMapMessage(
             means=out.landmark_means, covariances=out.landmark_covs,
             seen=out.seen))
+
+    def use_programs(self, graphs: bool) -> None:
+        self.program = capture.Program(self._program_body, self.device,
+                                       graphs)
+
+    def _program_body(self, key) -> ekf_model.EkfOutputs:
+        p = self.program
+        new, out = ekf_model.update(p.state, p.inputs["landmarks"],
+                                    p.inputs["odometry"], self.ekf_cfg)
+        p.copy_back(new)
+        return out
 
     def correlation_matrix(self) -> np.ndarray:
         """Correlation matrix of the full state covariance:

@@ -178,16 +178,25 @@ def advance(pose: Tensor, accum_left: Tensor, accum_right: Tensor,
     under ``cmd`` (0-dim f32 speed tensors), the wheel-travel
     accumulators, and the float32 host timer with remainder carry.
     Returns ``(pose, accum_left, accum_right, scan_timer, fired)``."""
-    dt32 = np.float32(dt)
-    sl = cmd.speed_left * float(dt32)
-    sr = cmd.speed_right * float(dt32)
+    dt32 = float(np.float32(dt))
+    sl = cmd.speed_left * dt32
+    sr = cmd.speed_right * dt32
     pose = motion.integrate_exact(pose, sl, sr, params.wheel_base)
+    timer, fired = timer_step(scan_timer, params, dt)
+    return pose, accum_left + sl, accum_right + sr, timer, fired
+
+
+def timer_step(scan_timer: float, params: SimParams,
+               dt: float = DEFAULT_DT) -> tuple[float, bool]:
+    """The scan timer of one tick, on the host: the float32 timer
+    advanced by ``dt``, and whether it fires (then the period is taken
+    off, carrying the remainder)."""
     period = np.float32(params.update_period)
-    timer = np.float32(np.float32(scan_timer) + dt32)
+    timer = np.float32(np.float32(scan_timer) + np.float32(dt))
     fired = bool(timer > period)
     if fired:
         timer = np.float32(timer - period)
-    return pose, accum_left + sl, accum_right + sr, float(timer), fired
+    return float(timer), fired
 
 
 def tick(state: SimState, cmd: Command, params: SimParams, scene: Scene,

@@ -30,7 +30,10 @@ fleets on an 8-entry mesh of the one card: bitwise the one-device fleet
 per-world multiset (``"local"``), K1 once per block a frame; the
 local-first resample on the card slot for slot its CPU result.  Host mode
 (the App): K1 once per SLAM update and K4 ten times per ICP update, and
-an App run on the card against the same on the CPU under injected draws.
+an App run on the card against the same on the CPU under injected draws;
+the App's node programs as CUDA graphs bitwise the op-by-op App on every
+preset and the replay, and two firing ticks in one frame publishing a
+scan each.
 Robot I/O: the FileLoader's Scan on the card, K4 ten times per ICP
 update of a short ``neato_replay.yaml`` replay, and the virtual robot's
 card scans within 1 mm of its CPU scans on fewer than 1e-3 of the beams.
@@ -803,3 +806,141 @@ def test_replay_launches_k4_ten_times_an_update(dev, tmp_path):
     assert node.updates == revs - 1 == 9
     assert icp.nearest_neighbors_fused.launches == 10 * node.updates
     assert fused.fused_update.launches == 0
+
+
+def _app_run(dev, text, frames, capture_, draws=None, log=None):
+    """An App on the card, captured or op by op, for ``frames`` frames
+    (a replay: until its loader is done, and two more); ``draws`` (numpy
+    grid draws, [updates, ...] each) go through the grid node's seam.
+    Returns the app, every message of its topics as tensors or arrays,
+    and the launch counts of the run."""
+    import numpy as np
+
+    from slamrs_tpu_torch.graph import capture
+    from slamrs_tpu_torch.graph.app import App
+    from slamrs_tpu_torch.graph.nodes.robot import FileLoaderNode
+    from slamrs_tpu_torch.graph.nodes.slam import GridMapSlamNode
+    from slamrs_tpu_torch.models.gridslam import UpdateNoise
+
+    app = App.from_yaml(text, device=dev, capture=capture_)
+    grid = app.node(GridMapSlamNode)
+    if draws is not None and grid is not None:
+        on_card = [torch.from_numpy(x).to(dev) for x in draws]
+        grid.noise_for_update = lambda i: UpdateNoise(
+            *(x[i] for x in on_card))
+    subs = {t: app.pubsub.subscribe(t) for t in
+            ("robot/pose", "slam/pose", "slam/map",
+             "robot/observation_odometry", "robot/observation")}
+    before = capture.launch_counts()
+    loader = app.node(FileLoaderNode)
+    if loader is not None:
+        while not loader.done:
+            app.frame()
+        frames = 2
+    app.run(frames=frames)
+    torch.cuda.synchronize()
+    after = capture.launch_counts()
+    msgs = {}
+    for t, s in subs.items():
+        got = []
+        for m in s.drain():
+            for name in ("pose", "data", "points", "means", "covariances",
+                         "seen", "scan", "landmarks", "odometry"):
+                v = getattr(m, name, None)
+                if v is not None:
+                    got += [np.asarray(x.cpu() if torch.is_tensor(x) else x)
+                            for x in (v if isinstance(v, tuple) else (v,))]
+        msgs[t] = got
+    return app, msgs, {k: after[k] - before[k] for k in after}
+
+
+def _same_app_runs(a, b):
+    import numpy as np
+
+    from slamrs_tpu_torch.graph import capture
+
+    (app_a, msgs_a, counts_a), (app_b, msgs_b, counts_b) = a, b
+    assert counts_a == counts_b
+    for t in msgs_a:
+        assert len(msgs_a[t]) == len(msgs_b[t]), t
+        for x, y in zip(msgs_a[t], msgs_b[t]):
+            np.testing.assert_array_equal(x, y)
+    for na, nb in zip(app_a.nodes, app_b.nodes):
+        if isinstance(getattr(na, "state", None), tuple):
+            for x, y in zip(capture._tensor_leaves(na.state),
+                            capture._tensor_leaves(nb.state)):
+                assert torch.equal(x, y)
+
+
+# preset, particles, frames (each SLAM node updates and replays)
+APP_CASES = [("grid_slam.yaml", None, 200), ("grid_slam_fused.yaml", 64, 60),
+             ("icp_test.yaml", None, 60), ("landmarks.yaml", None, 60)]
+
+
+@pytest.mark.parametrize("draws", ["seed", "injected"])
+@pytest.mark.parametrize("name,particles,frames", APP_CASES)
+def test_app_captured_equals_op_by_op(dev, name, particles, frames, draws):
+    """The App's node programs as CUDA graphs against the op-by-op App on
+    the card: every message, every node state and every launch count
+    bitwise, every programmed node replaying its graphs."""
+    import numpy as np
+
+    text = _preset(name, particles)
+    noise = None
+    if draws == "injected" and "GridMapSlam" in text:
+        p = particles or 10
+        rng = np.random.default_rng(3)
+        noise = (rng.standard_normal((frames, p), np.float32),
+                 rng.standard_normal((frames, p), np.float32),
+                 rng.random((frames, 1), np.float32))
+    eager = _app_run(dev, text, frames, False, noise)
+    captured = _app_run(dev, text, frames, True, noise)
+    _same_app_runs(eager, captured)
+    stats = captured[0].program_stats()
+    assert eager[0].program_stats() == {} and "SimulatorNode" in stats
+    for node, s in stats.items():
+        assert s.graphs >= 1 and s.replays >= 1, node
+        assert s.eager == s.graphs  # the first call of each graph
+
+
+def test_replay_captured_equals_op_by_op(dev, tmp_path):
+    frames = _robot_frames("cpu", 2.05)
+    path = tmp_path / "log.bin"
+    path.write_bytes(b"".join(f.scan_data for f in frames))
+    yaml = _preset("neato_replay.yaml").replace("path: null",
+                                                f"path: {path}")
+    eager = _app_run(dev, yaml, 0, False)
+    captured = _app_run(dev, yaml, 0, True)
+    _same_app_runs(eager, captured)
+    s = captured[0].program_stats()["IcpPointMapperNode"]
+    assert (s.eager, s.replays) == (1, 8)
+    assert captured[2]["nn_argmin"] == 10 * 9
+
+
+def test_two_firing_ticks_in_one_frame_on_the_card(dev):
+    """Two replays of the firing graph in one ``advance``: two messages,
+    each with its own scan."""
+    from slamrs_tpu_torch.core.types import Command
+    from slamrs_tpu_torch.graph import capture
+    from slamrs_tpu_torch.graph.nodes.sim import SimulatorNodeConfig
+    from slamrs_tpu_torch.graph.pubsub import PubSub
+
+    ps = PubSub()
+    node = SimulatorNodeConfig(
+        topic_command="cmd", topic_observation_scanner="scan",
+        scene=[("Line", {"x1": -2.0, "y1": -2.0, "x2": 2.0, "y2": -2.0})],
+        parameters={"update_period": 0.0, "scanner_range": 5.0},
+    ).instantiate(ps, dev)
+    node.use_programs(graphs=True)
+    sub = ps.subscribe("scan")
+    ps.publish("cmd", Command).publish(Command.make(0.3, 0.2, device=dev))
+    ps.tick()
+    with capture.on_capture_stream(dev):
+        node.advance(4 * node.dt + 1e-6)  # eager, then three replays
+    ps.tick()
+    msgs = sub.drain()
+    torch.cuda.synchronize()
+    assert len(msgs) == 4 and node.program.stats.replays == 3
+    d = [m.scan.distances for m in msgs]
+    assert len({x.data_ptr() for x in d}) == 4
+    assert all(not torch.equal(a, b) for a, b in zip(d, d[1:]))
