@@ -236,8 +236,8 @@ CPU):
     driven forward through ``!Controls``: at least 20 ScanOdometry
     messages and 20 dda updates within 60 s, never more updates than
     messages, no kernel, finite poses that move more than 0.05 m;
-    ``terminate()`` returns and the robot process ends at ctrl-C;
-    messages/s and the update span.
+    ``terminate()`` returns and the robot process ends at ctrl-C with
+    exit code 0 (its stderr printed); messages/s and the update span.
 
 then sharded fleets (``slamrs_tpu_torch/parallel``): meshes whose
 every entry is ``cuda:0`` (``make_mesh(n, particle_axis=k,
@@ -250,7 +250,7 @@ says how long the phases took):
     300 ticks on 8 x 1 (each world shard's flattened copy on write):
     bitwise the one-device fleet, K1 once per world shard a frame, K2 at
     most as often; on 4 x 2 (``"local"``, p_loc 5): RMSE <= 0.15 m, K1
-    once per block a frame, one overflow read per world shard a frame;
+    once per block a frame, one overflow read a frame;
 46. ``mesh_headline_*``: 2 worlds x 1,024 particles at 0.05 m (bf16
     ``[80, 128]``) on 2 x 4: ``"gather"`` for 300 ticks bitwise the
     one-device fleet, K1 once per block a frame; ``"local"`` after one
@@ -275,12 +275,13 @@ says how long the phases took):
     resumed ticks equal 60 continued ticks bitwise;
 51. ``mesh_no_host_sync_*``: one update per mesh route under
     ``torch.cuda.set_sync_debug_mode("error")``, only the local
-    relabel's overflow read (once per world shard) let through.
+    relabel's overflow read (once a resample) let through.
 
 Since PR 11 every ``rollout_cadence`` above on a one-device state runs
 captured (``graph/capture.py``: one CUDA graph replay a scan frame), so
-the gates above hold on the captured path; the meshes run the eager
-loop.  Then the captured rollout against the eager loop
+the gates above hold on the captured path (the meshes' too: their
+entries are all the card).  Then the captured rollout against the eager
+loop
 (``capture_phases_time`` says how long they took):
 
 52. ``capture_*``: on each route, fresh states, the eager loop
@@ -326,6 +327,41 @@ then the App's node programs (``graph/capture.Program``, one per node;
     the four numbers beside the JAX run's on the CPU, K1 once per fused
     update, 499 replays each.
 
+A mesh whose entries are all the card runs captured too
+(``capture=None``), so the ``mesh_*`` gates above hold on the captured
+path; the local relabel's overflow read is one a frame.  Then the
+sharded frames and the tick rollout as graphs
+(``mesh_capture_phases_time`` says how long the mesh ones took):
+
+55. ``mesh_capture_*``: the eager mesh rollout (``capture=False``) beside
+    the captured one, fresh states, seed 0: config 5 on 8 x 1 and 4 x 2
+    (``"local"``), the headline's 2 worlds on 2 x 4 (``"gather"`` and
+    ``"local"``), two config-3 worlds tiled on 2 x 1 (90 ticks),
+    ``grid_slam.yaml`` at 16 worlds on 4 x 2, ``icp_test.yaml`` and
+    ``landmarks.yaml`` at 8 worlds on 4 x 1 (300 ticks).  Gates: state
+    and outputs bitwise; the launch counts equal the eager run's and the
+    route's kernels a frame (K1 once per block or world shard, K2 at
+    most once per world shard, K3 once per world, K4 ten times per world
+    shard); world-only, ``"gather"``, tiled and dda meshes one graph a
+    frame with no overflow read; ``"local"`` one overflow read a frame
+    (a head graph, each world row's branch graph, a tail graph); every
+    frame after the first of its idle count a replay; the profiler's
+    kernel names count the same over a 12-frame window.  Printed: K1-K4
+    a frame, graphs and their keys, capture seconds, bytes copied back a
+    frame, host launch calls a frame, idle share, world-ticks/s and peak
+    memory, each beside the eager run's;
+56. ``mesh_capture_no_host_sync_*``: the last frame of a captured rollout
+    of each route above, a replay, under
+    ``torch.cuda.set_sync_debug_mode("error")``, only the ``"local"``
+    overflow read let through (once a frame);
+57. ``rollout_tick_capture_*``: ``FusedWorld.rollout`` (one tick at a
+    time) eager beside its tick programs (``capture=True``: an idle and
+    a scan graph, the counterpart of ``jax.jit(fw.rollout)``) on the
+    headline at 0.05 m, ``icp_test.yaml`` and ``landmarks.yaml`` for 300
+    ticks: bitwise under injected draws and the seed, launches equal and
+    the route's kernels a scan tick, host launch calls a tick and ticks/s
+    beside the eager loop's.
+
 The ``kernels`` line's entries carry the fleet runs' launches
 (``fleet_launches``), for K1 and K2 their times at the fleet's shapes
 (``fleet_ms``, ``fleet_plain_ms``, ``fleet_bound_ms``), and for K1 and
@@ -333,7 +369,9 @@ K4 the launches of the host-graph runs (``app_launches``) and of the
 captured App runs of phase 53 (``app_capture_launches``), and for K4
 those of the replay (``replay_launches``), for each kernel its
 launches on the mesh runs (``mesh_launches``) and on the captured runs
-of phase 52 by route (``captured_launches``).
+of phase 52 by route (``captured_launches``), and on the captured mesh
+and tick runs of phases 55 and 57 (``mesh_capture_launches``,
+``tick_capture_launches``).
 
 Every kernel's bound is the larger of the bytes it must move at
 3.35 TB/s and its float32 operations at 67 TFLOP/s (the published H100
@@ -2323,10 +2361,10 @@ def same_multiset(torch, a, b) -> bool:
 
 
 class OverflowReads:
-    """Counts the local-first resample's overflow reads (one per world
-    shard a resample, its one host read) and the full-gather fallbacks
-    they took; ``allow_sync`` lets exactly that read run under
-    ``set_sync_debug_mode("error")``."""
+    """Counts the local-first resample's overflow reads (one a resample:
+    every world shard's flag at once, its one host read) and the
+    full-gather fallbacks they took (world shards); ``allow_sync`` lets
+    exactly that read run under ``set_sync_debug_mode("error")``."""
 
     def __init__(self, torch, allow_sync=False):
         from slamrs_tpu_torch.parallel import resample
@@ -2335,25 +2373,25 @@ class OverflowReads:
         self.reads = self.fallbacks = 0
 
     def __enter__(self):
-        self.orig = self.mod._any_overflow
+        self.orig = self.mod._read_overflow
 
-        def read(overflow):
+        def read(flags):
             mode = self.torch.cuda.get_sync_debug_mode()
             if self.allow:
                 self.torch.cuda.set_sync_debug_mode("default")
             try:
-                hit = self.orig(overflow)
+                hits = self.orig(flags)
             finally:
                 self.torch.cuda.set_sync_debug_mode(mode)
             self.reads += 1
-            self.fallbacks += int(hit)
-            return hit
+            self.fallbacks += sum(hits)
+            return hits
 
-        self.mod._any_overflow = read
+        self.mod._read_overflow = read
         return self
 
     def __exit__(self, *exc):
-        self.mod._any_overflow = self.orig
+        self.mod._read_overflow = self.orig
         return False
 
 
@@ -2372,8 +2410,9 @@ def check_mesh_config5(torch):
     8 x 1 mesh (each world shard's flattened copy on write) bitwise the
     one-device fleet, K1 once per world shard a frame, K2 at most as
     often; on a 4 x 2 mesh (``"local"``, p_loc 5) within the fleet's
-    RMSE gate, K1 once per block a frame, K2 never, one overflow read
-    per world shard a frame.  Returns the two runs' counts."""
+    RMSE gate, K1 once per block a frame, K2 never, one overflow read a
+    frame (every world shard's flag at once).  Returns the two runs'
+    counts."""
     fw = fleet_world(torch)
     plain = FleetRun(torch, fw, FLEET_WORLDS, 300)
     dp = FleetRun(torch, on_mesh(fw, cuda_mesh(torch, 1)), FLEET_WORLDS, 300)
@@ -2396,7 +2435,7 @@ def check_mesh_config5(torch):
     require(rmse <= GRID_SLAM_RMSE_GATE_M
             and local.counts["fused_update"] == 8 * local.frames
             and local.counts["cow_copy"] == 0
-            and ov.reads == 4 * local.frames,
+            and ov.reads == local.frames,
             f"config 5 on 4 x 2: RMSE {rmse} m or launch counts off")
     return dp.counts, local.counts
 
@@ -2439,7 +2478,7 @@ def check_mesh_headline(torch):
                overflow_reads=ov.reads, overflow_fallbacks=ov.fallbacks)
     require(rmse <= RMSE_GATE_M
             and local.counts["fused_update"] == 8 * local.frames
-            and ov.reads == 2 * local.frames,
+            and ov.reads == local.frames,
             f"the headline on 2 x 4 (local): RMSE {rmse} m or counts off")
     return gather.counts
 
@@ -2621,7 +2660,8 @@ def check_mesh_no_host_sync(torch):
     """One update per mesh route under ``set_sync_debug_mode("error")``:
     config 5 on 8 x 1 (copy on write per world shard), the headline's 2
     worlds on 2 x 4 (``"gather"`` and ``"local"``: only the overflow
-    read, once per world shard, is let through), a tiled fleet on 2 x 1
+    read, once for both world shards, is let through), a tiled fleet on
+    2 x 1
     and ``grid_slam.yaml`` (dda) at 16 worlds on 4 x 2."""
     from slamrs_tpu_torch.core.types import OdometryReading
     from slamrs_tpu_torch.models import gridslam as gs
@@ -2659,7 +2699,7 @@ def check_mesh_no_host_sync(torch):
             finally:
                 torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
-        want_reads = 2 if label == "headline_2x4_local" else 0
+        want_reads = 1 if label == "headline_2x4_local" else 0
         emit({"phase": f"mesh_no_host_sync_{label}", "ok": True,
               "overflow_reads": ov.reads,
               "pose_finite": bool(torch.isfinite(out.pose).all())})
@@ -3413,7 +3453,7 @@ def check_robot_link_card(torch):
     least 20 ScanOdometry messages and 20 dda updates in at most 60 s,
     never more updates than messages, no kernel, finite poses that move
     more than 0.05 m; ``terminate()`` returns and the robot process ends
-    at ctrl-C."""
+    at ctrl-C with exit code 0."""
     import select
     import signal
 
@@ -3489,7 +3529,7 @@ def check_robot_link_card(torch):
             or slam.updates > received or any(counts.values())
             or not np.isfinite(est).all() or not moved > 0.05
             or state != "running" or link.state != "idle"
-            or ended is None):
+            or ended != 0):
         raise AssertionError("robot_link_card failed its gates")
 
 
@@ -3554,16 +3594,22 @@ def capture_draws(fw, worlds, n_steps, seed):
     return kw
 
 
-def capture_run(torch, fw, worlds, n_steps, capture, profiled=False, **kw):
-    """One ``rollout_cadence`` from a fresh state, the counts set to 0 just
-    before and read just after.  Returns a dict: state, outs, counts,
-    seconds, the run's own peak memory, and with ``profiled`` the device
-    busy time, the host's launch calls and the kernels by name."""
+def capture_run(torch, fw, worlds, n_steps, capture, profiled=False,
+                method="rollout_cadence", **kw):
+    """One ``rollout_cadence`` (or ``method``) from a fresh state (placed
+    on ``fw.mesh`` first when it has one), the counts set to 0 just
+    before and read just after.  Returns a dict: state (whole), outs,
+    counts, seconds, the run's own peak memory, and with ``profiled`` the
+    device busy time, the host's launch calls and the kernels by name."""
     from torch.profiler import ProfilerActivity, profile
+
+    from slamrs_tpu_torch.parallel import fleet
 
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     state = fw.init(worlds)
+    if fw.mesh is not None:
+        state = fleet.shard_world_state(state, fw.mesh, worlds[0])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
@@ -3571,27 +3617,89 @@ def capture_run(torch, fw, worlds, n_steps, capture, profiled=False, **kw):
     with prof:
         reset_counts()
         t0 = time.perf_counter()
-        state, outs = fw.rollout_cadence(state, n_steps, seed=0,
-                                         capture=capture, **kw)
+        state, outs = getattr(fw, method)(state, n_steps, seed=0,
+                                          capture=capture, **kw)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         counts = read_counts()
+    if fw.mesh is not None:
+        require(fleet.mesh_of(state) == fw.mesh,
+                "a mesh world's rollout left its mesh")
+        state = fleet.unshard_world_state(state)
     run = {"state": state, "outs": outs, "counts": counts,
            "seconds": seconds,
            "peak": torch.cuda.max_memory_allocated() - base}
     if profiled:
-        events = prof.key_averages()
-        device = [e for e in events if e.device_type.name == "CUDA"]
-        busy = sum(e.self_device_time_total for e in device) / 1e6
-        run.update(
-            busy=busy, idle=1 - busy / seconds,
-            host_calls=sum(e.count for e in events
-                           if e.device_type.name == "CPU"
-                           and e.key.startswith("cu")
-                           and any(c in e.key for c in HOST_LAUNCH_CALLS)),
-            by_name={name: sum(e.count for e in device if kern in e.key)
-                     for name, kern in PROFILED_KERNELS.items()})
+        run.update(profile_summary(prof, seconds))
     return run
+
+
+def profile_summary(prof, seconds) -> dict:
+    """Device busy time, idle share over ``seconds`` of wall time, the
+    host's launch calls and the kernels by name, of a profile."""
+    events = prof.key_averages()
+    device = [e for e in events if e.device_type.name == "CUDA"]
+    busy = sum(e.self_device_time_total for e in device) / 1e6
+    return dict(
+        busy=busy, idle=1 - busy / seconds,
+        host_calls=sum(e.count for e in events
+                       if e.device_type.name == "CPU"
+                       and e.key.startswith("cu")
+                       and any(c in e.key for c in HOST_LAUNCH_CALLS)),
+        by_name={name: sum(e.count for e in device if kern in e.key)
+                 for name, kern in PROFILED_KERNELS.items()})
+
+
+class ProfiledReplays:
+    """Profiles ``n`` calls of a program's ``method`` (``FrameProgram.
+    frame``, ``TickProgram.tick``) after its first ``skip``: replays once
+    the graphs are captured.  After the run: the profile's summary over
+    the window's wall time, the wrappers' launches in the window
+    (``counts``) and the graph replays it held (``replays``)."""
+
+    def __init__(self, torch, cls, method, skip, n):
+        self.torch, self.cls, self.method = torch, cls, method
+        self.skip, self.n, self.seen = skip, n, 0
+        self.summary = None
+
+    def __enter__(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        orig = self.orig = getattr(self.cls, self.method)
+        outer, torch = self, self.torch
+
+        def call(prog, *args, **kw):
+            i = outer.seen
+            outer.seen += 1
+            if i == outer.skip:
+                torch.cuda.synchronize()
+                outer.before = (read_counts(), prog.stats.replays)
+                outer.prof = profile(activities=[ProfilerActivity.CPU,
+                                                 ProfilerActivity.CUDA])
+                outer.prof.start()
+                outer.t0 = time.perf_counter()
+            out = orig(prog, *args, **kw)
+            if i == outer.skip + outer.n - 1:
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - outer.t0
+                outer.prof.stop()
+                after = read_counts()
+                outer.counts = {k: after[k] - outer.before[0][k]
+                                for k in after}
+                outer.replays = prog.stats.replays - outer.before[1]
+                outer.summary = profile_summary(outer.prof, seconds)
+                outer.summary["seconds"] = seconds
+            return out
+
+        setattr(self.cls, self.method, call)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.cls, self.method, self.orig)
+        if exc[0] is None:
+            require(self.summary is not None, "the profiled window did "
+                    "not close")
+        return False
 
 
 def check_capture(torch, label, make, worlds, n_steps, per_frame):
@@ -4008,6 +4116,355 @@ def check_longrun(torch):
                 == (2, torch_longrun.UPDATES - 1, 2), f"longrun {k}: {s}")
 
 
+# --- sharded frames and the tick rollout as CUDA graphs ------------------
+
+
+def mesh_capture_routes(torch):
+    """(label, world on its mesh, worlds, ticks, kernels a frame, at most
+    a frame, local) of every mesh route the frame program covers; each
+    mesh's entries are all the card."""
+    def kernels(**kw):
+        return dict(NO_KERNELS, **kw)
+
+    def headline():
+        return headline_world(torch, 0.05)
+
+    return [
+        ("config5_8x1", lambda: on_mesh(fleet_world(torch),
+                                        cuda_mesh(torch, 1)),
+         FLEET_WORLDS, 300, {"fused_update": 8, "fused_update_tiled": 0,
+                             "nn_argmin": 0}, {"cow_copy": 8}, False),
+        ("config5_4x2_local", lambda: on_mesh(fleet_world(torch),
+                                              cuda_mesh(torch, 2)),
+         FLEET_WORLDS, 300, kernels(fused_update=8), {}, True),
+        ("headline_2x4_gather", lambda: on_mesh(
+            with_grid(headline(), fleet_resample="gather"),
+            cuda_mesh(torch, 4)), MESH_HEADLINE_WORLDS, 300,
+         kernels(fused_update=8), {}, False),
+        ("headline_2x4_local", lambda: on_mesh(headline(),
+                                               cuda_mesh(torch, 4)),
+         MESH_HEADLINE_WORLDS, 300, kernels(fused_update=8), {}, True),
+        ("config3_tiled_2x1", lambda: on_mesh(config3_world(torch),
+                                              cuda_mesh(torch, 1, n=2)),
+         MESH_CONFIG3_WORLDS, MESH_CONFIG3_TICKS,
+         kernels(fused_update_tiled=2), {}, False),
+        ("grid_slam_yaml_4x2", lambda: on_mesh(
+            preset_world(torch, "grid_slam.yaml"), cuda_mesh(torch, 2)), 16,
+         300, kernels(), {}, False),
+        ("icp_test_4x1", lambda: on_mesh(preset_world(torch, "icp_test.yaml"),
+                                         cuda_mesh(torch, 1, n=4)),
+         MESH_OTHER_WORLDS, 300, kernels(nn_argmin=40), {}, False),
+        ("landmarks_4x1", lambda: on_mesh(
+            preset_world(torch, "landmarks.yaml"), cuda_mesh(torch, 1, n=4)),
+         MESH_OTHER_WORLDS, 300, kernels(), {}, False),
+    ]
+
+
+def graph_key(key) -> str:
+    return key if isinstance(key, str) else json.dumps(key)
+
+
+def check_kernels_a_frame(label, counts, frames, exact, at_most):
+    for name, n in exact.items():
+        require(counts[name] == n * frames,
+                f"{label}: {counts[name]} {name} launches, expected "
+                f"{n * frames}")
+    for name, n in at_most.items():
+        require(counts[name] <= n * frames,
+                f"{label}: {counts[name]} {name} launches, at most "
+                f"{n * frames} expected")
+
+
+def check_profiled(label, eager, window):
+    """The profiler's kernel names count what the counters count, over
+    the eager run's profile and the captured window; the device ran."""
+    for name in PROFILED_KERNELS:
+        for what, got, want in (("eager", eager["by_name"], eager["counts"]),
+                                ("captured", window.summary["by_name"],
+                                 window.counts)):
+            require(got[name] == want[name],
+                    f"{label}: the profiler saw {got[name]} {name} "
+                    f"kernels ({what}), the counters {want[name]}")
+    require(window.summary["busy"] > 0, f"{label}: no device events")
+
+
+def profiled_pair(torch, fw, worlds, fires, method, eager_units, skip, n,
+                  per_tick=False):
+    """The eager loop profiled over its first ``eager_units`` frames (or
+    ticks: it is the same every frame), and the captured run profiled
+    over ``n`` replays after ``skip`` program calls.  Returns the eager
+    run (with ``units``) and the window."""
+    from slamrs_tpu_torch.graph import capture
+
+    if per_tick:
+        cls, name, call = capture.TickProgram, "tick", "rollout"
+        eager_ticks, ticks = eager_units, skip + n + int(fires[0]) + 1
+    else:
+        cls, name, call = capture.FrameProgram, "frame", method
+        eager_ticks = int(fires[eager_units - 1]) + 1
+        ticks = int(fires[skip + n]) + 1
+    eager = capture_run(torch, fw, worlds, eager_ticks, False, profiled=True,
+                        method=call)
+    eager["units"] = eager_units
+    with ProfiledReplays(torch, cls, name, skip, n) as window:
+        capture_run(torch, fw, worlds, ticks, True, method=call)
+    return eager, window
+
+
+def check_mesh_capture(torch, label, make, worlds, n_steps, exact, at_most,
+                       local):
+    """The eager mesh rollout (``capture=False``) beside the captured one
+    (``capture=None``, the default) on one route, fresh states, the same
+    seed: bitwise state and outputs; K1-K4 a frame by counter, equal to
+    the eager run's; a world-only, ``"gather"`` or dda mesh one graph a
+    frame; ``"local"`` one overflow read a frame; then a profiled window
+    of 10-15 frames each (host launch calls a frame, idle share, the
+    profiler's kernel names).  Returns the captured run's counts."""
+    import dataclasses
+
+    t0 = time.perf_counter()
+    fw = make()
+    runs, reads = {}, {}
+    for capture in (False, None):
+        with OverflowReads(torch) as ov:
+            runs[capture] = capture_run(torch, fw, (worlds,), n_steps,
+                                        capture)
+        reads[capture] = (ov.reads, ov.fallbacks)
+    stats = dataclasses.replace(fw.capture_stats)
+    same = (same_state(torch, runs[False]["state"], runs[None]["state"])
+            and same_state(torch, runs[False]["outs"], runs[None]["outs"]))
+    frames = int(runs[None]["outs"].fired.shape[0])
+    counts, eager_counts = runs[None]["counts"], runs[False]["counts"]
+    timed = {c: (runs[c]["seconds"], runs[c]["peak"]) for c in runs}
+    runs.clear()
+    # the eager loop over its first 2 frames; the captured run over 10
+    # replayed frames after 3 program frames (first runs and captures)
+    fires = fw.fire_schedule(n_steps, 0.0)[0]
+    n = min(10, fires.size - 4)
+    eager, window = profiled_pair(torch, fw, (worlds,), fires,
+                                  "rollout_cadence", 2, 3, n)
+    rate = {"eager": (eager, 2), "captured": (window.summary, n)}
+    split = [k for k in stats.launches if not isinstance(k, int)]
+    emit({"phase": f"mesh_capture_{label}", "ticks": n_steps,
+          "worlds": worlds, "mesh": fw.mesh.shape, "frames": frames,
+          "bitwise": same, "launch_counts": counts,
+          "eager_launch_counts": eager_counts,
+          "kernels_per_frame": {k: v / frames for k, v in counts.items()},
+          "graphs": stats.graphs, "graph_keys":
+          sorted(graph_key(k) for k in stats.launches),
+          "eager_frames": stats.eager_frames, "replays": stats.replays,
+          "capture_s": stats.capture_seconds + (
+              stats.ticks.capture_seconds if stats.ticks else 0.0),
+          "copy_back_bytes_per_frame": {graph_key(k): v for k, v in
+                                        stats.copy_back_bytes.items()},
+          "overflow_reads_per_frame": {
+              "eager": reads[False][0] / frames,
+              "captured": reads[None][0] / frames},
+          "overflow_fallbacks": {"eager": reads[False][1],
+                                 "captured": reads[None][1]},
+          "host_launch_calls_per_frame": {
+              c: r["host_calls"] / k for c, (r, k) in rate.items()},
+          "device_busy_ms_per_frame": {
+              c: 1e3 * r["busy"] / k for c, (r, k) in rate.items()},
+          "idle_share": {c: r["idle"] for c, (r, _) in rate.items()},
+          "profiled_frames": {"eager": 2, "captured": n,
+                              "captured_replays": window.replays},
+          "profiled_kernels": {"eager": eager["by_name"],
+                               "captured": window.summary["by_name"]},
+          "window_world_ticks_per_s": worlds * (
+              int(fires[3 + n]) - int(fires[3])) / window.summary["seconds"],
+          "world_ticks_per_s": {"eager": worlds * n_steps / timed[False][0],
+                                "captured":
+                                worlds * n_steps / timed[None][0]},
+          "peak_memory_bytes": {"eager": timed[False][1],
+                                "captured": timed[None][1]},
+          "seconds": time.perf_counter() - t0})
+    require(same, f"mesh capture {label}: the captured run differs from "
+            "the eager mesh loop")
+    require(counts == eager_counts,
+            f"mesh capture {label}: launches {counts} != eager "
+            f"{eager_counts}")
+    check_kernels_a_frame(f"mesh capture {label}", counts, frames, exact,
+                          at_most)
+    require(stats.replays >= 1 and stats.replays + stats.eager_frames
+            == frames, f"mesh capture {label}: frames not replayed")
+    if local:
+        require(reads[None][0] == frames == reads[False][0]
+                and stats.overflow_reads == frames - 1 and split,
+                f"mesh capture {label}: overflow reads {reads} in "
+                f"{frames} frames")
+    else:
+        require(not split and reads[None][0] == 0,
+                f"mesh capture {label}: not one graph a frame")
+    check_profiled(f"mesh capture {label}", eager, window)
+    return counts
+
+
+class LastFrameUnderSyncError:
+    """Runs the last frame of a captured rollout under
+    ``set_sync_debug_mode("error")`` (the device synchronized just
+    before); ``replayed`` says whether that frame was a replay."""
+
+    def __init__(self, torch):
+        self.torch, self.replayed = torch, None
+
+    def __enter__(self):
+        from slamrs_tpu_torch.graph import capture
+
+        self.cls = capture.FrameProgram
+        orig = self.orig = self.cls.frame
+        outer, torch = self, self.torch
+
+        def frame(prog, k, speeds, f, capture_after):
+            if f != prog.stats.frames - 1:
+                return orig(prog, k, speeds, f, capture_after)
+            before = prog.stats.replays
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                orig(prog, k, speeds, f, capture_after)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            outer.replayed = prog.stats.replays - before
+
+        self.cls.frame = frame
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.frame = self.orig
+        return False
+
+
+def replay_ticks(fw, frames_min=4) -> int:
+    """Ticks of a rollout whose last frame's idle count occurred before,
+    after frame 0: that frame is a replay."""
+    import numpy as np
+
+    fires = fw.fire_schedule(2000, 0.0)[0]
+    idle = list(np.diff(fires, prepend=-1) - 1)
+    for f in range(frames_min - 1, len(idle)):
+        if idle[f] in idle[1:f]:
+            return int(fires[f]) + 1
+    raise AssertionError("no recurring idle count")
+
+
+def check_mesh_capture_no_host_sync(torch):
+    """One captured mesh frame of each route, a replay, under
+    ``set_sync_debug_mode("error")``; only the overflow read of a
+    ``"local"`` mesh is let through, once."""
+    for label, make, worlds, _, _, _, local in mesh_capture_routes(torch):
+        fw = make()
+        state = fleet_shard(torch, fw, worlds)
+        with OverflowReads(torch, allow_sync=True) as ov, \
+                LastFrameUnderSyncError(torch) as last:
+            before = ov.reads
+            state, outs = fw.rollout_cadence(state, replay_ticks(fw), seed=0)
+            torch.cuda.synchronize()
+        finite = bool(torch.isfinite(outs.pose).all())
+        emit({"phase": f"mesh_capture_no_host_sync_{label}",
+              "last_frame_replayed": last.replayed,
+              "overflow_reads": ov.reads - before, "frames":
+              int(outs.fired.shape[0]), "pose_finite": finite})
+        require(last.replayed == 1 and finite,
+                f"{label}: the last frame was not a replay")
+        require(ov.reads == (int(outs.fired.shape[0]) if local else 0),
+                f"{label}: {ov.reads} overflow reads")
+
+
+def fleet_shard(torch, fw, worlds):
+    from slamrs_tpu_torch.parallel import fleet
+
+    return fleet.shard_world_state(fw.init((worlds,)), fw.mesh, worlds)
+
+
+def check_mesh_captures(torch):
+    """Every mesh route captured against eager, then the sync check;
+    returns each route's captured launch counts."""
+    t0 = time.perf_counter()
+    counts = {label: check_mesh_capture(torch, label, make, w, n, exact,
+                                        at_most, local)
+              for label, make, w, n, exact, at_most, local
+              in mesh_capture_routes(torch)}
+    check_mesh_capture_no_host_sync(torch)
+    emit({"phase": "mesh_capture_phases_time",
+          "seconds": time.perf_counter() - t0})
+    return counts
+
+
+def check_tick_capture(torch, label, make, n_steps, exact):
+    """``FusedWorld.rollout`` eager (``capture=False``) beside its tick
+    programs (``capture=True``): bitwise under injected draws and under
+    the seed, launches equal and the route's kernels a scan tick, two
+    graphs (idle and scan) replayed; host launch calls a tick over a
+    profiled window of 10 scans.  Returns the captured counts."""
+    import dataclasses
+
+    t0 = time.perf_counter()
+    fw = make()
+    kw = capture_draws(fw, (), n_steps, 13)
+    same, runs = {}, {}
+    for draws, extra in (("injected", kw), ("seed", {})):
+        runs = {c: capture_run(torch, fw, (), n_steps, c, method="rollout",
+                               **extra) for c in (False, True)}
+        same[draws] = (same_state(torch, runs[False]["state"],
+                                  runs[True]["state"])
+                       and same_state(torch, runs[False]["outs"],
+                                      runs[True]["outs"]))
+    stats = dataclasses.replace(fw.capture_stats)
+    scans = int(runs[True]["outs"].fired.sum())
+    counts, eager_counts = runs[True]["counts"], runs[False]["counts"]
+    timed = {c: runs[c]["seconds"] for c in runs}
+    # the eager loop over its first 30 ticks; the tick programs over 60
+    # replayed ticks after 20 (the first runs and captures)
+    fires = fw.fire_schedule(n_steps, 0.0)[0]
+    eager, window = profiled_pair(torch, fw, (), fires, "rollout", 30, 20,
+                                  60, per_tick=True)
+    rate = {"eager": (eager, 30), "captured": (window.summary, 60)}
+    emit({"phase": f"rollout_tick_capture_{label}", "ticks": n_steps,
+          "scan_ticks": scans, "bitwise_injected": same["injected"],
+          "bitwise_seed": same["seed"], "launch_counts": counts,
+          "eager_launch_counts": eager_counts, "graphs": stats.graphs,
+          "graph_keys": sorted(stats.launches), "eager_ticks": stats.eager,
+          "replays": stats.replays, "capture_s": stats.capture_seconds,
+          "copy_back_bytes_per_tick": stats.copy_back_bytes,
+          "host_launch_calls_per_tick": {
+              c: r["host_calls"] / k for c, (r, k) in rate.items()},
+          "device_busy_us_per_tick": {
+              c: 1e6 * r["busy"] / k for c, (r, k) in rate.items()},
+          "idle_share": {c: r["idle"] for c, (r, _) in rate.items()},
+          "profiled_ticks": {"eager": 30, "captured": 60,
+                             "captured_replays": window.replays},
+          "window_ticks_per_s": 60 / window.summary["seconds"],
+          "ticks_per_s": {"eager": n_steps / timed[False],
+                          "captured": n_steps / timed[True]},
+          "seconds": time.perf_counter() - t0})
+    require(same["injected"] and same["seed"],
+            f"tick capture {label}: the captured rollout differs from the "
+            "eager loop")
+    require(counts == eager_counts,
+            f"tick capture {label}: launches {counts} != {eager_counts}")
+    check_kernels_a_frame(f"tick capture {label}", counts, scans, exact, {})
+    require(sorted(stats.launches) == ["idle", "scan"]
+            and stats.replays + stats.eager == n_steps,
+            f"tick capture {label}: graphs {sorted(stats.launches)}")
+    check_profiled(f"tick capture {label}", eager, window)
+    return counts
+
+
+def check_tick_captures(torch):
+    k1 = dict(NO_KERNELS, fused_update=1)
+    return {label: check_tick_capture(torch, label, make, n, exact)
+            for label, make, n, exact in (
+                ("headline_0.05m", lambda: headline_world(torch, 0.05), 300,
+                 k1),
+                ("icp_test_yaml", lambda: preset_world(torch,
+                                                       "icp_test.yaml"),
+                 300, dict(NO_KERNELS, nn_argmin=10)),
+                ("landmarks_yaml", lambda: preset_world(torch,
+                                                        "landmarks.yaml"),
+                 300, NO_KERNELS))}
+
+
 def captured_launches(counts, name):
     return {label: c[name] for label, c in counts.items() if c[name]}
 
@@ -4212,6 +4669,9 @@ def main() -> int:
 
     # the cadence rollout as CUDA graphs, against the eager loop
     cap = check_captures(torch)
+    # sharded frames and the tick rollout as CUDA graphs
+    mesh_cap = check_mesh_captures(torch)
+    tick_cap = check_tick_captures(torch)
     # fused against dda over 500 captured node updates
     check_longrun(torch)
 
@@ -4232,7 +4692,11 @@ def main() -> int:
              "config5_8x1_300": c5_dp_counts["fused_update"],
              "config5_4x2_local_300": c5_local_counts["fused_update"],
              "headline_2x4_gather_300":
-             headline_mesh_counts["fused_update"]}},
+             headline_mesh_counts["fused_update"]},
+         "mesh_capture_launches": captured_launches(mesh_cap,
+                                                    "fused_update"),
+         "tick_capture_launches": captured_launches(tick_cap,
+                                                    "fused_update")},
         {"name": "cow_copy", "route": "cuda",
          "source": "slamrs_tpu_torch/csrc/cow_copy.cu",
          "replaces": "slamrs_tpu/ops/cow.py:187",
@@ -4240,7 +4704,8 @@ def main() -> int:
          **t3["cow_copy"], "fleet_launches": fleet_counts["cow_copy"],
          **{f"fleet_{k}": v for k, v in cow_fleet.items()},
          "captured_launches": captured_launches(cap, "cow_copy"),
-         "mesh_launches": {"config5_8x1_300": c5_dp_counts["cow_copy"]}},
+         "mesh_launches": {"config5_8x1_300": c5_dp_counts["cow_copy"]},
+         "mesh_capture_launches": captured_launches(mesh_cap, "cow_copy")},
         {"name": "fused_update_tiled", "route": "cuda",
          "source": "slamrs_tpu_torch/csrc/fused_update_tiled.cu",
          "replaces": "slamrs_tpu/ops/tiles.py:533",
@@ -4249,7 +4714,9 @@ def main() -> int:
          "fleet_launches": tiled_fleet_counts["fused_update_tiled"],
          "captured_launches": captured_launches(cap, "fused_update_tiled"),
          "mesh_launches": {"config3_tiled_2x1_90":
-                           c3_mesh_counts["fused_update_tiled"]}},
+                           c3_mesh_counts["fused_update_tiled"]},
+         "mesh_capture_launches": captured_launches(mesh_cap,
+                                                    "fused_update_tiled")},
         {"name": "nn_argmin", "route": "cuda",
          "source": "slamrs_tpu_torch/csrc/nn_argmin.cu",
          "replaces": "slamrs_tpu/ops/icp.py:111",
@@ -4260,7 +4727,9 @@ def main() -> int:
          "app_capture_launches": captured_launches(app_cap, "nn_argmin"),
          "captured_launches": captured_launches(cap, "nn_argmin"),
          "replay_launches": replay_k4["nn_argmin"],
-         "mesh_launches": {"icp_test_4x1_300": icp_mesh_counts["nn_argmin"]}}
+         "mesh_launches": {"icp_test_4x1_300": icp_mesh_counts["nn_argmin"]},
+         "mesh_capture_launches": captured_launches(mesh_cap, "nn_argmin"),
+         "tick_capture_launches": captured_launches(tick_cap, "nn_argmin")}
     ]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

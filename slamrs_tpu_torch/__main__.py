@@ -167,7 +167,14 @@ class _SocketMedium:
 
 
 def cmd_robot(args) -> None:
+    """Serve a virtual robot until ctrl-C.  SIGINT only sets a flag: the
+    main thread polls it between short waits, so the server in use stops
+    at a step boundary, is joined and its device synchronized before the
+    process exits with code 0 (a KeyboardInterrupt raised in the middle
+    of that shutdown could leave its thread running into finalization)."""
+    import signal
     import socket
+    import threading
 
     from slamrs_tpu_torch.io.virtual_robot import (UsbCdcServer,
                                                    VirtualRobot,
@@ -176,9 +183,15 @@ def cmd_robot(args) -> None:
 
     device = _device(args.device)
     scene = Scene.build(rects=ROBOT_RECTS, lines=ROBOT_LINES, device=device)
+    stop = threading.Event()
+    signal.signal(signal.SIGINT, lambda *_: stop.set())
 
     def robot():
         return VirtualRobot(scene=scene, scanner_range=5.0, device=device)
+
+    def serve(thread) -> None:
+        while thread.is_alive() and not stop.is_set():
+            thread.join(0.2)
 
     if args.cdc:
         # the host opens the printed path as `serial:` of a !RobotConnection
@@ -186,9 +199,7 @@ def cmd_robot(args) -> None:
         print(f"virtual robot (USB-CDC) at {server.path}", file=sys.stderr,
               flush=True)
         try:
-            server._thread.join()
-        except KeyboardInterrupt:
-            pass
+            serve(server._thread)
         finally:
             server.close()
         return
@@ -196,27 +207,29 @@ def cmd_robot(args) -> None:
     srv.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
     srv.bind((args.host, args.port))
     srv.listen(1)
+    srv.settimeout(0.2)  # wake to see the stop flag
     print(f"virtual robot listening on {args.host}:{args.port}",
           file=sys.stderr, flush=True)
     try:
-        while True:
-            conn, addr = srv.accept()
+        while not stop.is_set():
+            try:
+                conn, addr = srv.accept()
+            except socket.timeout:
+                continue
             print(f"host connected: {addr}", file=sys.stderr, flush=True)
             server = VirtualRobotServer(robot(), _SocketMedium(conn),
                                         realtime=True)
             try:
-                server._thread.join()
+                serve(server._thread)
             finally:
                 # unblock a read or a send in flight, so the server thread
-                # ends before the process does
+                # reaches its step boundary
                 try:
                     conn.shutdown(socket.SHUT_RDWR)
                 except OSError:
                     pass
                 server.close()
             print("host disconnected", file=sys.stderr, flush=True)
-    except KeyboardInterrupt:
-        pass
     finally:
         srv.close()
 

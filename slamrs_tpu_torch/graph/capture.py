@@ -1,9 +1,13 @@
 """Device work as captured CUDA graphs: the cadence rollout, one replay a
-frame, and the App's node updates, one replay an update.
+frame, on one device or on a mesh whose entries are all one device; the
+tick-by-tick rollout, one replay a tick; and the App's node updates, one
+replay an update.
 
 Counterpart of the JAX package's compiled programs: ``jax.jit`` over a
 ``lax.scan`` of frames in ``FusedWorld.rollout_cadence``
-(``slamrs_tpu/graph/compile.py:313-432``), and the ``jax.jit`` of each
+(``slamrs_tpu/graph/compile.py:313-432``), sharded states included
+(``:85-89,167-171``), ``jax.jit(fw.rollout)`` (``:296-311``), and the
+``jax.jit`` of each
 node's update (``slamrs_tpu/graph/nodes/sim.py:94``,
 ``slamrs_tpu/graph/nodes/slam.py:65,71,137,173``).  Issued op by op, a
 grid tick takes some 50 host launches and an ICP tick 200; here each is
@@ -13,13 +17,15 @@ one ``torch.cuda.CUDAGraph`` replay.
 copy-back of the leaves the work writes fresh, static input buffers, the
 generator registered with each graph, one graph pool, and the launch
 counters and statistics of each graph.  :class:`FrameProgram` is the
-rollout's; the nodes of ``graph/nodes/`` hold one each
-(``App(capture=...)``).
+cadence rollout's (:func:`run_program`), :class:`TickProgram` the tick
+rollout's (:func:`run_ticks`); the nodes of ``graph/nodes/`` hold one
+each (``App(capture=...)``).
 
 The frame program (:class:`FrameProgram`) is ``FusedWorld.frame`` on
 static buffers:
 
-* the world state: every tensor leaf of ``WorldState``.  The first frame
+* the world state: every tensor leaf of ``WorldState`` (every block of a
+  sharded leaf, ``parallel.Sharded``).  The first frame
   runs eagerly on the caller's state and its result becomes the static
   state.  A leaf that a frame writes as a fresh tensor (K1's lineage
   maps, the dda and dense maps, poses, weights, the ICP map) is copied
@@ -43,7 +49,25 @@ warm-up is a real frame of the rollout, run by the very program that is
 then captured: it consumes the run's own draws, and the capture itself
 draws nothing.  The graphs share one memory pool and live for one call; the
 state returned holds ordinary tensors (the static buffers).  Trailing
-idle ticks after the last scan run eagerly.
+idle ticks after the last scan, and a call in which no scan fires, run
+through the tick programs.
+
+Meshes (``parallel/``): a sharded state runs when every entry of its
+mesh is the same CUDA device (a mesh over several distinct devices is
+not captured yet, :func:`check_graphs`); all its work is on one stream.
+A world-only, ``"gather"``, tiled or dda mesh frame reads nothing on the
+host: one graph a frame.  A particle-sharded ``"local"`` frame decides
+per world shard between the relabel and the exact gather, which the JAX
+package does on the device (``slamrs_tpu/parallel/resample.py:177``);
+here the program cuts the frame there (:class:`_Split`): a head graph
+up to every row's plan writes the rows' overflow flags into one static
+buffer, the host reads it once, each row replays the graph of its branch
+(both write the row's blocks in place), and a tail graph holds the rest.
+
+The tick programs (:class:`TickProgram`): an idle tick (motion, each
+filter's estimate carried) and a scan tick (motion and the scan update),
+picked by the host timer before the loop; each tick's output row goes
+into static ``[n_steps, ...]`` buffers.
 
 Draws: the world's ``torch.Generator`` is registered with every graph,
 so a replay draws what the eager frame would (the generator's offset
@@ -81,8 +105,10 @@ from typing import Optional
 import numpy as np
 import torch
 
+from slamrs_tpu_torch.core.types import Command
 from slamrs_tpu_torch.models import gridslam as gs_model
 from slamrs_tpu_torch.parallel import fleet as pf
+from slamrs_tpu_torch.parallel import resample as pres
 
 Tensor = torch.Tensor
 
@@ -126,6 +152,8 @@ class ProgramStats:
     capture_seconds: float = 0.0
     launches: dict = dataclasses.field(default_factory=dict)
     copy_back_bytes: dict = dataclasses.field(default_factory=dict)
+    # host reads of the local-first resample's overflow flags
+    overflow_reads: int = 0
 
     @property
     def graphs(self) -> int:
@@ -134,10 +162,14 @@ class ProgramStats:
 
 @dataclasses.dataclass
 class CaptureStats(ProgramStats):
-    """What one captured rollout did (``FusedWorld.capture_stats``); its
-    graphs are keyed by idle count k."""
+    """What one captured rollout did (``FusedWorld.capture_stats``): the
+    cadence rollout's graphs are keyed by idle count k (a frame cut at
+    the overflow read by ``(k, part)``), the tick rollout's by ``"idle"``
+    and ``"scan"``; ``frames`` counts frames or ticks, and ``ticks``
+    holds the stats of the trailing idle ticks' program."""
 
     frames: int = 0
+    ticks: Optional[ProgramStats] = None
 
     @property
     def eager_frames(self) -> int:
@@ -146,8 +178,31 @@ class CaptureStats(ProgramStats):
 
 
 def _tensor_leaves(tree) -> list:
-    """The tensors of a state of nested named tuples, in field order."""
-    return [x for x in pf.tree_leaves(tree) if isinstance(x, Tensor)]
+    """The tensors of a state of nested named tuples, in field order; a
+    sharded leaf gives its blocks, row by row."""
+    out = []
+    for x in pf.tree_leaves(tree):
+        if isinstance(x, pf.Sharded):
+            out.extend(b for row in x.blocks for b in row)
+        elif isinstance(x, Tensor):
+            out.append(x)
+    return out
+
+
+def _map_tensors(fn, tree, *others):
+    """``fn`` over the tensors of ``tree`` (a sharded leaf's blocks, with
+    the same blocks of ``others``); a host value becomes the last of
+    ``others``' (``tree``'s own without others)."""
+    def leaf(x, *o):
+        if isinstance(x, pf.Sharded):
+            return pf.Sharded(x.mesh, x.spec, [
+                [fn(b, *(y.blocks[r][t] for y in o))
+                 for t, b in enumerate(row)]
+                for r, row in enumerate(x.blocks)])
+        if isinstance(x, Tensor):
+            return fn(x, *o)
+        return o[-1] if o else x
+    return pf.tree_map(leaf, tree, *others)
 
 
 def _storage(t: Tensor) -> int:
@@ -161,6 +216,20 @@ def _check_leaf(static: Tensor, new: Tensor, what: str) -> None:
             f"{new.dtype}{list(new.shape)}")
 
 
+class _Split:
+    """A key's program cut at the local-first resample's overflow read:
+    ``head`` up to and including the flags, then per world row the graph
+    of the branch the flags pick (captured the first time it is taken,
+    into the program's row pool), then ``tail``.  ``branch(r, fallback)``
+    is the resample's, holding the head's tensors it reads."""
+
+    __slots__ = ("head", "tail", "branch", "rows")
+
+    def __init__(self, head, tail, branch):
+        self.head, self.tail, self.branch = head, tail, branch
+        self.rows: dict = {}
+
+
 class Program:
     """Device work on static buffers (``state`` and ``inputs``), run
     eagerly the first time for each key and, with ``graphs``, captured
@@ -171,7 +240,9 @@ class Program:
     new state to :meth:`copy_back` and returns its outputs.  Outputs of a
     replay are the tensors the capture made, in the graph's pool: a
     caller copies what it keeps before the program's next replay.  The
-    state and the input buffers live outside the pool.
+    state and the input buffers live outside the pool.  The state may be
+    sharded over a mesh whose entries are all one device
+    (``parallel.Sharded`` leaves: each block is a static buffer).
 
     The program owns one graph pool, registers ``generator`` (if any)
     with each graph, so a replay draws what the eager run would, and
@@ -180,6 +251,14 @@ class Program:
     which must be a side stream (:func:`on_capture_stream`), without a
     device sync or ``empty_cache``.  A capture or a replay that fails
     raises; nothing falls back to the eager run.
+
+    A body that reaches the local-first resample of a particle-sharded
+    mesh (``parallel/resample.py``) writes every world row's overflow
+    flag into one static bool buffer, which the host reads once a run
+    (:attr:`ProgramStats.overflow_reads`); the row's branch follows.  So
+    its capture is cut there (:class:`_Split`): a head graph, the branch
+    graphs of each row, each captured when first taken, into a second
+    pool that no head or tail tensor lives in, and a tail graph.
     """
 
     def __init__(self, body, device, graphs: bool, generator=None,
@@ -201,11 +280,16 @@ class Program:
         self.inputs: dict = {}  # name -> the static form of a filled value
         self._buffers: dict = {}
         self._caller: set[int] = set()
+        self._static: set[int] = set()
         self._graphs: dict = {}
         self._outputs: dict = {}
         self._given: dict = {}
         self._pool = torch.cuda.graph_pool_handle() if graphs else None
+        self._row_pool = None
         self._copied = 0
+        self._flags = None  # the overflow flags' static buffer
+        self._open = None  # the capture in progress: (graph, counts)
+        self._cut = None  # its head and branch once cut at the flags
 
     def own(self, state, caller=None) -> None:
         """Take ``state`` as the static state, each storage owned once; a
@@ -213,14 +297,13 @@ class Program:
         seen: set[int] = set()
 
         def own(x):
-            if not isinstance(x, Tensor):
-                return x
             if _storage(x) in seen:
                 x = x.clone()
             seen.add(_storage(x))
             return x
 
-        self.state = pf.tree_map(own, state)
+        self.state = _map_tensors(own, state)
+        self._static = seen
         self._caller = {_storage(t) for t in _tensor_leaves(caller)}
 
     def load(self, state) -> None:
@@ -229,19 +312,16 @@ class Program:
         the static leaf is copied into it (a state set from outside).
         Host values are taken as they are."""
         if self.state is None:
-            self.own(pf.tree_map(
-                lambda x: x.clone() if isinstance(x, Tensor) else x, state))
+            self.own(_map_tensors(lambda x: x.clone(), state))
             return
 
         def into(s, n):
-            if not isinstance(s, Tensor):
-                return n
             if n is not s:
                 _check_leaf(s, n, "a loaded state leaf")
                 s.copy_(n)
             return s
 
-        self.state = pf.tree_map(into, self.state, state)
+        self.state = _map_tensors(into, self.state, state)
 
     def fill(self, name, value) -> tuple:
         """Copy ``value`` (a tensor or a named tuple of them) into the
@@ -249,12 +329,12 @@ class Program:
         is its static form.  Returns the non-tensor leaves, which a
         capture holds as constants: they belong in the caller's key."""
         consts: list = []
-        self.inputs[name] = self._static((name,), value, consts)
+        self.inputs[name] = self._static_input((name,), value, consts)
         return tuple(consts)
 
-    def _static(self, path: tuple, v, consts: list):
+    def _static_input(self, path: tuple, v, consts: list):
         if isinstance(v, tuple):
-            items = [self._static((*path, i), x, consts)
+            items = [self._static_input((*path, i), x, consts)
                      for i, x in enumerate(v)]
             return type(v)(*items) if hasattr(v, "_fields") else tuple(items)
         if not isinstance(v, Tensor):
@@ -270,7 +350,9 @@ class Program:
 
     def copy_back(self, new_state) -> None:
         """Copy each leaf the body wrote as a fresh tensor into its static
-        leaf; leaves updated in place are left alone."""
+        leaf; leaves updated in place are left alone.  A fresh leaf that
+        is a view of some static storage would alias two leaves: it
+        raises."""
         for s, n in zip(_tensor_leaves(self.state),
                         _tensor_leaves(new_state), strict=True):
             if n.data_ptr() == s.data_ptr():
@@ -279,6 +361,9 @@ class Program:
             if _storage(s) in self._caller:
                 raise RuntimeError("program: a fresh leaf would be copied "
                                    "into the caller's state")
+            if _storage(n) in self._static:
+                raise RuntimeError("program: a new leaf is a view of "
+                                   "another static leaf")
             s.copy_(n)
             self._copied += s.numel() * s.element_size()
 
@@ -303,7 +388,30 @@ class Program:
 
     def _body(self, key):
         self._copied = 0
-        return self._body_fn()(key)
+        with pres.split_at_overflow(self._at_overflow):
+            return self._body_fn()(key)
+
+    def _read_flags(self) -> list:
+        self.stats.overflow_reads += 1
+        return pres._read_overflow(self._flags)
+
+    def _at_overflow(self, flags: Tensor, branch, n_rows: int) -> None:
+        """The resample's overflow read inside the body: run eagerly, the
+        flags are read and each row's branch taken now; in a capture, the
+        head graph ends after the flags are written and the tail's
+        capture begins (the rows are captured when first taken)."""
+        if self._open is None:
+            if self._flags is None:  # eager runs come before any capture
+                self._flags = torch.empty_like(flags)
+            self._flags.copy_(flags)
+            for r, fallback in enumerate(self._read_flags()):
+                branch(r, fallback)
+            return
+        if self._cut is not None:
+            raise RuntimeError("program: a second overflow read in one run")
+        self._flags.copy_(flags)
+        self._cut = (*self._finish(*self._open), branch)
+        self._open = self._start(self._pool)
 
     def run(self, key, capture_after: bool = True):
         """The program of ``key``: a replay of its graph, or else the body
@@ -311,8 +419,10 @@ class Program:
         ``capture_after``.  Returns the body's outputs."""
         graph = self._graphs.get(key)
         if graph is not None:
-            graph.replay()
-            _add_counts(self.stats.launches[key])
+            if isinstance(graph, _Split):
+                self._replay_split(key, graph)
+            else:
+                self._replay(graph, key)
             self.stats.replays += 1
             return self._outputs[key]
         out = self._body(key)
@@ -321,73 +431,167 @@ class Program:
             self.capture(key)
         return out
 
-    def capture(self, key) -> None:
-        """Capture the program of ``key`` into a graph (nothing runs,
-        nothing is drawn); its launches are kept for the replays and
-        taken off the counters."""
+    def _replay(self, graph, key) -> None:
+        graph.replay()
+        _add_counts(self.stats.launches[key])
+
+    def _replay_split(self, key, split: _Split) -> None:
+        self._replay(split.head, (key, "head"))
+        for r, fallback in enumerate(self._read_flags()):
+            rk = (key, "row", r, "gather" if fallback else "local")
+            graph = split.rows.get(rk)
+            if graph is None:
+                graph = split.rows[rk] = self._capture_row(split.branch, r,
+                                                           fallback, rk)
+            self._replay(graph, rk)
+        self._replay(split.tail, (key, "tail"))
+
+    def _start(self, pool):
+        """A graph's capture begun on the current (capture) stream, after
+        the work queued there; unlike torch.cuda.graph, no device sync
+        and no empty_cache, which would free and re-allocate the caller's
+        pool.  Returns ``(graph, launch counts before)``."""
         graph = torch.cuda.CUDAGraph()
         if self.generator is not None:
             graph.register_generator_state(self.generator)
         before = launch_counts()
-        t0 = time.perf_counter()
-        # on the current (capture) stream, after the eager runs queued
-        # there; unlike torch.cuda.graph, no device sync and no
-        # empty_cache, which would free and re-allocate the caller's pool
-        # no cyclic collection inside the capture either: it could free a
-        # graph or an event of other work, which a capture does not permit
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            graph.capture_begin(pool=self._pool,
-                                capture_error_mode="thread_local")
-            try:
-                out = self._body(key)
-            finally:
-                graph.capture_end()
-        finally:
-            if collecting:
-                gc.enable()
-        self.stats.capture_seconds += time.perf_counter() - t0
+        graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+        return graph, before
+
+    @staticmethod
+    def _finish(graph, before) -> tuple:
+        """End a capture; its launches are taken off the counters and
+        returned with the graph."""
+        graph.capture_end()
         after = launch_counts()
         delta = {name: after[name] - before[name] for name in after}
         _add_counts(delta, -1)
-        self.stats.launches[key] = delta
+        return graph, delta
+
+    @contextlib.contextmanager
+    def _no_collection(self):
+        # no cyclic collection inside a capture: it could free a graph or
+        # an event of other work, which a capture does not permit
+        t0 = time.perf_counter()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            yield
+        finally:
+            if collecting:
+                gc.enable()
+            self.stats.capture_seconds += time.perf_counter() - t0
+
+    def capture(self, key) -> None:
+        """Capture the program of ``key`` into a graph (nothing runs,
+        nothing is drawn), or into a :class:`_Split` when the body reaches
+        the overflow read; its launches are kept for the replays and
+        taken off the counters."""
+        with self._no_collection():
+            self._open, self._cut = self._start(self._pool), None
+            try:
+                out = self._body(key)
+            finally:
+                graph, delta = self._finish(*self._open)
+                self._open = None
         self.stats.copy_back_bytes[key] = self._copied
-        self._graphs[key] = graph
+        if self._cut is None:
+            self._graphs[key] = graph
+            self.stats.launches[key] = delta
+        else:
+            head, head_delta, branch = self._cut
+            self._cut = None
+            self._graphs[key] = _Split(head, graph, branch)
+            self.stats.launches[(key, "head")] = head_delta
+            self.stats.launches[(key, "tail")] = delta
         self._outputs[key] = out
 
+    def _capture_row(self, branch, r: int, fallback: bool, rk):
+        """World row ``r``'s branch captured into the row pool: the head
+        and tail graphs' tensors that live from one to the other were
+        freed into the main pool after their capture, so a graph captured
+        there now could be handed their memory."""
+        if self._row_pool is None:
+            self._row_pool = torch.cuda.graph_pool_handle()
+        with self._no_collection():
+            graph, before = self._start(self._row_pool)
+            try:
+                branch(r, fallback)
+            finally:
+                graph, delta = self._finish(graph, before)
+        self.stats.launches[rk] = delta
+        return graph
 
-class FrameProgram(Program):
-    """The static buffers of a captured rollout and the frame program
-    over them, keyed by idle count k."""
 
-    def __init__(self, fw, first_state, first_row, caller_state, frames: int,
-                 generator, draws, landmark_draws, graphs: bool):
+class WorldProgram(Program):
+    """The static buffers of a captured rollout of a ``FusedWorld``: the
+    world state (one device, or sharded over a one-card mesh), the
+    injected draws of every scan frame moved to the device once, and the
+    output rows ``[rows, ...]`` written at a frame index held on the
+    device and advanced by the program."""
+
+    def __init__(self, body, fw, first_state, first_rows, caller_state,
+                 rows: int, generator, draws, landmark_draws, graphs: bool,
+                 mesh, stats):
         dev = first_state.pose.device
-        super().__init__(self._frame, dev, graphs, generator,
-                         CaptureStats(frames=frames, eager=1))  # frame 0
-        self.fw = fw
+        super().__init__(body, dev, graphs, generator, stats)
+        self.fw, self.mesh = fw, mesh
         self.own(first_state, caller_state)
         self.index = torch.zeros(1, dtype=torch.int64, device=dev)
-        self.outputs = {
-            name: torch.empty((frames, *v.shape), dtype=v.dtype, device=dev)
+        first_rows = first_rows or []
+        row = first_rows[0] if first_rows else None
+        self.outputs = {} if row is None else {
+            name: torch.empty((rows, *v.shape), dtype=v.dtype, device=dev)
             for name in _OUT_FIELDS
-            if (v := getattr(first_row, name)) is not None
-            and (name != "n_eff" or first_row.grid_pose is not None)}
+            if (v := getattr(row, name)) is not None
+            and (name != "n_eff" or row.grid_pose is not None)}
         self.draws = draws  # [F, ...] on the device, or None
         self.landmark_draws = landmark_draws
-        self._write_row(first_row)
+        for row in first_rows:
+            self._write_row(row)
 
     def _write_row(self, row) -> None:
+        if not self.outputs:
+            return
         for name, buf in self.outputs.items():
             buf.index_copy_(0, self.index, getattr(row, name).unsqueeze(0))
         self.index.add_(1)
+
+    def _fill_draws(self, f: int) -> None:
+        """Frame ``f``'s injected draws into the static draw buffers."""
+        if self.draws is not None:
+            self.fill("noise", gs_model.UpdateNoise(
+                *(x[f] for x in self.draws)))
+        if self.landmark_draws is not None:
+            self.fill("landmark_noise",
+                      tuple(x[f] for x in self.landmark_draws))
+
+    def outputs_as(self, fired: Tensor):
+        from slamrs_tpu_torch.graph.compile import WorldOutputs
+
+        outs = self.outputs
+        return WorldOutputs(
+            fired=fired, pose=outs["pose"], grid_pose=outs.get("grid_pose"),
+            icp_pose=outs.get("icp_pose"), ekf_pose=outs.get("ekf_pose"),
+            n_eff=outs.get("n_eff"))
+
+
+class FrameProgram(WorldProgram):
+    """The cadence rollout's frame program, keyed by idle count k."""
+
+    def __init__(self, fw, first_state, first_row, caller_state, frames: int,
+                 generator, draws, landmark_draws, graphs: bool, mesh=None):
+        super().__init__(self._frame, fw, first_state, [first_row],
+                         caller_state, frames, generator, draws,
+                         landmark_draws, graphs, mesh,
+                         CaptureStats(frames=frames, eager=1))  # frame 0
 
     def _frame(self, k: int) -> None:
         """The frame program of ``k`` idle ticks on the static buffers."""
         new_state, row = self.fw.frame(
             self.state, self.inputs[("speeds", k)], self.generator,
-            self.inputs.get("noise"), self.inputs.get("landmark_noise"))
+            self.inputs.get("noise"), self.inputs.get("landmark_noise"),
+            self.mesh)
         self._write_row(row)
         self.copy_back(new_state)
 
@@ -397,13 +601,52 @@ class FrameProgram(Program):
         graph, or else the program run eagerly, then captured when
         ``capture_after``."""
         self.fill(("speeds", k), speeds)
-        if self.draws is not None:
-            self.fill("noise", gs_model.UpdateNoise(
-                *(x[f] for x in self.draws)))
-        if self.landmark_draws is not None:
-            self.fill("landmark_noise",
-                      tuple(x[f] for x in self.landmark_draws))
+        self._fill_draws(f)
         self.run(k, capture_after)
+
+
+class TickProgram(WorldProgram):
+    """The tick rollout's programs (``FusedWorld.rollout``): ``"idle"``,
+    motion only with each filter's previous estimate carried, and
+    ``"scan"``, motion and the scan update.  The host timer picks the
+    kind before the loop; the static state's timer is not kept (the
+    caller sets it).  ``first_rows`` are the rows of the ticks run before
+    the program; without them no output is written (the cadence
+    rollout's trailing idle ticks)."""
+
+    def __init__(self, fw, first_state, first_rows, caller_state,
+                 ticks: int, generator, draws, landmark_draws, graphs: bool,
+                 mesh=None, eager: int = 1):
+        super().__init__(self._tick, fw, first_state, first_rows,
+                         caller_state, ticks, generator, draws,
+                         landmark_draws, graphs, mesh,
+                         CaptureStats(frames=ticks, eager=eager))
+
+    def _tick(self, kind: str) -> None:
+        """One tick of ``kind`` on the static buffers; the timer is
+        forced so that only a scan tick fires."""
+        speed = self.inputs["speed"]
+        scan = kind == "scan"
+        new_state, row = self.fw.step(
+            self.state._replace(scan_timer=0.0), Command(speed[0], speed[1]),
+            self.generator, force_fire=scan,
+            noise=self.inputs.get("noise") if scan else None,
+            landmark_noise=self.inputs.get("landmark_noise") if scan
+            else None)
+        if row.fired != scan:
+            raise RuntimeError("tick program: an idle tick fired (the "
+                               "period is shorter than a tick)")
+        self._write_row(row)
+        self.copy_back(new_state)
+
+    def tick(self, kind: str, speed: Tensor, f: int,
+             capture_after: bool) -> None:
+        """One tick of ``kind`` at ``speed`` (f32[2]); a scan tick takes
+        scan frame ``f``'s injected draws."""
+        self.fill("speed", speed)
+        if kind == "scan":
+            self._fill_draws(f)
+        self.run(kind, capture_after)
 
 
 _STREAMS: dict[int, torch.cuda.Stream] = {}
@@ -453,28 +696,65 @@ def _device_draws(draws, device):
     return tuple(torch.from_numpy(np.array(x)).to(device) for x in draws)
 
 
+def check_graphs(mesh, device, what: str) -> None:
+    """Raise unless a rollout on ``device`` (a mesh's first device) can be
+    captured: a mesh over several distinct devices is not captured yet
+    (``NotImplementedError``), and CUDA graphs need a CUDA device
+    (``ValueError``)."""
+    if mesh is not None and len({str(d) for d in mesh.devices.flat}) > 1:
+        raise NotImplementedError(
+            f"{what}: a mesh over several distinct devices is not captured "
+            "yet; it runs the eager loop (capture=None or False)")
+    if torch.device(device).type != "cuda":
+        raise ValueError(f"{what} needs a state on a CUDA device, got "
+                         f"{device}")
+
+
+@contextlib.contextmanager
+def _program_stream(dev, graphs: bool):
+    """The block on ``dev``'s capture stream (with ``graphs``), after the
+    caller's stream's work; the caller's stream waits for it after."""
+    if not graphs:
+        yield None
+        return
+    main = torch.cuda.current_stream(dev)
+    stream = capture_stream(dev)
+    stream.wait_stream(main)
+    with torch.cuda.stream(stream):
+        yield main
+    main.wait_stream(stream)
+
+
+def _hand_over(main, *trees) -> None:
+    """Tensors made on the capture stream, used on the caller's stream
+    from here on."""
+    if main is not None:
+        for tree in trees:
+            for t in _tensor_leaves(tree):
+                t.record_stream(main)
+
+
 def run_program(fw, state, n_steps: int, seed: int = 0, commands=None,
                 initial_timer: Optional[float] = None, noise=None,
                 landmark_noise=None, graphs: bool = True):
-    """``fw.rollout_cadence`` of a one-device ``state`` through the frame
-    program: with ``graphs`` each frame after the first of its idle count
-    is a CUDA graph replay (on CUDA only); without, the program runs
-    eagerly on any device (the CPU tests hold it to the eager loop).
-    Sets ``fw.capture_stats``."""
-    from slamrs_tpu_torch.graph.compile import WorldOutputs
-
-    if pf.mesh_of(state) is not None or fw.mesh is not None:
-        raise NotImplementedError("the frame program runs one-device states")
+    """``fw.rollout_cadence`` through the frame program, on one device or
+    on a mesh whose entries are all one device: with ``graphs`` each
+    frame after the first of its idle count is a CUDA graph replay (on
+    CUDA only); without, the program runs eagerly on any device (the CPU
+    tests hold it to the eager loop).  The trailing idle ticks after the
+    last scan, and a call in which no scan fires, run through the tick
+    programs (:func:`run_ticks`).  Sets ``fw.capture_stats``."""
+    state, mesh = fw._placed(state)
     dev = state.pose.device
-    if graphs and dev.type != "cuda":
-        raise ValueError(f"CUDA graphs need a CUDA state, got {dev}")
+    if graphs:
+        check_graphs(mesh, dev, "the frame program")
     if commands is None:
         commands = fw.commands_for(n_steps)
     fire_idx, timer = fw.fire_schedule(
         n_steps, state.scan_timer if initial_timer is None else initial_timer)
     if fire_idx.size == 0:
-        return fw.rollout(state, n_steps, seed, commands)
-    gen = fw._generator(seed, None)
+        return run_ticks(fw, state, n_steps, seed, commands, graphs=graphs)
+    gen = fw._generator(seed, mesh)
     speeds = torch.stack([commands.speed_left,
                           commands.speed_right]).to(dev)
     draws = _device_draws(noise, dev)
@@ -482,19 +762,15 @@ def run_program(fw, state, n_steps: int, seed: int = 0, commands=None,
     idle = np.diff(fire_idx, prepend=-1) - 1  # idle ticks before each scan
     later = collections.Counter(idle[1:].tolist())
 
-    main = torch.cuda.current_stream(dev) if graphs else None
-    stream = capture_stream(dev) if graphs else None
-    if graphs:
-        stream.wait_stream(main)
-    with torch.cuda.stream(stream) if graphs else contextlib.nullcontext():
+    with _program_stream(dev, graphs) as main:
         first, row = fw.frame(
             state, speeds[:, :fire_idx[0] + 1], gen,
             None if draws is None else gs_model.UpdateNoise(
                 *(x[0] for x in draws)),
             None if landmark_draws is None else tuple(
-                x[0] for x in landmark_draws))
+                x[0] for x in landmark_draws), mesh)
         prog = FrameProgram(fw, first, row, state, len(fire_idx), gen, draws,
-                            landmark_draws, graphs)
+                            landmark_draws, graphs, mesh)
         for f in range(1, len(fire_idx)):
             k = int(idle[f])
             later[k] -= 1
@@ -502,20 +778,86 @@ def run_program(fw, state, n_steps: int, seed: int = 0, commands=None,
             prog.frame(k, speeds[:, e - k:e + 1], f,
                        capture_after=graphs and later[k] > 0)
         last = prog.state
-        last = fw.idle(last, speeds[:, int(fire_idx[-1]) + 1:])
+        trailing = n_steps - 1 - int(fire_idx[-1])
+        if trailing:  # idle ticks: the tick rollout's idle program
+            ticks = TickProgram(fw, last, None, state, trailing, gen, None,
+                                None, graphs, mesh, eager=0)
+            for j in range(trailing):
+                ticks.tick("idle", speeds[:, n_steps - trailing + j], 0,
+                           capture_after=graphs and j < trailing - 1)
+            last = ticks.state
+            prog.stats.ticks = ticks.stats
         last = last._replace(
             scan_timer=timer,
             scan_counter=state.scan_counter + len(fire_idx))
-        outs = prog.outputs
-        result = WorldOutputs(
-            fired=torch.ones(len(fire_idx), dtype=torch.bool, device=dev),
-            pose=outs["pose"], grid_pose=outs.get("grid_pose"),
-            icp_pose=outs.get("icp_pose"), ekf_pose=outs.get("ekf_pose"),
-            n_eff=outs.get("n_eff"))
+        result = prog.outputs_as(
+            torch.ones(len(fire_idx), dtype=torch.bool, device=dev))
+        _hand_over(main, last, result)
+    fw.capture_stats = prog.stats
+    return last, result
+
+
+def run_ticks(fw, state, n_steps: int, seed: int = 0, commands=None,
+              noise=None, landmark_noise=None, graphs: bool = True):
+    """``fw.rollout`` through the tick programs, on one device or on a
+    mesh whose entries are all one device: the host timer gives each
+    tick's kind before the loop.  The ticks up to the first scan tick run
+    eagerly on ``state``; after them each tick is a replay of its kind's
+    graph (with ``graphs``, on CUDA only; the first of each kind runs
+    eagerly, then is captured).  ``noise`` and ``landmark_noise`` hold
+    each scan frame's draws.  Sets ``fw.capture_stats``."""
+    state, mesh = fw._placed(state)
+    dev = state.pose.device
     if graphs:
-        main.wait_stream(stream)
-        # made on the capture stream, used on the caller's from here on
-        for t in _tensor_leaves(last) + _tensor_leaves(result):
-            t.record_stream(main)
+        check_graphs(mesh, dev, "the tick program")
+    if commands is None:
+        commands = fw.commands_for(n_steps)
+    fire_idx, timer = fw.fire_schedule(n_steps, state.scan_timer)
+    fired = np.zeros(n_steps, bool)
+    fired[fire_idx] = True
+    kinds = ["scan" if x else "idle" for x in fired]
+    gen = fw._generator(seed, mesh)
+    speeds = torch.stack([commands.speed_left,
+                          commands.speed_right]).to(dev)
+    draws = _device_draws(noise, dev)
+    landmark_draws = _device_draws(landmark_noise, dev)
+    for given in (draws, landmark_draws):
+        if given is not None and len(given[0]) < fire_idx.size:
+            raise ValueError(f"injected draws for {len(given[0])} scan "
+                             f"frames, the rollout scans {fire_idx.size} "
+                             "times")
+
+    def frame_draws(all_draws, f):
+        if all_draws is None or f >= len(all_draws[0]):
+            return None
+        return tuple(x[f] for x in all_draws)
+
+    # eager up to the first scan tick: from then on no leaf of the
+    # caller's state is in the static state where a tick writes afresh
+    lead = int(fire_idx[0]) + 1 if fire_idx.size else 1
+    later = collections.Counter(kinds[lead:])
+    with _program_stream(dev, graphs) as main:
+        first, rows = state, []
+        for i in range(lead):
+            grid_noise = frame_draws(draws, 0) if fired[i] else None
+            first, row = fw.step(
+                first, Command(speeds[0, i], speeds[1, i]), gen,
+                noise=None if grid_noise is None
+                else gs_model.UpdateNoise(*grid_noise),
+                landmark_noise=frame_draws(landmark_draws, 0) if fired[i]
+                else None)
+            rows.append(row)
+        prog = TickProgram(fw, first, rows, state, n_steps, gen, draws,
+                           landmark_draws, graphs, mesh, eager=lead)
+        f = int(fired[:lead].sum())
+        for i in range(lead, n_steps):
+            later[kinds[i]] -= 1
+            prog.tick(kinds[i], speeds[:, i], f,
+                      capture_after=graphs and later[kinds[i]] > 0)
+            f += int(fired[i])
+        last = prog.state._replace(
+            scan_timer=timer, scan_counter=state.scan_counter + int(f))
+        result = prog.outputs_as(torch.from_numpy(fired).to(dev))
+        _hand_over(main, last, result)
     fw.capture_stats = prog.stats
     return last, result

@@ -16,10 +16,11 @@ motion and resample draws (``models/gridslam.update``), then the
 landmark sensor's bearing noise, then its range noise
 (``models/simulator.landmark_scan``).  ICP draws nothing.  So
 :meth:`FusedWorld.rollout` and :meth:`FusedWorld.rollout_cadence` draw
-the same numbers for the same seed.  On one CUDA device
-:meth:`FusedWorld.rollout_cadence` replays each scan frame from a
-captured CUDA graph (``graph/capture.py``) that draws, and computes,
-what the eager frame loop does.
+the same numbers for the same seed.  On one CUDA device, or on a mesh
+whose entries are all one CUDA device, :meth:`FusedWorld.rollout_cadence`
+replays each scan frame from captured CUDA graphs and
+:meth:`FusedWorld.rollout` each tick (``graph/capture.py``), which draw,
+and compute, what the eager loops do.
 
 Fleets: :meth:`FusedWorld.init` with ``worlds=(W,)`` gives ``W`` worlds
 on one device, every state field with a leading ``[W]`` axis, as the JAX
@@ -353,12 +354,26 @@ class FusedWorld:
 
     def rollout(self, state: WorldState, n_steps: int, seed: int = 0,
                 commands: Optional[Command] = None,
-                landmark_noise: Optional[tuple] = None
+                landmark_noise: Optional[tuple] = None,
+                noise: Optional[gs_model.UpdateNoise] = None,
+                capture: Optional[bool] = None
                 ) -> tuple[WorldState, WorldOutputs]:
         """Tick by tick; outputs stacked along the time axis.
-        ``landmark_noise`` (tests) holds each scan frame's ``(noise_a,
-        noise_d)`` with a leading frame axis, in place of the generator's
-        landmark draws."""
+        ``noise`` (tests) holds each scan frame's pre-drawn grid-SLAM
+        draws and ``landmark_noise`` each scan frame's ``(noise_a,
+        noise_d)``, with a leading frame axis, in place of the
+        generator's.
+
+        ``capture`` as :meth:`rollout_cadence`'s: where it captures, each
+        tick is one replay of an idle tick's or a scan tick's CUDA graph
+        (``graph/capture.run_ticks``, the counterpart of
+        ``jax.jit(fw.rollout)``), bitwise the eager loop."""
+        if self._graphs_for(state, capture, "rollout"):
+            from slamrs_tpu_torch.graph import capture as graph_capture
+
+            return graph_capture.run_ticks(self, state, n_steps, seed,
+                                           commands, noise, landmark_noise,
+                                           graphs=True)
         if commands is None:
             commands = self.commands_for(n_steps)
         state, mesh = self._placed(state)
@@ -367,15 +382,39 @@ class FusedWorld:
         frame = 0
         for i in range(n_steps):
             # the next scan frame's draws (None past the last one)
-            draws = (self._frame_draws(landmark_noise, frame)
-                     if landmark_noise is not None
-                     and frame < len(landmark_noise[0]) else None)
+            lm = (self._frame_draws(landmark_noise, frame)
+                  if landmark_noise is not None
+                  and frame < len(landmark_noise[0]) else None)
+            grid = (gs_model.UpdateNoise(*self._frame_draws(noise, frame))
+                    if noise is not None and frame < len(noise[0])
+                    else None)
             state, row = self.step(
                 state, Command(commands.speed_left[i], commands.speed_right[i]),
-                generator=gen, landmark_noise=draws)
+                generator=gen, noise=grid, landmark_noise=lm)
             frame += int(row.fired)
             rows.append(row)
         return state, _stack_outputs(rows, self._out_device(mesh))
+
+    def _graphs_for(self, state: WorldState, capture: Optional[bool],
+                    what: str) -> bool:
+        """Whether a rollout of ``state`` runs as captured graphs:
+        ``capture=None`` where the state lies on one CUDA device or on a
+        mesh whose entries are all one CUDA device; True there, raising
+        elsewhere (``graph/capture.check_graphs``: a mesh over several
+        distinct devices, the CPU); False never."""
+        if capture is False:
+            return False
+        from slamrs_tpu_torch.graph import capture as graph_capture
+
+        mesh = pf.mesh_of(state) if self.mesh is None else self.mesh
+        dev = state.pose.device if mesh is None else mesh.first_device
+        try:
+            graph_capture.check_graphs(mesh, dev, f"{what}(capture=True)")
+        except (NotImplementedError, ValueError):
+            if capture is True:
+                raise
+            return False
+        return True
 
     def _frame_draws(self, draws, f: int):
         """Frame ``f`` of per-frame numpy draws, as tensors (None stays)."""
@@ -415,36 +454,31 @@ class FusedWorld:
         leading frame axis, in place of the seeded generator's.
 
         ``capture``: None replays each frame from a captured CUDA graph
-        (``graph/capture.py``) when the state lies on one CUDA device, and
-        runs the eager frame loop on the CPU and on a mesh (the
-        ``"local"`` relabel's overflow check reads the host); False runs
-        the eager loop on any device; True captures, and raises on the
-        CPU (``ValueError``) and on a mesh (``NotImplementedError``).  A
-        capture or replay that fails raises.  Both draw the same numbers
-        and give the same bits.
+        (``graph/capture.py``) when the state lies on one CUDA device or
+        on a mesh whose entries are all one CUDA device (a particle-sharded
+        ``"local"`` frame is cut at its one overflow read: a head graph,
+        each world row's branch graph, a tail graph), and runs the eager
+        frame loop on the CPU and on a mesh over several distinct devices;
+        False runs the eager loop on any device; True captures, and raises
+        on a mesh over several distinct devices (``NotImplementedError``:
+        not captured yet) and on the CPU (``ValueError``).  A capture or
+        replay that fails raises.  Both draw the same numbers and give the
+        same bits.
         """
-        if commands is None:
-            commands = self.commands_for(n_steps)
-        mesh = pf.mesh_of(state) if self.mesh is None else self.mesh
-        on_cuda = state.pose.device.type == "cuda"
-        if capture is True and mesh is not None:
-            raise NotImplementedError(
-                "rollout_cadence(capture=True) runs one-device states; a "
-                "mesh runs the eager loop (capture=None or False)")
-        if capture is True and not on_cuda:
-            raise ValueError("rollout_cadence(capture=True) needs a state on "
-                             f"a CUDA device, got {state.pose.device}")
-        if capture is not False and on_cuda and mesh is None:
+        if self._graphs_for(state, capture, "rollout_cadence"):
             from slamrs_tpu_torch.graph import capture as graph_capture
 
             return graph_capture.run_program(
                 self, state, n_steps, seed, commands, initial_timer, noise,
                 landmark_noise, graphs=True)
+        if commands is None:
+            commands = self.commands_for(n_steps)
         fire_idx, timer = self.fire_schedule(
             n_steps, state.scan_timer if initial_timer is None
             else initial_timer)
         if fire_idx.size == 0:
-            return self.rollout(state, n_steps, seed, commands)
+            return self.rollout(state, n_steps, seed, commands,
+                                capture=False)
 
         state, mesh = self._placed(state)
         gen = self._generator(seed, mesh)

@@ -187,6 +187,11 @@ class VirtualRobot:
         self.neato_on = False  # (main.rs:503-507)
         self.led.set_status(self._led_status_cls.blinking("green", "slow"))
 
+    def synchronize(self) -> None:
+        """Wait for the lidar's device work (a no-op on the CPU)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
     def handle_command(self, msg: CommandMessage) -> None:
         """event_loop command dispatch (main.rs:508-540)."""
         if msg.kind == "neato_on":
@@ -314,6 +319,22 @@ class VirtualRobot:
                 "valid": valid}
 
 
+# the longest a server thread may take to reach its next step boundary
+# (a write waits up to 5 s for a lagging host)
+STOP_TIMEOUT_S = 30.0
+
+
+def _stop_thread(stop: threading.Event, thread: threading.Thread) -> None:
+    """Ask a server thread to stop and wait until it has: a thread left
+    running a torch call while the interpreter finalizes aborts the
+    process."""
+    stop.set()
+    thread.join(STOP_TIMEOUT_S)
+    if thread.is_alive():
+        raise RuntimeError(f"the virtual robot's server thread did not stop "
+                           f"within {STOP_TIMEOUT_S} s")
+
+
 class VirtualRobotServer:
     """Serve a VirtualRobot over a ConnectionMedium (socketpair in tests,
     a real TCP listener for interactive use) — the transport-bridge role
@@ -374,9 +395,13 @@ class VirtualRobotServer:
             self.robot.handle_command(msg)
 
     def close(self) -> None:
+        """Stop serving: the server thread ends at its next step boundary
+        (a read waits at most the medium's timeout) and is joined; then
+        the robot disconnects and its device finishes the work queued
+        there, so no torch call is left running behind the caller."""
+        _stop_thread(self._stop, self._thread)
         self.robot.disconnect()
-        self._stop.set()
-        self._thread.join(timeout=2.0)
+        self.robot.synchronize()
         self.medium.close()
 
 
@@ -494,10 +519,10 @@ class UsbCdcServer:
     def close(self) -> None:
         import os
 
-        self._stop.set()
-        self._thread.join(timeout=2.0)
+        _stop_thread(self._stop, self._thread)
         if self.robot.connected:
             self.robot.disconnect()
+        self.robot.synchronize()
         for fd in (self._master, self._holder):
             if fd is not None:
                 try:

@@ -25,6 +25,8 @@ nothing is staged through the host.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from slamrs_tpu_torch.parallel.fleet import (Mesh, Sharded, WORLD_PARTICLE,
@@ -115,47 +117,76 @@ def _plan(ancestors: Tensor, n_shards: int, p_loc: int, spill_cap: int):
     return local_src, use, pool_sel.to(i32), pool_base, overflow
 
 
-def _any_overflow(overflow: Tensor) -> bool:
+def _read_overflow(flags: Tensor) -> list:
     """The counterpart of ``lax.cond`` on the overflow
     (``resample.py:177``): the one host read of a particle-sharded
-    resample, once per world shard.  Running both branches and selecting
-    would do the full gather every time."""
-    return bool(overflow.any())
+    resample, every world shard's flag (``flags``, bool ``[n_rows]``) at
+    once.  Running both branches and selecting would do the full gather
+    every time."""
+    return flags.tolist()
 
 
-def _take_rows(x: Tensor, idx: Tensor) -> Tensor:
-    """``x[w, idx[w, j]]`` for ``x [W, N, ...]``, ``idx [W, K]``."""
+# the frame program's handler of the overflow read (graph/capture.py),
+# set around its body by split_at_overflow
+_SPLIT = None
+
+
+@contextlib.contextmanager
+def split_at_overflow(handler):
+    """Within the block, :func:`resample_fleet` hands its overflow flags
+    and its per-row branch to ``handler(flags, branch, n_rows)`` instead
+    of reading the flags and running the branches itself; ``branch(r,
+    fallback)`` writes world shard ``r``'s resample in place."""
+    global _SPLIT
+    prev, _SPLIT = _SPLIT, handler
+    try:
+        yield
+    finally:
+        _SPLIT = prev
+
+
+def _take_rows(x: Tensor, idx: Tensor, out: Tensor | None = None
+               ) -> Tensor:
+    """``x[w, idx[w, j]]`` for ``x [W, N, ...]``, ``idx [W, K]``; written
+    into ``out`` (``[W, K, ...]``, contiguous) when given."""
     w, n = x.shape[:2]
     flat = (idx.long() + n * torch.arange(w, device=idx.device)[:, None])
-    return x.reshape(w * n, *x.shape[2:]).index_select(
-        0, flat.reshape(-1)).reshape(w, idx.shape[1], *x.shape[2:])
+    rows = x.reshape(w * n, *x.shape[2:])
+    if out is None:
+        return rows.index_select(0, flat.reshape(-1)).reshape(
+            w, idx.shape[1], *x.shape[2:])
+    torch.index_select(rows, 0, flat.reshape(-1),
+                       out=out.view(w * idx.shape[1], *x.shape[2:]))
+    return out
 
 
 def gather_row(blocks: list, ancestors: Tensor, devices) -> list:
     """The slot-exact cross-shard take of one world shard (the fallback,
-    the ``"gather"`` route and the dda/dense resample): slot ``j`` of
-    shard ``t`` takes particle ``ancestors[w, t * p_loc + j]`` of its
-    world.  ``blocks``: the row's ``[W_loc, P_loc, ...]`` blocks; the
-    whole row is gathered once onto each distinct device."""
+    the ``"gather"`` route and the dda/dense resample), written in place
+    into ``blocks``, the row's ``[W_loc, P_loc, ...]`` blocks: slot ``j``
+    of shard ``t`` takes particle ``ancestors[w, t * p_loc + j]`` of its
+    world.  The whole row is gathered once onto each distinct device
+    before any block is written."""
     p_loc = blocks[0].shape[1]
     full = {}
-    out = []
-    for t, dev in enumerate(devices):
+    for dev in devices:
         if dev not in full:
             full[dev] = torch.cat([b.to(dev, non_blocking=True)
                                    for b in blocks], dim=1)
+    out = []
+    for t, dev in enumerate(devices):
         sel = ancestors[:, t * p_loc:(t + 1) * p_loc].to(dev,
                                                          non_blocking=True)
-        out.append(_take_rows(full[dev], sel))
+        out.append(_take_rows(full[dev], sel, blocks[t]))
     return out
 
 
 def _local_first_row(g_blocks, q_blocks, devices, plan, n_shards, p_loc,
                      spill_cap):
-    """One world shard's local-first relabel (``resample.py:138-165``):
-    each shard publishes its spill window, every shard receives the
-    ``[W_loc, S * cap]`` pool and picks each slot from its own block or
-    from the pool."""
+    """One world shard's local-first relabel (``resample.py:138-165``),
+    written into the row's blocks: each shard publishes its spill window,
+    every shard receives the ``[W_loc, S * cap]`` pool and picks each
+    slot from its own block or from the pool."""
     local_src, use_pool, pool_sel, pool_base, _ = plan
     wl = g_blocks[0].shape[0]
     window = (pool_base[..., None]
@@ -177,7 +208,7 @@ def _local_first_row(g_blocks, q_blocks, devices, plan, n_shards, p_loc,
             src = torch.where(use_pool[:, t], p_loc + pool_sel[:, t],
                               local_src[:, t]).to(dev, non_blocking=True)
             new.append(_take_rows(torch.cat([blocks[t], pools[dev]], dim=1),
-                                  src))
+                                  src, blocks[t]))
         outs.append(new)
     return outs[0], outs[1]
 
@@ -189,10 +220,14 @@ def resample_fleet(grids: Sharded, poses: Sharded, ancestors, mesh: Mesh,
     ``grids`` ``[W, P, H, C]`` and ``poses`` ``[W, P, 3]`` cut over
     ``("world", "particle")``; ``ancestors`` ``[W, P]`` (sorted per world;
     identity where the resample did not fire), a one-device tensor or cut
-    over worlds.  Returns the resampled grids and poses on the same
-    blocks: per world the multiset of ``take(ancestors)``, relabeled
-    local-first so only spilled unique maps cross shards, slot for slot
-    the JAX package's."""
+    over worlds.  Returns the resampled grids and poses, written in place
+    into the blocks of ``grids`` and ``poses``: per world the multiset of
+    ``take(ancestors)``, relabeled local-first so only spilled unique maps
+    cross shards, slot for slot the JAX package's.
+
+    Every world shard's plan is made first; their overflow flags are read
+    on the host once (:func:`_read_overflow`), then each world shard takes
+    the relabel or, on overflow, the exact gather."""
     n_rows, n_shards = mesh.devices.shape
     p = grids.shape[1]
     if p % n_shards:
@@ -202,22 +237,31 @@ def resample_fleet(grids: Sharded, poses: Sharded, ancestors, mesh: Mesh,
     if spill_cap is None:
         spill_cap = max(1, min(p_loc, 8))
     spill_cap = min(spill_cap, p_loc)
-    new_g, new_q = [], []
-    for r in range(n_rows):
+    ancs = [world_part(ancestors, mesh, r) for r in range(n_rows)]
+
+    def branch(r: int, fallback: bool) -> None:
         devices = list(mesh.devices[r])
-        anc = world_part(ancestors, mesh, r)
         g_blocks, q_blocks = grids.blocks[r], poses.blocks[r]
-        plan = None
-        if n_shards > 1:
-            plan = _plan(anc, n_shards, p_loc, spill_cap)
-        if plan is None or _any_overflow(plan[4]):
-            # one shard (a plain take) or the exact fallback
-            new_g.append(gather_row(g_blocks, anc, devices))
-            new_q.append(gather_row(q_blocks, anc, devices))
+        if fallback:
+            gather_row(g_blocks, ancs[r], devices)
+            gather_row(q_blocks, ancs[r], devices)
         else:
-            g, q = _local_first_row(g_blocks, q_blocks, devices, plan,
-                                    n_shards, p_loc, spill_cap)
-            new_g.append(g)
-            new_q.append(q)
-    return (Sharded(mesh, WORLD_PARTICLE, new_g),
-            Sharded(mesh, WORLD_PARTICLE, new_q))
+            _local_first_row(g_blocks, q_blocks, devices, plans[r],
+                             n_shards, p_loc, spill_cap)
+
+    if n_shards == 1:  # one shard: a plain take, nothing to decide
+        plans = None
+        for r in range(n_rows):
+            branch(r, True)
+    else:
+        plans = [_plan(anc, n_shards, p_loc, spill_cap) for anc in ancs]
+        dev0 = mesh.first_device
+        flags = torch.stack([plan[4].any().to(dev0, non_blocking=True)
+                             for plan in plans])
+        if _SPLIT is not None:
+            _SPLIT(flags, branch, n_rows)
+        else:
+            for r, fallback in enumerate(_read_overflow(flags)):
+                branch(r, fallback)
+    return (Sharded(mesh, WORLD_PARTICLE, [list(row) for row in grids.blocks]),
+            Sharded(mesh, WORLD_PARTICLE, [list(row) for row in poses.blocks]))

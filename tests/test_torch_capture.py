@@ -13,8 +13,9 @@ dda (``configs/grid_slam.yaml``), dense, ICP + EKF, and a 3-world fleet
 ``rollout_cadence`` under the JAX draws (``tests/torch_compare.py``) it
 holds ``tests/test_torch_world.py``'s gates: per-frame best pose 1e-4 m,
 N_eff rtol 1e-3, ground truth 1e-5 m, map flip fraction < 1e-3; ICP
-1e-4 m, EKF 1e-3 m.  ``capture=True`` raises on the CPU and on a mesh,
-and a mesh runs eagerly with ``capture=None``.
+1e-4 m, EKF 1e-3 m.  ``capture=True`` raises on the CPU (a CPU mesh
+too) and on a mesh over several distinct devices, and a CPU mesh runs
+eagerly with ``capture=None``.
 
 The ``cuda`` cases hold the captured run against the eager loop on the
 card, bitwise, under the seed and under injected draws, with the
@@ -178,13 +179,26 @@ def test_capture_true_raises_on_the_cpu():
 
 
 def test_capture_true_raises_on_a_mesh_and_none_runs_it_eagerly():
+    """``capture=True`` raises on a CPU mesh (no CUDA graphs there) and on
+    a mesh over several distinct devices (not captured yet); on the CPU
+    mesh ``capture=None`` runs the eager loop, which the uncaptured frame
+    program equals (``tests/test_torch_mesh_capture.py`` has every
+    route)."""
     fw, _ = _world("fleet", "cpu")
     mesh = pf.make_mesh(2, devices=[torch.device("cpu")] * 2)
     sharded = pf.shard_world_state(fw.init((2,)), mesh, 2)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(ValueError, match="CUDA"):
         fw.rollout_cadence(sharded, TICKS, capture=True)
-    with pytest.raises(NotImplementedError):
-        capture.run_program(fw, sharded, TICKS, graphs=False)
+    two_cards = pf.make_mesh(2, devices=[torch.device("cuda", 0),
+                                         torch.device("cuda", 1)])
+    with pytest.raises(NotImplementedError, match="mesh"):
+        dataclasses.replace(fw, mesh=two_cards).rollout_cadence(
+            fw.init((2,)), TICKS, capture=True)
+    _assert_same_run(  # block for block
+        fw.rollout_cadence(pf.shard_world_state(fw.init((2,)), mesh, 2),
+                           TICKS, seed=2, capture=False),
+        capture.run_program(fw, pf.shard_world_state(fw.init((2,)), mesh, 2),
+                            TICKS, seed=2, graphs=False))
     st, outs = fw.rollout_cadence(sharded, TICKS, seed=2)
     one, one_outs = fw.rollout_cadence(fw.init((2,)), TICKS, seed=2,
                                        capture=False)
@@ -296,8 +310,17 @@ def test_captured_equals_eager_on_the_card(route, draws, dev):
 
 @pytest.mark.cuda
 def test_capture_true_raises_on_a_card_mesh(dev):
+    """A mesh whose entries are all the card captures (bitwise the eager
+    mesh loop); one over several distinct devices raises with
+    ``capture=True``."""
     fw, _ = _world("fleet", dev)
     mesh = pf.make_mesh(2, devices=[dev] * 2)
-    sharded = pf.shard_world_state(fw.init((2,)), mesh, 2)
+    runs = [fw.rollout_cadence(pf.shard_world_state(fw.init((2,)), mesh, 2),
+                               90, seed=4, capture=c) for c in (False, True)]
+    _assert_same_run(*((pf.unshard_world_state(s), o) for s, o in runs))
+    assert fw.capture_stats.replays >= 1
+    two_cards = pf.make_mesh(2, devices=[torch.device("cuda", 0),
+                                         torch.device("cuda", 1)])
     with pytest.raises(NotImplementedError):
-        fw.rollout_cadence(sharded, TICKS, capture=True)
+        dataclasses.replace(fw, mesh=two_cards).rollout_cadence(
+            fw.init((2,)), TICKS, capture=True)

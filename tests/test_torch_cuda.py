@@ -944,3 +944,87 @@ def test_two_firing_ticks_in_one_frame_on_the_card(dev):
     d = [m.scan.distances for m in msgs]
     assert len({x.data_ptr() for x in d}) == 4
     assert all(not torch.equal(a, b) for a, b in zip(d, d[1:]))
+
+
+def test_robot_process_exits_0_at_sigint_on_the_card(dev):
+    """``python -m slamrs_tpu_torch robot`` with its lidar on the card: two
+    hosts connect, take lidar frames and close; at SIGINT the process ends
+    with exit code 0 (it once aborted with -6 there)."""
+    from torch_robot_process import connect_close_sigint
+
+    code, lines = connect_close_sigint("cuda", cycles=2, limit_s=120.0)
+    assert code == 0, lines
+
+
+# ---- sharded frames and the tick rollout as CUDA graphs -------------------
+
+
+def _run_counted(fn):
+    """``fn()`` with the device synchronized after; returns its result and
+    the wrappers' launches it made."""
+    from slamrs_tpu_torch.graph import capture
+
+    before = capture.launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    after = capture.launch_counts()
+    return out, {k: after[k] - before[k] for k in after}
+
+
+@pytest.mark.parametrize("draws", ["seed", "injected"])
+@pytest.mark.parametrize("route", ["world_only_cow_8x1", "gather_2x4",
+                                   "local_2x4", "local_2x4_overflow",
+                                   "tiled_2x1", "dda_4x2", "icp_4x1",
+                                   "ekf_4x1"])
+def test_mesh_captured_equals_eager_on_the_card(route, draws, dev,
+                                                monkeypatch):
+    """A mesh whose entries are all the card, ``capture=True`` against the
+    eager mesh loop: state and outputs bitwise, the same launches; the
+    local relabel reads its overflow flags once a frame."""
+    from test_torch_mesh_capture import (MESH_ROUTES, _assert_same_run,
+                                         _draws, _mesh, _Reads, _spill_cap,
+                                         _world)
+
+    kind, grid, n, axis, w, cap = MESH_ROUTES[route]
+    _spill_cap(monkeypatch, cap)
+    fw = _world(kind, grid, _mesh(n, axis, dev), dev)
+    ticks = 90
+    kw = _draws(fw, (w,), ticks, 5) if draws == "injected" else {}
+    eager, eager_counts = _run_counted(lambda: fw.rollout_cadence(
+        fw.init((w,)), ticks, seed=3, capture=False, **kw))
+    reads = _Reads(monkeypatch)
+    captured, counts = _run_counted(lambda: fw.rollout_cadence(
+        fw.init((w,)), ticks, seed=3, capture=True, **kw))
+    _assert_same_run(eager, captured)
+    assert counts == eager_counts
+    stats = fw.capture_stats
+    frames = int(eager[1].fired.shape[0])
+    assert stats.replays >= 1 and stats.replays + stats.eager == frames
+    split = [k for k in stats.launches if not isinstance(k, int)]
+    assert reads.reads == (frames if "local" in route else 0)
+    assert bool(split) == ("local" in route)
+
+
+@pytest.mark.parametrize("draws", ["seed", "injected"])
+@pytest.mark.parametrize("route", ["fused", "dda", "icp", "ekf", "local_2x4"])
+def test_tick_capture_equals_eager_on_the_card(route, draws, dev):
+    """``FusedWorld.rollout(capture=True)`` (an idle and a scan graph)
+    against the eager tick loop, bitwise, the same launches."""
+    from test_torch_mesh_capture import (TICK_ROUTES, _assert_same_run,
+                                         _draws, _mesh, _world)
+
+    kind, grid, mesh, worlds = TICK_ROUTES[route]
+    fw = _world(kind, grid, None if mesh is None else _mesh(*mesh, dev), dev)
+    ticks = 120 if kind == "dda_yaml" else 60
+    kw = _draws(fw, worlds, ticks, 8) if draws == "injected" else {}
+    eager, eager_counts = _run_counted(lambda: fw.rollout(
+        fw.init(worlds), ticks, seed=2, capture=False, **kw))
+    captured, counts = _run_counted(lambda: fw.rollout(
+        fw.init(worlds), ticks, seed=2, capture=True, **kw))
+    _assert_same_run(eager, captured)
+    assert counts == eager_counts
+    stats = fw.capture_stats
+    # a "local" mesh's scan tick is cut at its overflow read: (kind, part)
+    assert {k if isinstance(k, str) else k[0] for k in stats.launches} \
+        == {"idle", "scan"}
+    assert stats.replays + stats.eager == ticks and stats.replays > 0

@@ -391,3 +391,14 @@ def test_bench_is_not_a_port_subcommand(capsys):
         text=True, timeout=60).stdout
     assert "bench subcommand is not ported yet" in tcli_help.replace(
         "\n", " ")
+
+
+def test_robot_process_exits_0_at_sigint_after_links_close():
+    """``python -m slamrs_tpu_torch robot --device cpu``: two hosts connect
+    (the lidar on), take a few frames and close; at SIGINT the process
+    ends with exit code 0 within its own 20 s limit."""
+    from torch_robot_process import connect_close_sigint
+
+    code, lines = connect_close_sigint("cpu", cycles=2)
+    assert code == 0, lines
+    assert sum("host disconnected" in line for line in lines) == 2
