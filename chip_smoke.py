@@ -2801,9 +2801,11 @@ def check_app_grid_slam_fused(torch):
     never; the published best pose against the simulator's ground truth
     at the headline's RMSE gate; the published map unpadded."""
     from slamrs_tpu_torch.graph.nodes.viz import VisualizerNode
+    from slamrs_tpu_torch.utils import trace
 
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()  # what earlier phases still hold
+    trace.stats("GridMapSlam::update").reset()  # this run's updates alone
     with SpanTimes("GridMapSlam::update") as spans:
         app, node, counts, seconds, est, truth = drive_app(
             torch, "grid_slam_fused.yaml", 300)

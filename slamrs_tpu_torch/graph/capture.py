@@ -98,7 +98,6 @@ import contextlib
 import dataclasses
 import gc
 import inspect
-import time
 import weakref
 from typing import Optional
 
@@ -109,34 +108,51 @@ from slamrs_tpu_torch.core.types import Command
 from slamrs_tpu_torch.models import gridslam as gs_model
 from slamrs_tpu_torch.parallel import fleet as pf
 from slamrs_tpu_torch.parallel import resample as pres
+from slamrs_tpu_torch.utils import trace
 
 Tensor = torch.Tensor
 
 _OUT_FIELDS = ("pose", "grid_pose", "icp_pose", "ekf_pose", "n_eff")
 
 
-def launch_counters() -> dict:
-    """The launch counter of every kernel wrapper, by name:
-    ``(function, attribute)``."""
-    from slamrs_tpu_torch.ops import cow, fused, icp, tiles
+_COUNTERS: Optional[dict] = None
 
-    return {"fused_update": (fused.fused_update, "launches"),
+
+def _counter_table() -> dict:
+    """The launch counters' table, built once a process (a replay adds
+    its counts through it)."""
+    global _COUNTERS
+    if _COUNTERS is None:
+        from slamrs_tpu_torch.ops import cow, fused, icp, tiles
+
+        _COUNTERS = {
+            "fused_update": (fused.fused_update, "launches"),
             "fused_update_in_place": (fused.fused_update,
                                       "in_place_launches"),
             "cow_copy": (cow.cow_copy, "launches"),
             "fused_update_tiled": (tiles.fused_update_tiled, "launches"),
             "nn_argmin": (icp.nearest_neighbors_fused, "launches")}
+    return _COUNTERS
+
+
+def launch_counters() -> dict:
+    """The launch counter of every kernel wrapper, by name:
+    ``(function, attribute)``."""
+    return dict(_counter_table())
 
 
 def launch_counts() -> dict:
     """Every wrapper's launch count, by name."""
     return {name: getattr(fn, attr)
-            for name, (fn, attr) in launch_counters().items()}
+            for name, (fn, attr) in _counter_table().items()}
 
 
 def _add_counts(delta: dict, sign: int = 1) -> None:
-    for name, (fn, attr) in launch_counters().items():
-        setattr(fn, attr, getattr(fn, attr) + sign * delta[name])
+    table = _counter_table()
+    for name, n in delta.items():
+        if n:
+            fn, attr = table[name]
+            setattr(fn, attr, getattr(fn, attr) + sign * n)
 
 
 @dataclasses.dataclass
@@ -425,15 +441,17 @@ class Program:
                 self._replay(graph, key)
             self.stats.replays += 1
             return self._outputs[key]
-        out = self._body(key)
+        with trace.span("frame.eager"):
+            out = self._body(key)
         self.stats.eager += 1
         if self.graphs and capture_after:
             self.capture(key)
         return out
 
     def _replay(self, graph, key) -> None:
-        graph.replay()
-        _add_counts(self.stats.launches[key])
+        with trace.span("graph.launch"):
+            graph.replay()
+            _add_counts(self.stats.launches[key])
 
     def _replay_split(self, key, split: _Split) -> None:
         self._replay(split.head, (key, "head"))
@@ -469,25 +487,28 @@ class Program:
         return graph, delta
 
     @contextlib.contextmanager
-    def _no_collection(self):
-        # no cyclic collection inside a capture: it could free a graph or
-        # an event of other work, which a capture does not permit
-        t0 = time.perf_counter()
+    def _capturing(self):
+        """The block as a ``frame.capture`` span, whose time
+        ``capture_seconds`` adds, with no cyclic collection inside: it
+        could free a graph or an event of other work, which a capture
+        does not permit."""
         collecting = gc.isenabled()
         gc.disable()
+        timer = trace.span("frame.capture")
         try:
-            yield
+            with timer:
+                yield
         finally:
             if collecting:
                 gc.enable()
-            self.stats.capture_seconds += time.perf_counter() - t0
+            self.stats.capture_seconds += timer.seconds
 
     def capture(self, key) -> None:
         """Capture the program of ``key`` into a graph (nothing runs,
         nothing is drawn), or into a :class:`_Split` when the body reaches
         the overflow read; its launches are kept for the replays and
         taken off the counters."""
-        with self._no_collection():
+        with self._capturing():
             self._open, self._cut = self._start(self._pool), None
             try:
                 out = self._body(key)
@@ -513,7 +534,7 @@ class Program:
         there now could be handed their memory."""
         if self._row_pool is None:
             self._row_pool = torch.cuda.graph_pool_handle()
-        with self._no_collection():
+        with self._capturing():
             graph, before = self._start(self._row_pool)
             try:
                 branch(r, fallback)
@@ -600,8 +621,9 @@ class FrameProgram(WorldProgram):
         """Frame ``f`` (``k`` idle ticks at ``speeds``): a replay of k's
         graph, or else the program run eagerly, then captured when
         ``capture_after``."""
-        self.fill(("speeds", k), speeds)
-        self._fill_draws(f)
+        with trace.span("frame.fill"):
+            self.fill(("speeds", k), speeds)
+            self._fill_draws(f)
         self.run(k, capture_after)
 
 
@@ -643,9 +665,10 @@ class TickProgram(WorldProgram):
              capture_after: bool) -> None:
         """One tick of ``kind`` at ``speed`` (f32[2]); a scan tick takes
         scan frame ``f``'s injected draws."""
-        self.fill("speed", speed)
-        if kind == "scan":
-            self._fill_draws(f)
+        with trace.span("frame.fill"):
+            self.fill("speed", speed)
+            if kind == "scan":
+                self._fill_draws(f)
         self.run(kind, capture_after)
 
 
@@ -693,7 +716,8 @@ def _device_draws(draws, device):
     """Per-frame numpy draws, every frame's moved to ``device`` once."""
     if draws is None:
         return None
-    return tuple(torch.from_numpy(np.array(x)).to(device) for x in draws)
+    with trace.span("rollout.draws_upload"):
+        return tuple(torch.from_numpy(np.array(x)).to(device) for x in draws)
 
 
 def check_graphs(mesh, device, what: str) -> None:
@@ -729,9 +753,10 @@ def _hand_over(main, *trees) -> None:
     """Tensors made on the capture stream, used on the caller's stream
     from here on."""
     if main is not None:
-        for tree in trees:
-            for t in _tensor_leaves(tree):
-                t.record_stream(main)
+        with trace.span("rollout.hand_over"):
+            for tree in trees:
+                for t in _tensor_leaves(tree):
+                    t.record_stream(main)
 
 
 def run_program(fw, state, n_steps: int, seed: int = 0, commands=None,
@@ -743,58 +768,70 @@ def run_program(fw, state, n_steps: int, seed: int = 0, commands=None,
     CUDA only); without, the program runs eagerly on any device (the CPU
     tests hold it to the eager loop).  The trailing idle ticks after the
     last scan, and a call in which no scan fires, run through the tick
-    programs (:func:`run_ticks`).  Sets ``fw.capture_stats``."""
-    state, mesh = fw._placed(state)
-    dev = state.pose.device
-    if graphs:
-        check_graphs(mesh, dev, "the frame program")
-    if commands is None:
-        commands = fw.commands_for(n_steps)
-    fire_idx, timer = fw.fire_schedule(
-        n_steps, state.scan_timer if initial_timer is None else initial_timer)
-    if fire_idx.size == 0:
-        return run_ticks(fw, state, n_steps, seed, commands, graphs=graphs)
-    gen = fw._generator(seed, mesh)
-    speeds = torch.stack([commands.speed_left,
-                          commands.speed_right]).to(dev)
-    draws = _device_draws(noise, dev)
-    landmark_draws = _device_draws(landmark_noise, dev)
-    idle = np.diff(fire_idx, prepend=-1) - 1  # idle ticks before each scan
-    later = collections.Counter(idle[1:].tolist())
+    programs (:func:`run_ticks`).  Sets ``fw.capture_stats``.
 
-    with _program_stream(dev, graphs) as main:
-        first, row = fw.frame(
-            state, speeds[:, :fire_idx[0] + 1], gen,
-            None if draws is None else gs_model.UpdateNoise(
-                *(x[0] for x in draws)),
-            None if landmark_draws is None else tuple(
-                x[0] for x in landmark_draws), mesh)
-        prog = FrameProgram(fw, first, row, state, len(fire_idx), gen, draws,
-                            landmark_draws, graphs, mesh)
-        for f in range(1, len(fire_idx)):
-            k = int(idle[f])
-            later[k] -= 1
-            e = int(fire_idx[f])
-            prog.frame(k, speeds[:, e - k:e + 1], f,
-                       capture_after=graphs and later[k] > 0)
-        last = prog.state
-        trailing = n_steps - 1 - int(fire_idx[-1])
-        if trailing:  # idle ticks: the tick rollout's idle program
-            ticks = TickProgram(fw, last, None, state, trailing, gen, None,
-                                None, graphs, mesh, eager=0)
-            for j in range(trailing):
-                ticks.tick("idle", speeds[:, n_steps - trailing + j], 0,
-                           capture_after=graphs and j < trailing - 1)
-            last = ticks.state
-            prog.stats.ticks = ticks.stats
-        last = last._replace(
-            scan_timer=timer,
-            scan_counter=state.scan_counter + len(fire_idx))
-        result = prog.outputs_as(
-            torch.ones(len(fire_idx), dtype=torch.bool, device=dev))
-        _hand_over(main, last, result)
-    fw.capture_stats = prog.stats
-    return last, result
+    Traced as the call ``rollout_cadence`` (``utils/trace.py``): spans
+    ``rollout.draws_upload``, ``frame.eager``, ``frame.capture``,
+    ``frame.fill``, ``graph.launch``, ``rollout.ticks`` and
+    ``rollout.hand_over``, and the counter ``rollout.frames``."""
+    with trace.call("rollout_cadence"):
+        state, mesh = fw._placed(state)
+        dev = state.pose.device
+        if graphs:
+            check_graphs(mesh, dev, "the frame program")
+        if commands is None:
+            commands = fw.commands_for(n_steps)
+        fire_idx, timer = fw.fire_schedule(
+            n_steps,
+            state.scan_timer if initial_timer is None else initial_timer)
+        if fire_idx.size == 0:
+            return run_ticks(fw, state, n_steps, seed, commands,
+                             graphs=graphs)
+        trace.count("rollout.frames", len(fire_idx))
+        gen = fw._generator(seed, mesh)
+        speeds = torch.stack([commands.speed_left,
+                              commands.speed_right]).to(dev)
+        draws = _device_draws(noise, dev)
+        landmark_draws = _device_draws(landmark_noise, dev)
+        idle = np.diff(fire_idx, prepend=-1) - 1  # idle ticks before each scan
+        later = collections.Counter(idle[1:].tolist())
+
+        with _program_stream(dev, graphs) as main:
+            with trace.span("frame.eager"):
+                first, row = fw.frame(
+                    state, speeds[:, :fire_idx[0] + 1], gen,
+                    None if draws is None else gs_model.UpdateNoise(
+                        *(x[0] for x in draws)),
+                    None if landmark_draws is None else tuple(
+                        x[0] for x in landmark_draws), mesh)
+            prog = FrameProgram(fw, first, row, state, len(fire_idx), gen,
+                                draws, landmark_draws, graphs, mesh)
+            for f in range(1, len(fire_idx)):
+                k = int(idle[f])
+                later[k] -= 1
+                e = int(fire_idx[f])
+                prog.frame(k, speeds[:, e - k:e + 1], f,
+                           capture_after=graphs and later[k] > 0)
+            last = prog.state
+            trailing = n_steps - 1 - int(fire_idx[-1])
+            if trailing:  # idle ticks: the tick rollout's idle program
+                with trace.span("rollout.ticks"):
+                    ticks = TickProgram(fw, last, None, state, trailing, gen,
+                                        None, None, graphs, mesh, eager=0)
+                    for j in range(trailing):
+                        ticks.tick("idle", speeds[:, n_steps - trailing + j],
+                                   0, capture_after=graphs
+                                   and j < trailing - 1)
+                last = ticks.state
+                prog.stats.ticks = ticks.stats
+            last = last._replace(
+                scan_timer=timer,
+                scan_counter=state.scan_counter + len(fire_idx))
+            result = prog.outputs_as(
+                torch.ones(len(fire_idx), dtype=torch.bool, device=dev))
+            _hand_over(main, last, result)
+        fw.capture_stats = prog.stats
+        return last, result
 
 
 def run_ticks(fw, state, n_steps: int, seed: int = 0, commands=None,
@@ -805,59 +842,66 @@ def run_ticks(fw, state, n_steps: int, seed: int = 0, commands=None,
     eagerly on ``state``; after them each tick is a replay of its kind's
     graph (with ``graphs``, on CUDA only; the first of each kind runs
     eagerly, then is captured).  ``noise`` and ``landmark_noise`` hold
-    each scan frame's draws.  Sets ``fw.capture_stats``."""
-    state, mesh = fw._placed(state)
-    dev = state.pose.device
-    if graphs:
-        check_graphs(mesh, dev, "the tick program")
-    if commands is None:
-        commands = fw.commands_for(n_steps)
-    fire_idx, timer = fw.fire_schedule(n_steps, state.scan_timer)
-    fired = np.zeros(n_steps, bool)
-    fired[fire_idx] = True
-    kinds = ["scan" if x else "idle" for x in fired]
-    gen = fw._generator(seed, mesh)
-    speeds = torch.stack([commands.speed_left,
-                          commands.speed_right]).to(dev)
-    draws = _device_draws(noise, dev)
-    landmark_draws = _device_draws(landmark_noise, dev)
-    for given in (draws, landmark_draws):
-        if given is not None and len(given[0]) < fire_idx.size:
-            raise ValueError(f"injected draws for {len(given[0])} scan "
-                             f"frames, the rollout scans {fire_idx.size} "
-                             "times")
+    each scan frame's draws.  Sets ``fw.capture_stats``.
 
-    def frame_draws(all_draws, f):
-        if all_draws is None or f >= len(all_draws[0]):
-            return None
-        return tuple(x[f] for x in all_draws)
+    Traced as the call ``rollout`` (inside ``rollout_cadence``, a span of
+    it), with :func:`run_program`'s spans and ``rollout.frames`` counting
+    ticks."""
+    with trace.call("rollout"):
+        state, mesh = fw._placed(state)
+        dev = state.pose.device
+        if graphs:
+            check_graphs(mesh, dev, "the tick program")
+        if commands is None:
+            commands = fw.commands_for(n_steps)
+        fire_idx, timer = fw.fire_schedule(n_steps, state.scan_timer)
+        fired = np.zeros(n_steps, bool)
+        fired[fire_idx] = True
+        kinds = ["scan" if x else "idle" for x in fired]
+        trace.count("rollout.frames", n_steps)
+        gen = fw._generator(seed, mesh)
+        speeds = torch.stack([commands.speed_left,
+                              commands.speed_right]).to(dev)
+        draws = _device_draws(noise, dev)
+        landmark_draws = _device_draws(landmark_noise, dev)
+        for given in (draws, landmark_draws):
+            if given is not None and len(given[0]) < fire_idx.size:
+                raise ValueError(f"injected draws for {len(given[0])} scan "
+                                 f"frames, the rollout scans {fire_idx.size} "
+                                 "times")
 
-    # eager up to the first scan tick: from then on no leaf of the
-    # caller's state is in the static state where a tick writes afresh
-    lead = int(fire_idx[0]) + 1 if fire_idx.size else 1
-    later = collections.Counter(kinds[lead:])
-    with _program_stream(dev, graphs) as main:
-        first, rows = state, []
-        for i in range(lead):
-            grid_noise = frame_draws(draws, 0) if fired[i] else None
-            first, row = fw.step(
-                first, Command(speeds[0, i], speeds[1, i]), gen,
-                noise=None if grid_noise is None
-                else gs_model.UpdateNoise(*grid_noise),
-                landmark_noise=frame_draws(landmark_draws, 0) if fired[i]
-                else None)
-            rows.append(row)
-        prog = TickProgram(fw, first, rows, state, n_steps, gen, draws,
-                           landmark_draws, graphs, mesh, eager=lead)
-        f = int(fired[:lead].sum())
-        for i in range(lead, n_steps):
-            later[kinds[i]] -= 1
-            prog.tick(kinds[i], speeds[:, i], f,
-                      capture_after=graphs and later[kinds[i]] > 0)
-            f += int(fired[i])
-        last = prog.state._replace(
-            scan_timer=timer, scan_counter=state.scan_counter + int(f))
-        result = prog.outputs_as(torch.from_numpy(fired).to(dev))
-        _hand_over(main, last, result)
-    fw.capture_stats = prog.stats
-    return last, result
+        def frame_draws(all_draws, f):
+            if all_draws is None or f >= len(all_draws[0]):
+                return None
+            return tuple(x[f] for x in all_draws)
+
+        # eager up to the first scan tick: from then on no leaf of the
+        # caller's state is in the static state where a tick writes afresh
+        lead = int(fire_idx[0]) + 1 if fire_idx.size else 1
+        later = collections.Counter(kinds[lead:])
+        with _program_stream(dev, graphs) as main:
+            first, rows = state, []
+            for i in range(lead):
+                grid_noise = frame_draws(draws, 0) if fired[i] else None
+                with trace.span("frame.eager"):
+                    first, row = fw.step(
+                        first, Command(speeds[0, i], speeds[1, i]), gen,
+                        noise=None if grid_noise is None
+                        else gs_model.UpdateNoise(*grid_noise),
+                        landmark_noise=frame_draws(landmark_draws, 0)
+                        if fired[i] else None)
+                rows.append(row)
+            prog = TickProgram(fw, first, rows, state, n_steps, gen, draws,
+                               landmark_draws, graphs, mesh, eager=lead)
+            f = int(fired[:lead].sum())
+            for i in range(lead, n_steps):
+                later[kinds[i]] -= 1
+                prog.tick(kinds[i], speeds[:, i], f,
+                          capture_after=graphs and later[kinds[i]] > 0)
+                f += int(fired[i])
+            last = prog.state._replace(
+                scan_timer=timer, scan_counter=state.scan_counter + int(f))
+            result = prog.outputs_as(torch.from_numpy(fired).to(dev))
+            _hand_over(main, last, result)
+        fw.capture_stats = prog.stats
+        return last, result

@@ -36,8 +36,12 @@ from slamrs_tpu_torch.graph.node import (GridMapMessage, LandmarkMapMessage,
 from slamrs_tpu_torch.models import ekf as ekf_model
 from slamrs_tpu_torch.models import gridslam as gs_model
 from slamrs_tpu_torch.models import icp_mapper as icp_model
-from slamrs_tpu_torch.utils import PerfStats
-from slamrs_tpu_torch.utils.trace import span
+from slamrs_tpu_torch.utils import trace
+
+# each node's update is one span (``utils/trace.py``); the reference
+# instruments ``GridMapSlam::update`` (slam/src/grid/slam.rs:45)
+UPDATE_SPAN = "GridMapSlam::update"
+ICP_UPDATE_SPAN = "IcpPointMapper::update"
 
 
 @dataclasses.dataclass
@@ -78,10 +82,15 @@ class GridMapSlamNode(Node):
                                     ScanOdometry)
         self.pub_pose = pubsub.publish(config.topic_pose, PoseMsg)
         self.pub_map = pubsub.publish(config.topic_map, GridMapMessage)
-        self.stats = PerfStats()
         self.updates = 0
         self._position = np.array([self.slam_cfg.position_x,
                                    self.slam_cfg.position_y], np.float32)
+
+    @property
+    def stats(self):
+        """The update span's statistics (process-wide, every grid SLAM
+        node's updates)."""
+        return trace.stats(UPDATE_SPAN)
 
     def use_programs(self, graphs: bool) -> None:
         self.program = capture.Program(self._program_body, self.device,
@@ -91,7 +100,7 @@ class GridMapSlamNode(Node):
         msg = self.sub.try_recv()  # one observation a frame
         if msg is None:
             return
-        with span("GridMapSlam::update"), self.stats.timeit():
+        with trace.span(UPDATE_SPAN):
             noise = (self.noise_for_update(self.updates)
                      if self.noise_for_update is not None else None)
             out = self.step(msg.scan, msg.odometry, noise)
@@ -183,15 +192,20 @@ class IcpPointMapperNode(Node):
         self.sub = pubsub.subscribe(config.topic_observation)
         self.pub_pose = pubsub.publish(config.topic_pose, PoseMsg)
         self.pub_map = pubsub.publish(config.topic_pointmap, PointMapMessage)
-        self.stats = PerfStats()
         self.updates = 0
+
+    @property
+    def stats(self):
+        """The update span's statistics (process-wide, every ICP node's
+        updates)."""
+        return trace.stats(ICP_UPDATE_SPAN)
 
     def update(self) -> None:
         msg = self.sub.try_recv()  # one observation a frame
         if msg is None:
             return
         scan = msg.scan if isinstance(msg, ScanOdometry) else msg
-        with self.stats.timeit():
+        with trace.span(ICP_UPDATE_SPAN):
             if self.program is None:
                 self.state, out = icp_model.update(self.state, scan,
                                                    self.map_cfg)

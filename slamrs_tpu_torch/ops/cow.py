@@ -24,6 +24,8 @@ import ctypes
 
 import torch
 
+from slamrs_tpu_torch.utils import trace
+
 Tensor = torch.Tensor
 
 
@@ -146,8 +148,10 @@ def cow_resample(grids: Tensor, poses: Tensor, ancestors: Tensor
     """Slot-preserving resample of (poses [P, 3], grids [P, ...])
     (``cow.py:240``): the multiset of ``take(..., ancestors)`` in another
     slot order, moving only duplicated maps.  ``grids`` is updated in
-    place; ``poses`` is not."""
+    place; ``poses`` is not.  The maps copied are added on the device to
+    the counter ``k2.maps_copied`` (``utils/trace.device_counter``)."""
     src, dst, n_copies = cow_plan(ancestors)
+    trace.device_counter("k2.maps_copied", grids.device).add_(n_copies)
     grids = cow_copy(grids, src, dst, n_copies)
     poses = poses.index_copy(0, dst.long(), poses[src.long()])
     return poses, grids

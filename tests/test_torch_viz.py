@@ -243,18 +243,15 @@ def test_spans_and_report():
     trace.reset()
     with trace.span("unit/test"):
         pass
-
-    @trace.instrument("unit/decorated")
-    def f():
-        return 41 + 1
-
-    assert f() == 42 and f() == 42
+    for _ in range(2):
+        with trace.span("unit/repeated"):
+            pass
     st = trace.all_stats()
     assert st["unit/test"].sample_count == 1
-    assert st["unit/decorated"].sample_count == 2
-    assert st["unit/decorated"].min <= st["unit/decorated"].mean
+    assert st["unit/repeated"].sample_count == 2
+    assert st["unit/repeated"].min <= st["unit/repeated"].mean
     rep = trace.report().splitlines()
-    assert [line.split()[0] for line in rep] == ["unit/decorated",
+    assert [line.split()[0] for line in rep] == ["unit/repeated",
                                                   "unit/test"]
     with torch.profiler.profile() as prof:
         with trace.span("unit/profiled"):
