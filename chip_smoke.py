@@ -4317,14 +4317,14 @@ class LastFrameUnderSyncError:
         orig = self.orig = self.cls.frame
         outer, torch = self, self.torch
 
-        def frame(prog, k, speeds, f, capture_after):
+        def frame(prog, k, speeds, f):
             if f != prog.stats.frames - 1:
-                return orig(prog, k, speeds, f, capture_after)
+                return orig(prog, k, speeds, f)
             before = prog.stats.replays
             torch.cuda.synchronize()
             torch.cuda.set_sync_debug_mode("error")
             try:
-                orig(prog, k, speeds, f, capture_after)
+                orig(prog, k, speeds, f)
             finally:
                 torch.cuda.set_sync_debug_mode("default")
             outer.replayed = prog.stats.replays - before

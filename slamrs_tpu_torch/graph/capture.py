@@ -25,32 +25,45 @@ The frame program (:class:`FrameProgram`) is ``FusedWorld.frame`` on
 static buffers:
 
 * the world state: every tensor leaf of ``WorldState`` (every block of a
-  sharded leaf, ``parallel.Sharded``).  The first frame
-  runs eagerly on the caller's state and its result becomes the static
-  state.  A leaf that a frame writes as a fresh tensor (K1's lineage
-  maps, the dda and dense maps, poses, weights, the ICP map) is copied
-  back into its static leaf by the program's last nodes; a leaf that the
-  route updates in place (K1 in place, K2, K3's tile pool, a fleet's
-  maps) is not copied;
+  sharded leaf, ``parallel.Sharded``).  The first frame of the call that
+  builds the program runs eagerly on the caller's state and its result
+  becomes the static state.  A leaf that a frame writes as a fresh
+  tensor (K1's lineage maps, the dda and dense maps, poses, weights, the
+  ICP map) is copied back into its static leaf by the program's last
+  nodes; a leaf that the route updates in place (K1 in place, K2, K3's
+  tile pool, a fleet's maps) is not copied;
 * the frame's wheel speeds, ``f32[2, k + 1]``, filled with ``copy_``
   before each replay;
 * injected draws (``noise=``, ``landmark_noise=``): every frame's moved
-  to the device once, the frame's copied into the static draw buffers
-  before each replay;
-* the outputs ``[F, ...]``, written at a frame index held on the device
-  and advanced by the program.
+  to the device once a call, the frame's copied into the static draw
+  buffers before each replay;
+* the outputs ``[F_max, ...]`` (the most frames the call's ticks can
+  fire), written at a frame index held on the device and advanced by
+  the program; the caller gets a copy of the call's rows.
 
 The host resolves the timer before the loop (``FusedWorld.
-fire_schedule``), so a frame holds no data-dependent control flow.  A
-graph is captured for each idle count ``k`` that occurs again later in
-the rollout; the first frame (on the caller's state) and, after it, the
-first frame with a given ``k`` run eagerly on the capture stream.  That
-warm-up is a real frame of the rollout, run by the very program that is
-then captured: it consumes the run's own draws, and the capture itself
-draws nothing.  The graphs share one memory pool and live for one call; the
-state returned holds ordinary tensors (the static buffers).  Trailing
-idle ticks after the last scan, and a call in which no scan fires, run
-through the tick programs.
+fire_schedule``), so a frame holds no data-dependent control flow.  The
+first frame with a given idle count ``k`` runs eagerly on the capture
+stream and is then captured; later frames of that ``k`` replay its
+graph.  That warm-up is a real frame of the rollout, run by the very
+program that is then captured: it consumes the run's own draws, and the
+capture itself draws nothing.  The graphs share one memory pool.
+
+The program outlives the call: it is kept on the world
+(``FusedWorld.frame_program``, one a world; it holds the world weakly)
+with its graphs, its pool, its static buffers and its trailing-tick
+program.  A later call handed the state the last call returned (its
+static state, carried) runs on it (:meth:`FrameProgram.takes`): the
+generator re-seeded, the frame index reset, every frame a replay, frame
+0 included, except the first frame of an idle count the program has not
+met, which runs eagerly and is captured.  Any other state (a fresh
+``init()``, a checkpoint) builds a new program, which replaces the
+kept one.  The state returned is the static buffers: a state handed to
+a captured rollout is consumed, the state returned shares its storage,
+and the old state must not be used again.  Trailing idle ticks after
+the last scan run through the kept tick program's idle graph, and a
+call in which no scan fires through the tick rollout's programs
+(:func:`run_ticks`, built for the call).
 
 Meshes (``parallel/``): a sharded state runs when every entry of its
 mesh is the same CUDA device (a mesh over several distinct devices is
@@ -69,10 +82,10 @@ filter's estimate carried) and a scan tick (motion and the scan update),
 picked by the host timer before the loop; each tick's output row goes
 into static ``[n_steps, ...]`` buffers.
 
-Draws: the world's ``torch.Generator`` is registered with every graph,
+Draws: the program's ``torch.Generator`` is registered with every graph,
 so a replay draws what the eager frame would (the generator's offset
-advances by the graph's whole increment).  Seeded and injected runs
-give the eager loop's bits.
+advances by the graph's whole increment); each call seeds it anew.
+Seeded and injected runs give the eager loop's bits.
 
 The rollout runs on one side stream per device (:func:`capture_stream`),
 after the caller's stream's work, and the caller's stream waits for it
@@ -182,14 +195,18 @@ class CaptureStats(ProgramStats):
     cadence rollout's graphs are keyed by idle count k (a frame cut at
     the overflow read by ``(k, part)``), the tick rollout's by ``"idle"``
     and ``"scan"``; ``frames`` counts frames or ticks, and ``ticks``
-    holds the stats of the trailing idle ticks' program."""
+    holds the stats of the trailing idle ticks' program.  The per-graph
+    tables (``launches``, ``copy_back_bytes``) are the program's, which
+    a kept frame program carries from call to call."""
 
     frames: int = 0
     ticks: Optional[ProgramStats] = None
 
     @property
     def eager_frames(self) -> int:
-        """Frame 0 and the first frame of each idle count."""
+        """The call's frames run eagerly: frame 0 of a call that builds
+        the program, and the first frame of each idle count the program
+        had not met."""
         return self.eager
 
 
@@ -321,6 +338,13 @@ class Program:
         self.state = _map_tensors(own, state)
         self._static = seen
         self._caller = {_storage(t) for t in _tensor_leaves(caller)}
+
+    def restart(self, stats: ProgramStats) -> None:
+        """A new call's statistics, ``stats``, which take over the
+        program's per-graph tables that the replays add from."""
+        stats.launches = self.stats.launches
+        stats.copy_back_bytes = self.stats.copy_back_bytes
+        self.stats = stats
 
     def load(self, state) -> None:
         """Make the static state hold ``state``: on first use a copy of
@@ -549,14 +573,16 @@ class WorldProgram(Program):
     world state (one device, or sharded over a one-card mesh), the
     injected draws of every scan frame moved to the device once, and the
     output rows ``[rows, ...]`` written at a frame index held on the
-    device and advanced by the program."""
+    device and advanced by the program.  The world is held weakly: the
+    world keeps its frame program (``FusedWorld.frame_program``), and a
+    cycle would leave both to the cyclic collector (:class:`Program`)."""
 
     def __init__(self, body, fw, first_state, first_rows, caller_state,
                  rows: int, generator, draws, landmark_draws, graphs: bool,
                  mesh, stats):
         dev = first_state.pose.device
         super().__init__(body, dev, graphs, generator, stats)
-        self.fw, self.mesh = fw, mesh
+        self._fw, self.mesh = weakref.ref(fw), mesh
         self.own(first_state, caller_state)
         self.index = torch.zeros(1, dtype=torch.int64, device=dev)
         first_rows = first_rows or []
@@ -570,6 +596,10 @@ class WorldProgram(Program):
         self.landmark_draws = landmark_draws
         for row in first_rows:
             self._write_row(row)
+
+    @property
+    def fw(self):
+        return self._fw()
 
     def _write_row(self, row) -> None:
         if not self.outputs:
@@ -587,25 +617,72 @@ class WorldProgram(Program):
             self.fill("landmark_noise",
                       tuple(x[f] for x in self.landmark_draws))
 
-    def outputs_as(self, fired: Tensor):
+    def outputs_as(self, fired: Tensor, copy: bool = False):
+        """The outputs of the ``len(fired)`` rows written; ``copy``: a
+        copy of them, which later replays leave alone."""
         from slamrs_tpu_torch.graph.compile import WorldOutputs
 
-        outs = self.outputs
+        n = fired.shape[0]
+        outs = {name: buf[:n].clone() if copy else buf[:n]
+                for name, buf in self.outputs.items()}
         return WorldOutputs(
             fired=fired, pose=outs["pose"], grid_pose=outs.get("grid_pose"),
             icp_pose=outs.get("icp_pose"), ekf_pose=outs.get("ekf_pose"),
             n_eff=outs.get("n_eff"))
 
 
-class FrameProgram(WorldProgram):
-    """The cadence rollout's frame program, keyed by idle count k."""
+def _world_parts(fw) -> tuple:
+    """What a frame program bakes in of its world besides the state."""
+    return (fw.scene, fw.params, fw.dt, fw.grid_config, fw.icp_config,
+            fw.ekf_config, fw.num_beams)
 
-    def __init__(self, fw, first_state, first_row, caller_state, frames: int,
-                 generator, draws, landmark_draws, graphs: bool, mesh=None):
+
+class FrameProgram(WorldProgram):
+    """The cadence rollout's frame program, keyed by idle count k, with
+    output rows for ``rows`` frames.  Kept on the world after the call
+    (``FusedWorld.frame_program``): a later call on its static state
+    runs on it (:meth:`takes`, :meth:`start`), and so does its tick
+    program for the trailing idle ticks (:meth:`idle_ticks`)."""
+
+    def __init__(self, fw, first_state, first_row, caller_state, rows: int,
+                 frames: int, generator, draws, landmark_draws,
+                 graphs: bool, mesh=None):
         super().__init__(self._frame, fw, first_state, [first_row],
-                         caller_state, frames, generator, draws,
+                         caller_state, rows, generator, draws,
                          landmark_draws, graphs, mesh,
                          CaptureStats(frames=frames, eager=1))  # frame 0
+        self.rows = rows
+        self.injected = (draws is not None, landmark_draws is not None)
+        self.world = _world_parts(fw)
+        self.ticks: Optional[TickProgram] = None
+
+    def takes(self, state, mesh, graphs: bool, draws, landmark_draws,
+              frames: int) -> bool:
+        """Whether a call of ``frames`` frames on ``state`` (placed on
+        ``mesh``) runs on this program: every tensor leaf of the state
+        (every block of a sharded leaf) is the static leaf, on the same
+        mesh, with or without graphs and injected draws as the program
+        was built, for a world unchanged, and the frames fit the output
+        rows."""
+        leaves = _tensor_leaves(state)
+        static = _tensor_leaves(self.state)
+        return (len(leaves) == len(static)
+                and all(a is b for a, b in zip(leaves, static))
+                and mesh == self.mesh and graphs == self.graphs
+                and self.injected == (draws is not None,
+                                      landmark_draws is not None)
+                and all(a is b for a, b in zip(_world_parts(self.fw),
+                                               self.world))
+                and frames <= self.rows)
+
+    def start(self, seed: int, frames: int, draws, landmark_draws) -> None:
+        """A call of ``frames`` frames on the kept program: the generator
+        seeded with ``seed``, as a fresh program's would be, the call's
+        draws taken, the frame index back at 0, statistics of its own."""
+        self.generator.manual_seed(seed)
+        self.draws, self.landmark_draws = draws, landmark_draws
+        self.index.zero_()
+        self.restart(CaptureStats(frames=frames))
 
     def _frame(self, k: int) -> None:
         """The frame program of ``k`` idle ticks on the static buffers."""
@@ -616,15 +693,30 @@ class FrameProgram(WorldProgram):
         self._write_row(row)
         self.copy_back(new_state)
 
-    def frame(self, k: int, speeds: Tensor, f: int,
-              capture_after: bool) -> None:
+    def frame(self, k: int, speeds: Tensor, f: int) -> None:
         """Frame ``f`` (``k`` idle ticks at ``speeds``): a replay of k's
-        graph, or else the program run eagerly, then captured when
-        ``capture_after``."""
+        graph, or else the program run eagerly, then captured."""
         with trace.span("frame.fill"):
             self.fill(("speeds", k), speeds)
             self._fill_draws(f)
-        self.run(k, capture_after)
+        self.run(k)
+
+    def idle_ticks(self, speeds: Tensor):
+        """The idle ticks at ``speeds`` (f32[2, n]) through the tick
+        program's idle graph (the program made on first use, over this
+        program's static state); returns its state, whose leaves are this
+        program's static leaves."""
+        if self.ticks is None:
+            self.ticks = TickProgram(self.fw, self.state, None, None, 0,
+                                     self.generator, None, None, self.graphs,
+                                     self.mesh, eager=0)
+            self.ticks._caller = self._caller
+        n = speeds.shape[1]
+        self.ticks.restart(CaptureStats(frames=n))
+        for j in range(n):
+            self.ticks.tick("idle", speeds[:, j], 0, capture_after=True)
+        self.stats.ticks = self.ticks.stats
+        return self.ticks.state
 
 
 class TickProgram(WorldProgram):
@@ -759,6 +851,20 @@ def _hand_over(main, *trees) -> None:
                     t.record_stream(main)
 
 
+# the host counter of a rollout call that ran on a kept frame program
+REUSED = "rollout.program_reused"
+
+
+def _frames_max(fw, n_steps: int) -> int:
+    """The most scan frames ``n_steps`` ticks can fire from a timer at
+    most one period: one a period, one more for the timer's start and
+    one for float32 rounding; every tick without a period."""
+    period = float(np.float32(fw.params.update_period))
+    if period <= 0.0:
+        return n_steps
+    return min(n_steps, int(n_steps * fw.dt / period) + 2)
+
+
 def run_program(fw, state, n_steps: int, seed: int = 0, commands=None,
                 initial_timer: Optional[float] = None, noise=None,
                 landmark_noise=None, graphs: bool = True):
@@ -766,14 +872,20 @@ def run_program(fw, state, n_steps: int, seed: int = 0, commands=None,
     on a mesh whose entries are all one device: with ``graphs`` each
     frame after the first of its idle count is a CUDA graph replay (on
     CUDA only); without, the program runs eagerly on any device (the CPU
-    tests hold it to the eager loop).  The trailing idle ticks after the
-    last scan, and a call in which no scan fires, run through the tick
-    programs (:func:`run_ticks`).  Sets ``fw.capture_stats``.
+    tests hold it to the eager loop).  A call handed the state the last
+    call on ``fw`` returned runs on the kept program
+    (``fw.frame_program``); any other state builds one, frame 0 run
+    eagerly on it, which replaces the kept one.  ``state`` is consumed:
+    the state returned shares its storage.  The trailing idle ticks after
+    the last scan run through the kept program's tick program, and a
+    call in which no scan fires through the tick programs
+    (:func:`run_ticks`).  Sets ``fw.capture_stats``, the call's own.
 
     Traced as the call ``rollout_cadence`` (``utils/trace.py``): spans
     ``rollout.draws_upload``, ``frame.eager``, ``frame.capture``,
     ``frame.fill``, ``graph.launch``, ``rollout.ticks`` and
-    ``rollout.hand_over``, and the counter ``rollout.frames``."""
+    ``rollout.hand_over``, the counter ``rollout.frames``, and
+    :data:`REUSED` (1) in a call on the kept program."""
     with trace.call("rollout_cadence"):
         state, mesh = fw._placed(state)
         dev = state.pose.device
@@ -787,48 +899,52 @@ def run_program(fw, state, n_steps: int, seed: int = 0, commands=None,
         if fire_idx.size == 0:
             return run_ticks(fw, state, n_steps, seed, commands,
                              graphs=graphs)
-        trace.count("rollout.frames", len(fire_idx))
-        gen = fw._generator(seed, mesh)
+        frames = len(fire_idx)
+        trace.count("rollout.frames", frames)
         speeds = torch.stack([commands.speed_left,
                               commands.speed_right]).to(dev)
         draws = _device_draws(noise, dev)
         landmark_draws = _device_draws(landmark_noise, dev)
         idle = np.diff(fire_idx, prepend=-1) - 1  # idle ticks before each scan
-        later = collections.Counter(idle[1:].tolist())
 
         with _program_stream(dev, graphs) as main:
-            with trace.span("frame.eager"):
-                first, row = fw.frame(
-                    state, speeds[:, :fire_idx[0] + 1], gen,
-                    None if draws is None else gs_model.UpdateNoise(
-                        *(x[0] for x in draws)),
-                    None if landmark_draws is None else tuple(
-                        x[0] for x in landmark_draws), mesh)
-            prog = FrameProgram(fw, first, row, state, len(fire_idx), gen,
-                                draws, landmark_draws, graphs, mesh)
-            for f in range(1, len(fire_idx)):
+            prog = fw.frame_program
+            if prog is not None and prog.takes(state, mesh, graphs, draws,
+                                               landmark_draws, frames):
+                trace.count(REUSED, 1)
+                prog.start(seed, frames, draws, landmark_draws)
+                first = 0
+            else:
+                # the kept program's pool and buffers go before the build
+                fw.frame_program = None
+                gen = fw._generator(seed, mesh)
+                with trace.span("frame.eager"):
+                    built, row = fw.frame(
+                        state, speeds[:, :fire_idx[0] + 1], gen,
+                        None if draws is None else gs_model.UpdateNoise(
+                            *(x[0] for x in draws)),
+                        None if landmark_draws is None else tuple(
+                            x[0] for x in landmark_draws), mesh)
+                prog = fw.frame_program = FrameProgram(
+                    fw, built, row, state,
+                    max(frames, _frames_max(fw, n_steps)), frames, gen, draws,
+                    landmark_draws, graphs, mesh)
+                first = 1
+            for f in range(first, frames):
                 k = int(idle[f])
-                later[k] -= 1
                 e = int(fire_idx[f])
-                prog.frame(k, speeds[:, e - k:e + 1], f,
-                           capture_after=graphs and later[k] > 0)
+                prog.frame(k, speeds[:, e - k:e + 1], f)
             last = prog.state
             trailing = n_steps - 1 - int(fire_idx[-1])
             if trailing:  # idle ticks: the tick rollout's idle program
                 with trace.span("rollout.ticks"):
-                    ticks = TickProgram(fw, last, None, state, trailing, gen,
-                                        None, None, graphs, mesh, eager=0)
-                    for j in range(trailing):
-                        ticks.tick("idle", speeds[:, n_steps - trailing + j],
-                                   0, capture_after=graphs
-                                   and j < trailing - 1)
-                last = ticks.state
-                prog.stats.ticks = ticks.stats
+                    last = prog.idle_ticks(speeds[:, n_steps - trailing:])
+            prog.draws = prog.landmark_draws = None  # the call's own
             last = last._replace(
                 scan_timer=timer,
-                scan_counter=state.scan_counter + len(fire_idx))
+                scan_counter=state.scan_counter + frames)
             result = prog.outputs_as(
-                torch.ones(len(fire_idx), dtype=torch.bool, device=dev))
+                torch.ones(frames, dtype=torch.bool, device=dev), copy=True)
             _hand_over(main, last, result)
         fw.capture_stats = prog.stats
         return last, result

@@ -143,6 +143,10 @@ class FusedWorld:
     # the last frame-program rollout's graph_capture.CaptureStats
     capture_stats: object = dataclasses.field(default=None, repr=False,
                                               compare=False)
+    # the cadence rollout's graph_capture.FrameProgram, kept for the next
+    # call on the state the last one returned; not copied by replace()
+    frame_program: object = dataclasses.field(default=None, init=False,
+                                              repr=False, compare=False)
 
     def init(self, worlds: tuple[int, ...] = ()) -> WorldState:
         """A fresh state; ``worlds=(W,)`` gives a fleet of W worlds."""
@@ -464,6 +468,14 @@ class FusedWorld:
         not captured yet) and on the CPU (``ValueError``).  A capture or
         replay that fails raises.  Both draw the same numbers and give the
         same bits.
+
+        The captured route keeps its frame program on the world
+        (:attr:`frame_program`): a call handed the state the last call
+        returned replays every frame on it, with no eager frame and no
+        capture of a graph it holds.  A state handed to a captured
+        rollout is consumed, as the fused path's in-place updates consume
+        theirs (``models/gridslam.py``): the state returned shares its
+        storage, and the old state must not be used again.
         """
         if self._graphs_for(state, capture, "rollout_cadence"):
             from slamrs_tpu_torch.graph import capture as graph_capture

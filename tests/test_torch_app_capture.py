@@ -404,9 +404,10 @@ def test_program_refuses_a_changed_input_shape():
 
 def test_programs_free_with_their_owner():
     """No reference cycle holds a program: the App's node programs and a
-    rollout's frame program go when their owner does, without the cyclic
-    collector, which could otherwise run inside a later capture, where
-    destroying a graph invalidates that capture."""
+    rollout's frame program (kept on its world, with its tick program)
+    go when their owner does, without the cyclic collector, which could
+    otherwise run inside a later capture, where destroying a graph
+    invalidates that capture."""
     import gc
     import weakref
 
@@ -425,8 +426,14 @@ def test_programs_free_with_their_owner():
         assert len(refs) == 2 and all(r() is None for r in refs)
         fw = compile_world(load_config(str(CONFIGS / "icp_test.yaml")),
                            device="cpu")
-        capture.run_program(fw, fw.init(), 20, graphs=False)
+        state, _ = capture.run_program(fw, fw.init(), 20, graphs=False)
+        capture.run_program(fw, state, 20, graphs=False)
+        kept = weakref.ref(fw.frame_program)
+        assert kept().ticks is not None  # 20 ticks end on idle ticks
+        del fw, state
+        assert kept() is None
         assert not [o for o in gc.get_objects()
-                    if isinstance(o, capture.FrameProgram)]
+                    if isinstance(o, (capture.FrameProgram,
+                                      capture.TickProgram))]
     finally:
         gc.enable()

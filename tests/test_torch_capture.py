@@ -15,7 +15,11 @@ holds ``tests/test_torch_world.py``'s gates: per-frame best pose 1e-4 m,
 N_eff rtol 1e-3, ground truth 1e-5 m, map flip fraction < 1e-3; ICP
 1e-4 m, EKF 1e-3 m.  ``capture=True`` raises on the CPU (a CPU mesh
 too) and on a mesh over several distinct devices, and a CPU mesh runs
-eagerly with ``capture=None``.
+eagerly with ``capture=None``.  The program kept on the world runs
+calls on the state the last call returned, bitwise the eager loop
+continued, and a fresh state builds a new one
+(``test_kept_program_carries_calls_as_the_eager_loop``; on the card,
+``tests/test_torch_cuda.py``'s ``kept`` tests).
 
 The ``cuda`` cases hold the captured run against the eager loop on the
 card, bitwise, under the seed and under injected draws, with the
@@ -98,11 +102,13 @@ def _world(route: str, device):
         grid_config=cfg, control_script=SCRIPT, device=device), worlds
 
 
-def _draws(fw, worlds, n_steps, seed):
+def _draws(fw, worlds, n_steps, seed, frames=None):
     """numpy draws of every frame, as ``noise=`` and ``landmark_noise=``
     take them (the grid's when the world runs grid SLAM, the landmark
-    sensor's when it runs the EKF)."""
-    frames = fw.fire_schedule(n_steps, 0.0)[0].size
+    sensor's when it runs the EKF), for the frames ``n_steps`` ticks fire
+    from a timer at 0, or ``frames``."""
+    if frames is None:
+        frames = fw.fire_schedule(n_steps, 0.0)[0].size
     rng = np.random.default_rng(seed)
     noise = lm = None
     if fw.grid_config is not None:
@@ -168,6 +174,64 @@ def test_frame_program_resumes_from_its_own_state():
     _assert_same_run(fw.rollout_cadence(s1, TICKS, seed=1, capture=False),
                      capture.run_program(fw, s2, TICKS, seed=1,
                                          graphs=False))
+
+
+def _values(outs) -> list:
+    """The tensors of a rollout's outputs."""
+    return [t for t in outs if t is not None]
+
+
+def _same_values(tensors, copies) -> bool:
+    return len(tensors) == len(copies) and all(
+        torch.equal(a, b) for a, b in zip(tensors, copies))
+
+
+@pytest.mark.parametrize("draws", ["seed", "injected"])
+@pytest.mark.parametrize("route", list(ROUTES))
+def test_kept_program_carries_calls_as_the_eager_loop(route, draws):
+    """Three calls with the state carried and a new seed (or new draws)
+    each: the kept program (a frame count that changes from call to call,
+    a new idle count at frame 0) equals the eager loop continued, bitwise; the
+    second and third run on the kept program (``rollout.program_reused``)
+    with statistics of their own; call 1's outputs survive call 3; a
+    fresh ``init()`` builds a new program and leaves the returned state
+    alone."""
+    from slamrs_tpu_torch.utils import trace
+
+    fw, worlds = _world(route, "cpu")
+    ticks = _ticks(route)
+    eager_state, state = fw.init(worlds), fw.init(worlds)
+    kept, frames = None, []
+    for call, seed in enumerate((3, 11, 4)):
+        kw = (_draws(fw, worlds, ticks, 20 + seed,
+                     frames=capture._frames_max(fw, ticks))
+              if draws == "injected" else {})
+        eager = fw.rollout_cadence(eager_state, ticks, seed=seed,
+                                   capture=False, **kw)
+        state, out = capture.run_program(fw, state, ticks, seed=seed,
+                                          graphs=False, **kw)
+        _assert_same_run(eager, (state, out))
+        eager_state = eager[0]
+        rec = trace.calls()[-1]
+        assert rec["name"] == "rollout_cadence"
+        assert rec["counts"].get(capture.REUSED) == (1 if call else None)
+        assert (fw.frame_program is kept) == (call > 0)
+        kept = fw.frame_program
+        stats = fw.capture_stats
+        assert stats.frames == out.fired.shape[0]
+        assert stats.eager_frames == stats.frames and stats.replays == 0
+        assert all(a is b for a, b in zip(
+            capture._tensor_leaves(state), capture._tensor_leaves(kept.state)))
+        if call == 0:
+            out1, out1_values = out, [t.clone() for t in _values(out)]
+        frames.append(stats.frames)
+    assert len(set(frames)) > 1
+    assert _same_values(_values(out1), out1_values)
+    returned = [t.clone() for t in capture._tensor_leaves(state)]
+    capture.run_program(fw, fw.init(worlds), ticks, seed=5, graphs=False)
+    assert fw.frame_program is not kept
+    assert trace.calls()[-1]["counts"].get(capture.REUSED) is None
+    assert _same_values(capture._tensor_leaves(state), returned)
 
 
 def test_capture_true_raises_on_the_cpu():

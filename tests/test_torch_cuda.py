@@ -1028,3 +1028,100 @@ def test_tick_capture_equals_eager_on_the_card(route, draws, dev):
     assert {k if isinstance(k, str) else k[0] for k in stats.launches} \
         == {"idle", "scan"}
     assert stats.replays + stats.eager == ticks and stats.replays > 0
+
+
+# ---- the frame program kept across rollout calls --------------------------
+
+
+def _kept_calls(fw, fresh, worlds, ticks, injected, seeds):
+    """Carried ``rollout_cadence`` calls on ``fw`` (its kept program),
+    each held bitwise to ``fresh`` (a world whose program is built anew
+    every call) run on a copy of the same input state with the same seed
+    and draws.  Yields each call's ``CaptureStats`` and whether it ran on
+    the kept program."""
+    from slamrs_tpu_torch.graph import capture
+    from slamrs_tpu_torch.utils import trace
+    from test_torch_capture import _assert_same_run, _draws
+
+    state = fw.init(worlds)
+    frames = capture._frames_max(fw, ticks)
+    for seed in seeds:
+        kw = (_draws(fw, worlds, ticks, 30 + seed, frames=frames)
+              if injected else {})
+        given = capture._map_tensors(lambda x: x.clone(), state)
+        state, out = fw.rollout_cadence(state, ticks, seed=seed, **kw)
+        reused = trace.calls()[-1]["counts"].get(capture.REUSED) == 1
+        stats = fw.capture_stats
+        _assert_same_run(fresh.rollout_cadence(given, ticks, seed=seed, **kw),
+                         (state, out))
+        assert fresh.capture_stats.eager >= 1  # frame 0 on a new program
+        yield stats, reused
+
+
+@pytest.mark.parametrize("draws", ["seed", "injected"])
+@pytest.mark.parametrize("route", ["lineage", "tiled", "cow", "gather",
+                                   "dense", "dda", "icp_ekf", "fleet"])
+def test_kept_frame_program_replays_every_frame_on_the_card(route, draws,
+                                                             dev):
+    """From the second carried call on, every frame and trailing tick is
+    a replay (no eager run, no capture), and each call gives the bits of
+    a fresh program on the same input state and seed, seeded draws
+    included (the kept generator re-seeded)."""
+    from test_torch_capture import _ticks, _world
+
+    fw, worlds = _world(route, dev)
+    fresh, _ = _world(route, dev)
+    calls = _kept_calls(fw, fresh, worlds, _ticks(route, card=True),
+                        draws == "injected", (3, 8, 5, 1))
+    for call, (stats, reused) in enumerate(calls):
+        assert reused == (call > 0)
+        assert stats.replays + stats.eager == stats.frames
+        if call >= 2:
+            assert stats.eager == 0 and stats.capture_seconds == 0
+            assert stats.replays == stats.frames
+            if stats.ticks is not None:
+                assert stats.ticks.eager == 0
+                assert stats.ticks.capture_seconds == 0
+
+
+@pytest.mark.parametrize("draws", ["seed", "injected"])
+def test_kept_local_mesh_program_replays_on_the_card(draws, dev,
+                                                     monkeypatch):
+    """The same on a one-card ``"local"`` 2 x 4 mesh, whose frames are cut
+    at the overflow read (a head, each row's branch, a tail): the row
+    graphs are kept with the program; a later call captures only a
+    branch no earlier call took."""
+    from test_torch_mesh_capture import MESH_ROUTES, _mesh, _world
+
+    kind, grid, n, axis, w, _ = MESH_ROUTES["local_2x4"]
+    fw = _world(kind, grid, _mesh(n, axis, dev), dev)
+    fresh = _world(kind, grid, _mesh(n, axis, dev), dev)
+    graphs = 0
+    calls = _kept_calls(fw, fresh, (w,), 90, draws == "injected",
+                        (3, 8, 5, 1))
+    for call, (stats, reused) in enumerate(calls):
+        assert reused == (call > 0)
+        assert any(not isinstance(k, int) for k in stats.launches)
+        if call >= 2:
+            assert stats.eager == 0 and stats.replays == stats.frames
+            assert (stats.capture_seconds == 0) \
+                == (len(stats.launches) == graphs)
+        graphs = len(stats.launches)
+
+
+def test_kept_fleet_program_holds_its_memory_on_the_card(dev):
+    """Five carried fleet calls reach no higher a peak of allocated
+    memory than the first alone."""
+    from test_torch_capture import _world
+
+    fw, worlds = _world("fleet", dev)
+    state = fw.init(worlds)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    peaks = []
+    for seed in range(5):
+        state, out = fw.rollout_cadence(state, 90, seed=seed)
+        del out
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated(dev))
+    assert peaks[-1] <= peaks[0], peaks
