@@ -35,6 +35,8 @@ from typing import NamedTuple
 
 import torch
 
+from slamrs_tpu_torch.utils import trace
+
 Tensor = torch.Tensor
 
 _BIG = 1e30  # pushes reference lanes at or past q_count out of the argmin
@@ -288,8 +290,15 @@ def icp_point_to_normal(p: Tensor, p_mask: Tensor, q: Tensor,
     ``pallas_nn`` is kept for the JAX package's signature and changes
     nothing: in the port every correspondence step goes through K4
     (:func:`nearest_neighbors`), on the card the kernel.
+
+    The pairs K4 compares, ``iterations x Np x q_count`` summed over the
+    batch, are added on the device to the counter ``k4.pairs``
+    (``utils/trace.device_counter``), once a call.
     """
     del pallas_nn
+    pairs = q_count if q_count.dim() == 0 else q_count.sum()
+    trace.device_counter("k4.pairs", q.device).add_(
+        pairs, alpha=iterations * p.shape[-2])
     q_normals = compute_normals(q, q_count)
     x = initial_pose
     chis = []

@@ -19,7 +19,8 @@ eagerly with ``capture=None``.  The program kept on the world runs
 calls on the state the last call returned, bitwise the eager loop
 continued, and a fresh state builds a new one
 (``test_kept_program_carries_calls_as_the_eager_loop``; on the card,
-``tests/test_torch_cuda.py``'s ``kept`` tests).
+``tests/test_torch_cuda.py``'s ``kept`` tests, and here an ICP-only
+world's).
 
 The ``cuda`` cases hold the captured run against the eager loop on the
 card, bitwise, under the seed and under injected draws, with the
@@ -388,3 +389,27 @@ def test_capture_true_raises_on_a_card_mesh(dev):
     with pytest.raises(NotImplementedError):
         dataclasses.replace(fw, mesh=two_cards).rollout_cadence(
             fw.init((2,)), TICKS, capture=True)
+
+
+@pytest.mark.cuda
+def test_kept_program_of_an_icp_only_world_on_the_card(dev):
+    """``configs/icp_test.yaml``'s world, ICP odometry alone (no grid
+    state, no draws): from the third carried call every frame and
+    trailing tick is a replay, with no eager run and no capture, and each
+    call gives the bits of a fresh program run on a copy of its input."""
+    from test_torch_cuda import _kept_calls
+
+    config = load_config(str(ROOT / "configs" / "icp_test.yaml"))
+    fw = tcompile.compile_world(config, device=dev)
+    fresh = tcompile.compile_world(config, device=dev)
+    assert fw.grid_config is None and fw.icp_config is not None
+    for call, (stats, reused) in enumerate(
+            _kept_calls(fw, fresh, (), 90, False, (3, 8, 5, 1))):
+        assert reused == (call > 0)
+        assert stats.replays + stats.eager == stats.frames
+        if call >= 2:
+            assert stats.eager == 0 and stats.capture_seconds == 0
+            assert stats.replays == stats.frames
+            if stats.ticks is not None:
+                assert stats.ticks.eager == 0
+                assert stats.ticks.capture_seconds == 0
