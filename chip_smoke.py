@@ -413,6 +413,14 @@ EKF_RMSE_GATE_M = 0.03
 # float32 operations per (p, q) pair of K4: px*qx, py*qy, their sum, the
 # doubling, the subtraction and the compare
 NN_PAIR_OPS = 6
+# float32 operations per source lane of one ICP solve iteration, an fma
+# counted as two: the normal (8), e (5), dR p (8), J's third entry (3),
+# the weight and w e (3), H's six entries (15), g (6), chi (1) and the
+# source under the new pose (8)
+ICP_SOLVE_LANE_OPS = 57
+# bytes per source lane of one ICP solve iteration: corr, p, p_t and the
+# mask read, three map points gathered, p_t written
+ICP_SOLVE_LANE_BYTES = 4 + 8 + 8 + 1 + 24 + 8
 # thread instructions the H100 SXM issues a second: 132 SMs x 4
 # schedulers x 32 lanes at its 1.98 GHz boost clock
 H100_ISSUE_SLOTS_PER_S = 132 * 128 * 1.98e9
@@ -1253,6 +1261,99 @@ def check_nn(torch):
     return worst
 
 
+def icp_solve_cases(torch):
+    """The ICP solve kernel's input sets: label -> (p, mask, q, q_count,
+    pose, Step threshold).  The ICP mapper's (one problem of 360 lanes
+    against a full 16,384-point map of an ordered closed curve, Step
+    0.05, ~12 % of the lanes masked, the pose 2 cm and 0.03 rad off) and
+    bench.py's batch ([2048, 360] against 360-point rings, uniform
+    weights)."""
+    import math
+
+    g = torch.Generator().manual_seed(7)
+    n_map, beams = 16384, 360
+    ang = torch.sort(torch.rand(1, n_map, generator=g) * 2 * math.pi)[0]
+    r = 0.8 + 0.15 * torch.sin(3 * ang)
+    q = torch.stack([r * torch.cos(ang), r * torch.sin(ang)], -1).cuda()
+    p = q[:, ::n_map // beams][:, :beams].contiguous()
+    mask = (torch.rand(1, beams, generator=g) > 0.12).cuda()
+    qc = torch.full((1,), n_map, dtype=torch.int32, device="cuda")
+    x0 = torch.tensor([[0.02, -0.02, 0.03]], device="cuda")
+    bp, bq, bqc = bench_icp_inputs(torch)
+    return {"mapper_1x360x16384_step0.05": (p, mask, q, qc, x0, 0.05),
+            "bench_2048x360x360": (
+                bp, torch.ones(bp.shape[:2], dtype=torch.bool,
+                               device="cuda"), bq, bqc,
+                torch.zeros(bp.shape[0], 3, device="cuda"), None)}
+
+
+def check_icp_solve(torch):
+    """One iteration of the ICP solve kernel against its plain version
+    (``ops/icp.solve_step_reference``) on the same pose, source and K4
+    indices, on every input set; gates: the pose within 1e-5 (m, rad),
+    the source within 2e-5 m, chi within rtol 1e-5, and at the mapper's
+    shape the pose and the source bitwise the plain version run
+    unbatched, as the benchmark's reference runs it (the kernel sums in
+    cuBLAS's order there).  Then device times of the kernel and its plain
+    version, and the bound of its bytes and operations beside a one-element
+    fill (the floor of a launch timed this way).  Returns the kernels-line
+    numbers of the mapper's shape (the main path's) and bench's."""
+    from slamrs_tpu_torch.ops import icp
+
+    out = {}
+    for label, (p, mask, q, qc, x0, thr) in icp_solve_cases(torch).items():
+        b, n_p = p.shape[:2]
+        p_t = icp.transform_points(p, x0)
+        corr = icp.nearest_neighbors(p_t, q, qc)
+        x, got_pt = x0.clone(), p_t.clone()
+        chi = torch.empty(b, 1, device="cuda")
+        before = icp.icp_solve.launches
+        icp.icp_solve(p, mask, q, qc, corr, x, x, got_pt, chi, 0, thr)
+        torch.cuda.synchronize()
+        if icp.icp_solve.launches != before + 1:
+            raise AssertionError("the icp_solve launch counter did not count")
+        want_x, want_pt, want_chi = icp.solve_step_reference(
+            p, mask, q, qc, x0, p_t, corr, thr)
+        err = {"pose": float((x - want_x).abs().max()),
+               "points": float((got_pt - want_pt).abs().max()),
+               "chi_rel": float(((chi[:, 0] - want_chi).abs()
+                                 / want_chi.abs().clamp_min(1e-30)).max())}
+        bitwise = None
+        if b == 1:
+            one = icp.solve_step_reference(p[0], mask[0], q[0], qc[0], x0[0],
+                                           p_t[0], corr[0], thr)
+            bitwise = bool(torch.equal(x[0], one[0])
+                           and torch.equal(got_pt[0], one[1]))
+        ms = time_call(torch, lambda: icp.icp_solve(
+            p, mask, q, qc, corr, x, x, got_pt, chi, 0, thr))
+        plain_ms = time_call(torch, lambda: icp.solve_step_reference(
+            p, mask, q, qc, x0, p_t, corr, thr))
+        floor_ms = time_call(torch, lambda: torch.zeros(1, device="cuda"))
+        t_bytes = b * n_p * ICP_SOLVE_LANE_BYTES / PEAK_BYTES_PER_S * 1e3
+        t_ops = b * n_p * ICP_SOLVE_LANE_OPS / PEAK_F32_PER_S * 1e3
+        bound, by = ((t_bytes, "bytes") if t_bytes >= t_ops
+                     else (t_ops, "operations"))
+        emit({"phase": "kernel_vs_plain_icp_solve", "case": label,
+              "p": list(p.shape), "q": list(q.shape),
+              "q_count": qc.tolist()[:4], "step_threshold": thr,
+              "max_abs_err_pose": err["pose"],
+              "max_abs_err_points": err["points"],
+              "max_rel_err_chi": err["chi_rel"],
+              "bitwise_unbatched_plain": bitwise,
+              "kernel_us": ms * 1e3, "plain_us": plain_ms * 1e3,
+              "bound_us": bound * 1e3, "bound_by": by,
+              "launch_floor_us": floor_ms * 1e3})
+        if not (err["pose"] <= 1e-5 and err["points"] <= 2e-5
+                and err["chi_rel"] <= 1e-5) or bitwise is False:
+            raise AssertionError(f"icp_solve disagrees with its plain "
+                                 f"version ({label}): {err}, bitwise "
+                                 f"{bitwise}")
+        out[label] = dict(max_abs_err=err["pose"], ms=ms, plain_ms=plain_ms,
+                          bound_ms=bound, bound_by=by,
+                          launch_floor_ms=floor_ms)
+    return out
+
+
 def preset_world(torch, name, device="cuda"):
     from slamrs_tpu_torch.graph.compile import compile_world
     from slamrs_tpu_torch.graph.config import load_config
@@ -1291,6 +1392,9 @@ def check_icp_world(torch):
     if counts["nn_argmin"] != iters * frames:
         raise AssertionError(f"{counts['nn_argmin']} nn_argmin launches, "
                              f"expected {iters} x {frames} frames")
+    if counts["icp_solve"] != (iters + 1) * frames:
+        raise AssertionError(f"{counts['icp_solve']} icp_solve launches, "
+                             f"expected {iters + 1} x {frames} frames")
     if count != fw.icp_config.capacity or not finite:
         raise AssertionError(f"ICP map holds {count} points (finite: "
                              f"{finite})")
@@ -1475,7 +1579,8 @@ def cuda_launches(torch, fn):
 
 def time_icp_batch(torch, reps=5):
     """Batched ICP at bench.py's shape: 2,048 problems x 10 iterations,
-    K4 on every iteration; host clock around synchronized solves."""
+    K4 and the solve kernel on every iteration, the solve kernel once
+    before; host clock around synchronized solves."""
     from slamrs_tpu_torch.ops import icp
 
     p, q, qc = bench_icp_inputs(torch)
@@ -1486,12 +1591,16 @@ def time_icp_batch(torch, reps=5):
     for _ in range(reps):
         torch.cuda.synchronize()
         before = icp.nearest_neighbors_fused.launches
+        solves = icp.icp_solve.launches
         t0 = time.perf_counter()
         res = icp.icp_point_to_normal(p, mask, q, qc, x0, iterations=10)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         if icp.nearest_neighbors_fused.launches != before + 10:
             raise AssertionError("batched ICP did not launch K4 per iteration")
+        if icp.icp_solve.launches != solves + 11:
+            raise AssertionError("batched ICP did not launch the solve kernel "
+                                 "per iteration and once before")
     sec = statistics.median(times)
     emit({"phase": "icp_batch_2048x10", "problems": p.shape[0],
           "iterations": 10, "median_s": sec, "all_s": times,
@@ -1767,7 +1876,7 @@ def check_grid_slam_yaml(torch):
 
 
 NO_KERNELS = {"fused_update": 0, "fused_update_tiled": 0, "cow_copy": 0,
-              "nn_argmin": 0}
+              "nn_argmin": 0, "icp_solve": 0}
 
 
 def check_path_deviation(torch):
@@ -2823,7 +2932,8 @@ def check_app_grid_slam_fused(torch):
           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
           "peak_above_held_bytes": torch.cuda.max_memory_allocated() - held})
     want = {"fused_update": node.updates, "fused_update_in_place": 0,
-            "cow_copy": 0, "fused_update_tiled": 0, "nn_argmin": 0}
+            "cow_copy": 0, "fused_update_tiled": 0, "nn_argmin": 0,
+            "icp_solve": 0}
     if counts != want or node.updates < 45 or len(spans.ms) != node.updates:
         raise AssertionError(f"app headline launches {counts}, expected "
                              f"{want} ({len(spans.ms)} spans)")
@@ -3405,7 +3515,8 @@ def check_app_neato_replay(torch, log_path, truth):
           "frames_per_s": frames / seconds, "cpu_seconds": cpu_s,
           "peak_above_held_bytes": peak})
     want = {"fused_update": 0, "fused_update_in_place": 0, "cow_copy": 0,
-            "fused_update_tiled": 0, "nn_argmin": iters * n_frames}
+            "fused_update_tiled": 0, "nn_argmin": iters * n_frames,
+            "icp_solve": (iters + 1) * n_frames}
     if node.updates != n_frames or len(est) != n_frames or counts != want:
         raise AssertionError(f"replay: {node.updates} updates of "
                              f"{n_frames} frames, launches {counts}")
@@ -3541,7 +3652,8 @@ def check_robot_link_card(torch):
 PROFILED_KERNELS = {"fused_update": "fused_update_kernel",
                     "cow_copy": "cow_copy_kernel",
                     "fused_update_tiled": "fused_update_tiled_kernel",
-                    "nn_argmin": "nn_argmin_kernel"}
+                    "nn_argmin": "nn_argmin_kernel",
+                    "icp_solve": "icp_solve_kernel"}
 # runtime calls by which the host puts work on the card
 HOST_LAUNCH_CALLS = ("LaunchKernel", "GraphLaunch", "Memcpy", "Memset")
 
@@ -3570,7 +3682,7 @@ def capture_routes(torch):
         ("dda_0.05m", lambda: headline_world(torch, 0.05, "dda", "float32"),
          (), 300, NO_KERNELS),
         ("icp_test_yaml", lambda: preset_world(torch, "icp_test.yaml"), (),
-         300, dict(NO_KERNELS, nn_argmin=10)),
+         300, dict(NO_KERNELS, nn_argmin=10, icp_solve=11)),
         ("landmarks_yaml", lambda: preset_world(torch, "landmarks.yaml"), (),
          300, NO_KERNELS),
         ("fleet_256x10_0.02m", lambda: fleet_world(torch), (FLEET_WORLDS,),
@@ -3811,7 +3923,8 @@ def check_captures(torch):
 APP_CAPTURES = [
     ("grid_slam_fused", "grid_slam_fused.yaml", 300, 30, 60,
      {"fused_update": 1}),
-    ("icp_test", "icp_test.yaml", 900, 30, 60, {"nn_argmin": 10}),
+    ("icp_test", "icp_test.yaml", 900, 30, 60,
+     {"nn_argmin": 10, "icp_solve": 11}),
     ("grid_slam_yaml", "grid_slam.yaml", 300, 60, 120, {}),
     ("landmarks", "landmarks.yaml", 300, 30, 60, {}),
 ]
@@ -4075,7 +4188,7 @@ def check_app_captures(torch, log_path):
         in APP_CAPTURES}
     counts["neato_replay"] = check_app_capture(
         torch, "neato_replay", replay_yaml(log_path), None, 10, 15,
-        {"nn_argmin": 10})
+        {"nn_argmin": 10, "icp_solve": 11})
     emit({"phase": "app_capture_phases_time",
           "seconds": time.perf_counter() - t0})
     return counts
@@ -4155,7 +4268,8 @@ def mesh_capture_routes(torch):
          300, kernels(), {}, False),
         ("icp_test_4x1", lambda: on_mesh(preset_world(torch, "icp_test.yaml"),
                                          cuda_mesh(torch, 1, n=4)),
-         MESH_OTHER_WORLDS, 300, kernels(nn_argmin=40), {}, False),
+         MESH_OTHER_WORLDS, 300, kernels(nn_argmin=40, icp_solve=44), {},
+         False),
         ("landmarks_4x1", lambda: on_mesh(
             preset_world(torch, "landmarks.yaml"), cuda_mesh(torch, 1, n=4)),
          MESH_OTHER_WORLDS, 300, kernels(), {}, False),
@@ -4461,7 +4575,7 @@ def check_tick_captures(torch):
                  k1),
                 ("icp_test_yaml", lambda: preset_world(torch,
                                                        "icp_test.yaml"),
-                 300, dict(NO_KERNELS, nn_argmin=10)),
+                 300, dict(NO_KERNELS, nn_argmin=10, icp_solve=11)),
                 ("landmarks_yaml", lambda: preset_world(torch,
                                                         "landmarks.yaml"),
                  300, NO_KERNELS))}
@@ -4593,6 +4707,7 @@ def main() -> int:
     check_icp_ekf_no_host_sync(torch, icp_state.icp, ekf_world,
                                ekf_state.ekf)
     t4 = time_nn(torch, nn_launched)
+    t_solve = check_icp_solve(torch)
     time_icp_batch(torch)
     time_icp_ekf_rollouts(torch)
 
@@ -4731,7 +4846,22 @@ def main() -> int:
          "replay_launches": replay_k4["nn_argmin"],
          "mesh_launches": {"icp_test_4x1_300": icp_mesh_counts["nn_argmin"]},
          "mesh_capture_launches": captured_launches(mesh_cap, "nn_argmin"),
-         "tick_capture_launches": captured_launches(tick_cap, "nn_argmin")}
+         "tick_capture_launches": captured_launches(tick_cap, "nn_argmin")},
+        {"name": "icp_solve", "route": "cuda",
+         "source": "slamrs_tpu_torch/csrc/icp_solve.cu",
+         "replaces": "slamrs_tpu/ops/icp.py:212",
+         "launches": icp_counts["icp_solve"], "library_ms": None,
+         **t_solve["mapper_1x360x16384_step0.05"],
+         **{f"bench_{k}": v
+            for k, v in t_solve["bench_2048x360x360"].items()},
+         "fleet_launches": icp_fleet_counts["icp_solve"],
+         "app_launches": app_k4["icp_solve"],
+         "app_capture_launches": captured_launches(app_cap, "icp_solve"),
+         "captured_launches": captured_launches(cap, "icp_solve"),
+         "replay_launches": replay_k4["icp_solve"],
+         "mesh_launches": {"icp_test_4x1_300": icp_mesh_counts["icp_solve"]},
+         "mesh_capture_launches": captured_launches(mesh_cap, "icp_solve"),
+         "tick_capture_launches": captured_launches(tick_cap, "icp_solve")}
     ]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

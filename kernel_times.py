@@ -6,11 +6,15 @@ config-3 tile pool after a resample, and K4 at bench.py's ICP batch
 (``[2048, 360] x [2048, 360]``) and the ICP mapper's shape (``[1, 360] x
 [1, 16384]``, ``q_count`` 10,000, and 0 and 44), with a one-element
 fill as the floor of a launch timed this way; the inputs and the timing
-(CUDA events, median of 20) are ``chip_smoke.py``'s.  Then a profiled
-300-tick ICP run (``configs/icp_test.yaml``): device busy time, K4's
-share of it and its launches, and the memsets; and ptxas's register,
-spill and shared-memory lines per source.  Prints one line,
-``KERNEL_TIMES {...}``.
+(CUDA events, median of 20) are ``chip_smoke.py``'s.  The ICP solve
+kernel at the ``icp_odometry`` cell's shape (360 lanes against the full
+16,384-point map, Step 0.05), one iteration and the prologue, beside its
+plain version on the card, where the tree has the kernel.  Then a
+profiled 300-tick ICP run (``configs/icp_test.yaml``): device busy time,
+its device operations a scan frame, K4's and the solve kernel's share of
+it and their launches, and the memsets; and ptxas's register, spill and
+shared-memory lines per source.  Prints one line, ``KERNEL_TIMES
+{...}``.
 
 Run from the root of a checkout on a machine with one NVIDIA GPU.  To
 compare two commits on one card, unpack the other one (``git archive``)
@@ -86,6 +90,8 @@ def main() -> int:
                 torch, lambda: icp.launch_kernel(p, q, qc))
     out["fill_1_us"] = 1e3 * cs.time_call(
         torch, lambda: torch.zeros(1, device="cuda"))
+    if hasattr(icp, "icp_solve"):
+        out.update(icp_solve_times(torch, cs, icp))
     out.update(icp_run_profile(torch, cs))
     print("KERNEL_TIMES", json.dumps(out), flush=True)
     return 0
@@ -104,12 +110,34 @@ def ptxas_stats(kernels):
             for name, proc in procs.items()}
 
 
+def icp_solve_times(torch, cs, icp):
+    """The ICP solve kernel at the ``icp_odometry`` cell's shape
+    (``chip_smoke.icp_solve_cases``' mapper set): one iteration (K4's
+    indices given) and the transform-only prologue, and the plain version
+    of the iteration on the card on the same inputs."""
+    p, mask, q, qc, x0, thr = cs.icp_solve_cases(torch)[
+        "mapper_1x360x16384_step0.05"]
+    p_t = icp.transform_points(p, x0)
+    corr = icp.nearest_neighbors(p_t, q, qc)
+    x, pt, chi = x0.clone(), p_t.clone(), torch.empty(1, 1, device="cuda")
+    # repeated in place: the pose moves, the work (lanes, reads) does not
+    return {"icp_solve_step_us": 1e3 * cs.time_call(
+                torch, lambda: icp.icp_solve(p, mask, q, qc, corr, x, x, pt,
+                                             chi, 0, thr)),
+            "icp_solve_prologue_us": 1e3 * cs.time_call(
+                torch, lambda: icp.icp_solve(p, mask, q, qc, None, x0, x, pt,
+                                             chi, 0, thr)),
+            "icp_solve_plain_step_us": 1e3 * cs.time_call(
+                torch, lambda: icp.solve_step_reference(
+                    p, mask, q, qc, x0, p_t, corr, thr))}
+
+
 def icp_run_profile(torch, cs, ticks=300):
     """A warm ``configs/icp_test.yaml`` run of ``ticks`` ticks under
-    ``torch.profiler``: the device's busy time, K4's share of it (the
-    kernels ``nn_argmin_kernel`` and, before the one-launch design,
-    ``nn_finish_kernel``) and their CUDA launches, and the memsets on the
-    card."""
+    ``torch.profiler``: the device's busy time and operations, its scan
+    frames, K4's share of it (the kernels ``nn_argmin_kernel`` and, before
+    the one-launch design, ``nn_finish_kernel``) and the solve kernel's,
+    their CUDA launches, and the memsets on the card."""
     from torch.profiler import ProfilerActivity, profile
 
     fw = cs.preset_world(torch, "icp_test.yaml")
@@ -117,13 +145,18 @@ def icp_run_profile(torch, cs, ticks=300):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        fw.rollout_cadence(fw.init(), ticks, seed=1)
+        _, outs = fw.rollout_cadence(fw.init(), ticks, seed=1)
         torch.cuda.synchronize()
     dev = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
     k4 = [e for e in dev if "nn_argmin" in e.key or "nn_finish" in e.key]
+    solve = [e for e in dev if "icp_solve_kernel" in e.key]
     return {"icp_run_device_ms":
             sum(e.self_device_time_total for e in dev) / 1e3,
+            "icp_run_frames": int(outs.fired.shape[0]),
             "icp_run_launches": sum(e.count for e in dev),
+            "icp_run_solve_device_ms":
+            sum(e.self_device_time_total for e in solve) / 1e3,
+            "icp_run_solve_launches": sum(e.count for e in solve),
             "icp_run_k4_device_ms":
             sum(e.self_device_time_total for e in k4) / 1e3,
             "icp_run_k4_launches": sum(e.count for e in k4),

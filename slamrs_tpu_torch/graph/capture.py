@@ -144,7 +144,8 @@ def _counter_table() -> dict:
                                       "in_place_launches"),
             "cow_copy": (cow.cow_copy, "launches"),
             "fused_update_tiled": (tiles.fused_update_tiled, "launches"),
-            "nn_argmin": (icp.nearest_neighbors_fused, "launches")}
+            "nn_argmin": (icp.nearest_neighbors_fused, "launches"),
+            "icp_solve": (icp.icp_solve, "launches")}
     return _COUNTERS
 
 

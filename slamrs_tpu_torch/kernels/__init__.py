@@ -109,4 +109,12 @@ def library() -> ctypes.CDLL:
                    ci, ci, ci,  # threads per group, groups, chunks
                    vp]  # stream
     fn.restype = ci
+    fn = lib.slamrs_icp_solve
+    fn.argtypes = [vp, vp, vp, vp, vp,  # p, p_mask, q, q_count, corr
+                   vp, vp, vp, vp,  # x_in, x_out, p_t, chi
+                   ci, ci, ci, ci, ci,  # problems, p lanes, q lanes,
+                   # iterations, iteration
+                   ci, cf,  # threshold on, threshold squared
+                   vp]  # stream
+    fn.restype = ci
     return lib

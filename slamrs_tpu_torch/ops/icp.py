@@ -25,6 +25,14 @@ The JAX package's XLA form
 (``icp.py:158``, a ``[Np, Nq]`` distance matrix through device memory)
 has no counterpart in the port: :func:`nearest_neighbors` keeps its
 contract and routes through K4.
+
+The rest of an iteration (the gathers, the normals where they are read,
+the residuals, the weighted 3x3 normal equations, their closed-form
+solve, the angle wrap and the source under the new pose) is
+:func:`icp_solve`, the wrapper of the hand-written CUDA kernel
+``csrc/icp_solve.cu``, one launch an iteration on the card;
+:func:`solve_step_reference` is its plain version, which CPU tensors
+run.
 """
 
 from __future__ import annotations
@@ -64,23 +72,6 @@ def drot2(theta: Tensor) -> Tensor:
 def transform_points(points: Tensor, x: Tensor) -> Tensor:
     """R(x2) p + (x0, x1).  points [..., N, 2], x [..., 3]."""
     return points @ rot2(x[..., 2]).transpose(-1, -2) + x[..., None, 0:2]
-
-
-def compute_normals(q: Tensor, q_count: Tensor) -> Tensor:
-    """Central-difference normals of an ordered point sequence:
-    ``normalize(perp(q[i+1] - q[i-1]))`` for interior lanes, zero at the
-    endpoints and everywhere for sequences shorter than 3.  q [..., Nq, 2],
-    q_count i32[...] real (leading) lanes."""
-    nq = q.shape[-2]
-    diff = torch.roll(q, -1, dims=-2) - torch.roll(q, 1, dims=-2)
-    perp = torch.stack([-diff[..., 1], diff[..., 0]], dim=-1)
-    norm = torch.sqrt(torch.sum(perp * perp, dim=-1, keepdim=True))
-    normal = torch.where(norm > 0.0,
-                         perp / torch.where(norm > 0.0, norm, 1.0), 0.0)
-    idx = torch.arange(nq, device=q.device)
-    qc = q_count[..., None]
-    interior = (idx >= 1) & (idx < qc - 1) & (qc > 2)
-    return torch.where(interior[..., None], normal, 0.0)
 
 
 def nearest_neighbors_reference(p: Tensor, q: Tensor,
@@ -291,6 +282,12 @@ def icp_point_to_normal(p: Tensor, p_mask: Tensor, q: Tensor,
     nothing: in the port every correspondence step goes through K4
     (:func:`nearest_neighbors`), on the card the kernel.
 
+    On CPU tensors each iteration is K4's plain version and
+    :func:`solve_step_reference`; on CUDA tensors a call is a prologue
+    launch of :func:`icp_solve` (the source under the initial pose), then
+    per iteration one K4 launch and one :func:`icp_solve` launch, or it
+    raises.
+
     The pairs K4 compares, ``iterations x Np x q_count`` summed over the
     batch, are added on the device to the counter ``k4.pairs``
     (``utils/trace.device_counter``), once a call.
@@ -299,37 +296,173 @@ def icp_point_to_normal(p: Tensor, p_mask: Tensor, q: Tensor,
     pairs = q_count if q_count.dim() == 0 else q_count.sum()
     trace.device_counter("k4.pairs", q.device).add_(
         pairs, alpha=iterations * p.shape[-2])
-    q_normals = compute_normals(q, q_count)
+    if p.device.type != "cpu":
+        return _icp_on_card(p, p_mask, q, q_count, initial_pose, iterations,
+                            step_threshold)
     x = initial_pose
+    p_t = transform_points(p, x)
     chis = []
     for _ in range(iterations):
-        p_t = transform_points(p, x)
-        corr = nearest_neighbors(p_t, q, q_count).long()
-        take = corr[..., None].expand(*corr.shape, 2)
-        qc = torch.gather(q, -2, take)
-        nc = torch.gather(q_normals, -2, take)
-
-        # e_i = n_i . (R p_i + t - q_i), J_i = n_i^T [I | dR p_i]
-        e = torch.sum(nc * (p_t - qc), dim=-1)
-        d_rp = p @ drot2(x[..., 2]).transpose(-1, -2)
-        jac = torch.cat([nc, torch.sum(nc * d_rp, dim=-1, keepdim=True)], -1)
-
-        if step_threshold is None:
-            w = torch.ones_like(e)
-        else:
-            w = (e * e < step_threshold * step_threshold).to(e.dtype)
-        w = w * p_mask.to(e.dtype)
-
-        h = torch.einsum("...ni,...nj->...ij", jac * w[..., None], jac)
-        g = torch.einsum("...ni,...n->...i", jac, w * e)
-        chis.append(torch.sum(torch.where(p_mask, e * e, 0.0), dim=-1))
-
-        x = x + _pinv_solve(h, -g)
-        theta = torch.atan2(torch.sin(x[..., 2]), torch.cos(x[..., 2]))
-        x = torch.cat([x[..., 0:2], theta[..., None]], dim=-1)
-    return IcpResult(transformation=x,
-                     transformed_points=transform_points(p, x),
+        corr = nearest_neighbors(p_t, q, q_count)
+        x, p_t, chi = solve_step_reference(p, p_mask, q, q_count, x, p_t,
+                                           corr, step_threshold)
+        chis.append(chi)
+    return IcpResult(transformation=x, transformed_points=p_t,
                      chi_values=torch.stack(chis, dim=-1))
+
+
+def normals_at(q: Tensor, q_count: Tensor, idx: Tensor) -> Tensor:
+    """Central-difference normals of an ordered point sequence at the
+    lanes ``idx``: ``normalize(perp(q[i+1] - q[i-1]))`` on interior lanes,
+    zero at the endpoints and everywhere for sequences shorter than 3
+    (icp.rs:226-254), computed only where they are read.  q [..., Nq, 2],
+    q_count i32[...] real (leading) lanes, idx [..., Np] integer lanes in
+    ``[0, Nq)`` -> f32[..., Np, 2].  The neighbours ``q[idx +- 1]`` wrap
+    at ``Nq`` (``icp_solve_kernel`` repeats this)."""
+    nq = q.shape[-2]
+    idx = idx.long()
+
+    def at(j: Tensor) -> Tensor:
+        return torch.gather(q, -2, j[..., None].expand(*j.shape, 2))
+
+    diff = at((idx + 1) % nq) - at((idx - 1) % nq)
+    perp = torch.stack([-diff[..., 1], diff[..., 0]], dim=-1)
+    norm = torch.sqrt(torch.sum(perp * perp, dim=-1, keepdim=True))
+    normal = torch.where(norm > 0.0,
+                         perp / torch.where(norm > 0.0, norm, 1.0), 0.0)
+    qc = q_count[..., None]
+    interior = (idx >= 1) & (idx < qc - 1) & (qc > 2)
+    return torch.where(interior[..., None], normal, 0.0)
+
+
+def solve_step_reference(p: Tensor, p_mask: Tensor, q: Tensor,
+                         q_count: Tensor, x: Tensor, p_t: Tensor,
+                         corr: Tensor, step_threshold: float | None
+                         ) -> tuple[Tensor, Tensor, Tensor]:
+    """The plain version of one ``icp_solve_kernel`` iteration, after K4:
+    from the pose ``x [..., 3]``, the source under it ``p_t`` and K4's
+    indices ``corr [..., Np]`` into ``q``, the Gauss-Newton step of the
+    point-to-normal errors.  Returns ``(x', p under x', chi)``, chi the
+    masked sum of ``e * e``."""
+    corr = corr.long()
+    qc = torch.gather(q, -2, corr[..., None].expand(*corr.shape, 2))
+    nc = normals_at(q, q_count, corr)
+
+    # e_i = n_i . (R p_i + t - q_i), J_i = n_i^T [I | dR p_i]
+    e = torch.sum(nc * (p_t - qc), dim=-1)
+    d_rp = p @ drot2(x[..., 2]).transpose(-1, -2)
+    jac = torch.cat([nc, torch.sum(nc * d_rp, dim=-1, keepdim=True)], -1)
+
+    if step_threshold is None:
+        w = torch.ones_like(e)
+    else:
+        w = (e * e < step_threshold * step_threshold).to(e.dtype)
+    w = w * p_mask.to(e.dtype)
+
+    h = torch.einsum("...ni,...nj->...ij", jac * w[..., None], jac)
+    g = torch.einsum("...ni,...n->...i", jac, w * e)
+    chi = torch.sum(torch.where(p_mask, e * e, 0.0), dim=-1)
+
+    x = x + _pinv_solve(h, -g)
+    theta = torch.atan2(torch.sin(x[..., 2]), torch.cos(x[..., 2]))
+    x = torch.cat([x[..., 0:2], theta[..., None]], dim=-1)
+    return x, transform_points(p, x), chi
+
+
+def check_solve_inputs(p: Tensor, p_mask: Tensor, q: Tensor,
+                       q_count: Tensor, x: Tensor) -> None:
+    """What ``icp_solve_kernel`` takes besides K4's inputs
+    (:func:`check_inputs`): contiguous bool ``p_mask [B, Np]`` and f32
+    ``x [B, 3]`` on ``p``'s device.  Raises otherwise."""
+    check_inputs(p, q, q_count)
+    b, n_p = p.shape[:2]
+    if p_mask.shape != (b, n_p) or p_mask.dtype != torch.bool \
+            or not p_mask.is_contiguous():
+        raise ValueError(f"p_mask must be contiguous bool[{b}, {n_p}], got "
+                         f"{p_mask.dtype}{list(p_mask.shape)}")
+    if x.shape != (b, 3) or x.dtype != torch.float32 \
+            or not x.is_contiguous():
+        raise ValueError(f"the pose must be contiguous f32[{b}, 3], got "
+                         f"{x.dtype}{list(x.shape)}")
+    for name, t in (("p_mask", p_mask), ("the pose", x)):
+        if t.device != p.device:
+            raise ValueError(f"{name} is on {t.device}, p on {p.device}")
+
+
+def _icp_on_card(p: Tensor, p_mask: Tensor, q: Tensor, q_count: Tensor,
+                 initial_pose: Tensor, iterations: int,
+                 step_threshold: float | None) -> IcpResult:
+    """:func:`icp_point_to_normal` on CUDA tensors: the leading dims
+    flattened into ``B`` problems, a prologue, then K4 and
+    ``icp_solve_kernel`` per iteration, the pose and the source carried in
+    place on the device."""
+    batch = p.shape[:-2]
+    if p_mask.shape[:-1] != batch or q.shape[:-2] != batch \
+            or q_count.shape != batch or initial_pose.shape[:-1] != batch:
+        raise ValueError(
+            f"ICP on the card takes one leading shape for every input, got "
+            f"p {list(p.shape)}, p_mask {list(p_mask.shape)}, q "
+            f"{list(q.shape)}, q_count {list(q_count.shape)} and the pose "
+            f"{list(initial_pose.shape)}")
+    n_p, nq = p.shape[-2], q.shape[-2]
+    p = p.reshape(-1, n_p, 2).contiguous()
+    p_mask = p_mask.reshape(-1, n_p).contiguous()
+    q = q.reshape(-1, nq, 2).contiguous()
+    q_count = q_count.reshape(-1).to(torch.int32).contiguous()
+    x0 = initial_pose.reshape(-1, 3).contiguous()
+    check_solve_inputs(p, p_mask, q, q_count, x0)
+    if p.device.type != "cuda":
+        raise ValueError(f"icp_point_to_normal runs on cuda or cpu, not "
+                         f"{p.device}")
+    x = torch.empty_like(x0)
+    p_t = torch.empty_like(p)
+    chi = torch.empty((p.shape[0], iterations), dtype=torch.float32,
+                      device=p.device)
+    icp_solve(p, p_mask, q, q_count, None, x0, x, p_t, chi, 0,
+              step_threshold)
+    for k in range(iterations):
+        corr = nearest_neighbors(p_t, q, q_count)
+        icp_solve(p, p_mask, q, q_count, corr, x, x, p_t, chi, k,
+                  step_threshold)
+    return IcpResult(transformation=x.reshape(*batch, 3),
+                     transformed_points=p_t.reshape(*batch, n_p, 2),
+                     chi_values=chi.reshape(*batch, iterations))
+
+
+def icp_solve(p: Tensor, p_mask: Tensor, q: Tensor, q_count: Tensor,
+              corr: Tensor | None, x_in: Tensor, x_out: Tensor, p_t: Tensor,
+              chi: Tensor, k: int, step_threshold: float | None) -> None:
+    """Launch ``icp_solve_kernel`` (``csrc/icp_solve.cu``) once on the
+    current stream, on inputs :func:`check_solve_inputs` passed: with
+    ``corr`` (K4's i32 ``[B, Np]``) iteration ``k`` of
+    :func:`solve_step_reference`, writing the pose to ``x_out`` (which may
+    be ``x_in``), the source under it to ``p_t`` in place and ``chi[:,
+    k]``; without, the prologue ``x_out = x_in``, ``p_t = R p + t``.
+    Counts the launch in ``icp_solve.launches``."""
+    from slamrs_tpu_torch import kernels
+
+    b, n_p, nq = p.shape[0], p.shape[1], q.shape[1]
+    if p_t.shape != p.shape or x_out.shape != x_in.shape \
+            or chi.shape[0] != b or not (0 <= k < max(chi.shape[1], 1)) \
+            or (corr is not None and (corr.shape != (b, n_p)
+                                      or corr.dtype != torch.int32)):
+        raise ValueError("icp_solve's outputs or indices do not fit its "
+                         "inputs")
+    lib = kernels.library()
+    thr = 0.0 if step_threshold is None else step_threshold * step_threshold
+    with torch.cuda.device(p.device):
+        stream = torch.cuda.current_stream(p.device).cuda_stream
+        rc = lib.slamrs_icp_solve(
+            _ptr(p), _ptr(p_mask), _ptr(q), _ptr(q_count), _ptr(corr),
+            _ptr(x_in), _ptr(x_out), _ptr(p_t), _ptr(chi), b, n_p, nq,
+            chi.shape[1], k, int(step_threshold is not None),
+            ctypes.c_float(thr), ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"icp_solve kernel launch failed: CUDA error {rc}")
+    icp_solve.launches += 1
+
+
+icp_solve.launches = 0
 
 
 def _pinv_solve(h: Tensor, b: Tensor, rcond: float = 1e-8) -> Tensor:

@@ -15,9 +15,15 @@ in another order than torch.sum); the copy
 (K2) bitwise; K3 bitwise against K1 on the materialized maps (they run
 the same device code) for every particle whose two windows start on the
 same row; the nearest-neighbour indices (K4) bitwise (the
-same float32 arithmetic per pair, nvcc with ``--fmad=false``).  One ICP
-mapper update on the card against the same on the CPU: pose and points
-within 1e-5 m (the normal equations' sums run in another order).  The dda
+same float32 arithmetic per pair, nvcc with ``--fmad=false``).  The ICP
+solve kernel against its plain version on the card at the ICP mapper's,
+an 8-world fleet's and bench.py's shapes (one iteration: pose within
+1e-5, chi within rtol 1e-5; a whole call against the CPU within 1e-4),
+bitwise the benchmark's plain reference at the mapper's shape, once an
+iteration and once before, and bitwise reproducible eager and
+replayed.  One ICP mapper update on the card against the same on the
+CPU: pose and points within 1e-5 m (the normal equations' sums run in
+another order).  The dda
 and dense grid integrators (plain PyTorch, no kernel) on the card against
 the CPU at ``tests/test_parity.py``'s map gate, the DDA walk bitwise, the
 dda scatter bitwise reproducible on the card.  Fleets: K1 with the world
@@ -378,6 +384,168 @@ def test_nn_argmin_checks_inputs(dev):
         icp.nearest_neighbors_fused(p.double(), q, qc)
     with pytest.raises(ValueError, match="on cpu"):
         icp.nearest_neighbors_fused(p, q, qc.cpu())
+
+
+# the ICP solve kernel's cases: (worlds, map points, q_count per world or
+# one for all, Step threshold): icp_odometry's mapper, an 8-world fleet
+# with short maps, and bench.py's batch.  Every filled map spans its whole
+# curve: a map of a few points or of a short arc gives normal equations
+# of rank 1 or 2, whose solve (the floor 1e-8 x trace) turns the sums'
+# rounding into the step, in any order of the sums
+ICP_SOLVE_CASES = {
+    "mapper": (1, 16384, [16384], 0.05),
+    "fleet8": (8, 16384, [16384, 16000, 9000, 4096, 1000, 360, 2, 0], 0.05),
+    "bench": (2048, 360, [360], None),
+}
+
+
+def _icp_problems(dev, case, seed=0):
+    """ICP problems on the card: per world a map of ``q_count`` ordered
+    points round a closed curve, its lanes past ``q_count`` far away
+    (K4 and the normals must not read them), and 360 of the map's points
+    seen from a pose off by up to 3 cm and 0.05 rad with 1 mm of noise,
+    ~12 % of the lanes masked.  Returns ``(p, mask, q, q_count, x0,
+    threshold)``."""
+    worlds, n_map, counts, thr = ICP_SOLVE_CASES[case]
+    g = torch.Generator().manual_seed(seed)
+    qc = torch.tensor(counts * (worlds // len(counts)), dtype=torch.int32)
+    filled = torch.arange(n_map)[None, :] < qc[:, None]
+    ang = torch.rand(worlds, n_map, generator=g) * 2 * math.pi
+    ang = torch.sort(torch.where(filled, ang, 10.0), dim=-1)[0]
+    r = 0.8 + 0.15 * torch.sin(3 * ang) + 0.05 * torch.cos(7 * ang)
+    q = torch.stack([r * torch.cos(ang), r * torch.sin(ang)], -1)
+    q = torch.where(filled[..., None], q, 1e3)
+    lanes = (torch.arange(360)[None, :] * qc.clamp_min(1)[:, None]) // 360
+    p = torch.gather(q, 1, lanes[..., None].expand(-1, -1, 2))
+    p = torch.where(qc[:, None, None] > 0, p, 0.5)
+    off = (torch.rand(worlds, 3, generator=g) * 2 - 1) \
+        * torch.tensor([0.03, 0.03, 0.05])
+    c, s = torch.cos(off[:, 2]), torch.sin(off[:, 2])
+    rot = torch.stack([torch.stack([c, s], -1), torch.stack([-s, c], -1)],
+                      -2)
+    p = (p - off[:, None, :2]) @ rot.transpose(-1, -2) \
+        + torch.randn(p.shape, generator=g) * 1e-3
+    mask = torch.rand(worlds, 360, generator=g) > 0.12
+    x0 = torch.zeros(worlds, 3)
+    return (*(t.contiguous().to(dev) for t in (p, mask, q, qc, x0)), thr)
+
+
+@pytest.mark.parametrize("case", sorted(ICP_SOLVE_CASES))
+def test_icp_solve_step_matches_plain(dev, case):
+    """One iteration of ``icp_solve_kernel`` against its plain version on
+    the same pose, source and K4 indices, both on the card: the pose
+    within 1e-5 (m, rad), the source under it within 2e-5 m and chi within
+    rtol 1e-5 (the kernel sums in the order cuBLAS takes for one
+    unbatched problem; batched, cuBLAS may take others); then a whole 10-iteration call against the plain path on
+    the CPU (its first 64 problems), the pose within the benchmark's 1e-4
+    (an index K4 picks differently on a near-tie moves an intermediate
+    iterate, not the fixed point)."""
+    p, mask, q, qc, x0, thr = _icp_problems(dev, case)
+    x0 = x0 + torch.tensor([0.01, -0.02, 0.03], device=dev)
+    p_t = icp.transform_points(p, x0)
+    corr = icp.nearest_neighbors(p_t, q, qc)
+    want = icp.solve_step_reference(p, mask, q, qc, x0, p_t, corr, thr)
+    x, got_pt, chi = x0.clone(), p_t.clone(), torch.empty(p.shape[0], 1,
+                                                          device=dev)
+    before = icp.icp_solve.launches
+    icp.icp_solve(p, mask, q, qc, corr, x, x, got_pt, chi, 0, thr)
+    torch.cuda.synchronize()
+    assert icp.icp_solve.launches == before + 1
+    torch.testing.assert_close(x, want[0], atol=1e-5, rtol=0)
+    torch.testing.assert_close(got_pt, want[1], atol=2e-5, rtol=0)
+    torch.testing.assert_close(chi[:, 0], want[2], atol=1e-9, rtol=1e-5)
+    if case == "fleet8":  # q_count 2 and 0: no normals, no residual
+        assert not chi[-2:].any()
+
+    card = icp.icp_point_to_normal(p, mask, q, qc, x0, iterations=10,
+                                   step_threshold=thr)
+    n = min(p.shape[0], 64)  # the problems are independent
+    cpu = icp.icp_point_to_normal(
+        *(t[:n].cpu() for t in (p, mask, q, qc, x0)), iterations=10,
+        step_threshold=thr)
+    torch.testing.assert_close(card.transformation[:n].cpu(),
+                               cpu.transformation, atol=1e-4, rtol=0)
+    assert card.chi_values.shape == (p.shape[0], 10)
+    assert bool(torch.isfinite(card.transformed_points).all())
+
+
+@pytest.mark.parametrize("iterations", [1, 10])
+def test_icp_solve_gives_the_references_bits_at_the_mappers_shape(
+        dev, iterations):
+    """At the ICP mapper's shape (one problem of 360 lanes against 16,384
+    map points, Step 0.05) the kernel rounds and sums as cuBLAS computes
+    the plain reference's products there (``csrc/icp_solve.cu``), so a
+    call gives the pose and the source of the benchmark's plain reference
+    (``h100bench/reference/icp.py``, unbatched, as ``icp.rollout``'s
+    comparison runs it) bit for bit, after one iteration and after ten."""
+    from h100bench.reference import icp as ref_icp
+
+    p, mask, q, qc, x0, thr = _icp_problems(dev, "mapper", seed=5)
+    x0 = x0 + torch.tensor([0.01, -0.02, 0.03], device=dev)
+    ours = icp.icp_point_to_normal(p, mask, q, qc, x0, iterations=iterations,
+                                   step_threshold=thr)
+    pose, moved = ref_icp.icp_point_to_normal(
+        p[0], mask[0], q[0], qc[0], x0[0],
+        ref_icp.IcpConfig(16384, iterations, thr))
+    assert torch.equal(ours.transformation[0], pose)
+    assert torch.equal(ours.transformed_points[0], moved)
+
+
+def test_icp_is_iterations_plus_one_solve_launches(dev):
+    """A call launches ``icp_solve_kernel`` once an iteration and once
+    before (the prologue) and K4 once an iteration, and nothing else of
+    the ICP loop: by the wrappers' counts and by the profiler's kernel
+    names."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from slamrs_tpu_torch.utils import trace
+
+    p, mask, q, qc, x0, thr = _icp_problems(dev, "mapper")
+    icp.icp_point_to_normal(p, mask, q, qc, x0, iterations=7,
+                            step_threshold=thr)  # K4's counters made
+    torch.cuda.synchronize()
+    solves, k4 = icp.icp_solve.launches, icp.nearest_neighbors_fused.launches
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        icp.icp_point_to_normal(p, mask, q, qc, x0, iterations=7,
+                                step_threshold=thr)
+        torch.cuda.synchronize()
+    assert icp.icp_solve.launches - solves == 8
+    assert icp.nearest_neighbors_fused.launches - k4 == 7
+    names = [e.key for e in prof.key_averages()
+             if e.device_type.name == "CUDA" for _ in range(e.count)]
+    assert sum("icp_solve_kernel" in n for n in names) == 8, names
+    assert sum("nn_argmin_kernel" in n for n in names) == 7, names
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        trace.device_counter("k4.pairs", dev).add_(qc.sum(), alpha=7 * 360)
+        torch.cuda.synchronize()
+    counter = sum(e.count for e in prof.key_averages()
+                  if e.device_type.name == "CUDA")
+    assert len(names) == 8 + 7 + counter, names  # and the counter's add
+
+
+def test_icp_solve_is_deterministic_eager_and_replayed(dev):
+    """Two eager calls and a captured call replayed twice give the same
+    bits: the kernel reduces in a fixed order, with no atomics."""
+    p, mask, q, qc, x0, thr = _icp_problems(dev, "fleet8", seed=3)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):  # K4's counters for this stream
+        runs = [icp.icp_point_to_normal(p, mask, q, qc, x0,
+                                        step_threshold=thr)
+                for _ in range(2)]
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = icp.icp_point_to_normal(p, mask, q, qc, x0, step_threshold=thr)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        runs.append(tuple(t.clone() for t in out))
+    for run in runs[1:]:
+        for a, b in zip(runs[0], run):
+            assert torch.equal(a, b)
 
 
 def test_icp_mapper_update_matches_cpu(dev):

@@ -209,7 +209,8 @@ def test_compute_normals_matches_jax(count):
     q = (np.stack([np.cos(ang), np.sin(ang)], -1)
          * rng.uniform(0.5, 1.0, (200, 1))).astype(np.float32)
     ref = np.asarray(jicp.compute_normals(jnp.asarray(q), jnp.int32(count)))
-    ours = ticp.compute_normals(_t(q), torch.tensor(count, dtype=torch.int32))
+    ours = ticp.normals_at(_t(q), torch.tensor(count, dtype=torch.int32),
+                           torch.arange(q.shape[0]))
     np.testing.assert_allclose(ours.numpy(), ref, atol=1e-6, rtol=0)
 
 
@@ -350,3 +351,93 @@ def test_icp_mapper_update_matches_jax(kw):
         assert int(ts.count) < kw["capacity"]
     if "voxel_size" in kw:
         assert int(ts.count) < 5 * 300  # the gate dropped repeat visits
+
+
+# --- the ICP solve step: the plain version of icp_solve_kernel ---------------
+
+NQ_NORMALS = 256
+
+
+@pytest.mark.parametrize("count", [0, 1, 2, 3, 200, NQ_NORMALS],
+                         ids=["0", "1", "2", "3", "200", "nq"])
+def test_normals_at_are_compute_normals_gathered(count):
+    """The kernel's normals, computed only at the lanes it reads, are
+    the whole-map ``compute_normals`` of the plain path before the solve
+    kernel (``h100bench/reference/icp.py``) gathered there bit for bit: at
+    lane 0, at ``q_count - 1``, past ``q_count``, at the wrapping ends,
+    and at random lanes, over a leading batch of three problems."""
+    rng = np.random.default_rng(20 + count)
+    ang = np.sort(rng.uniform(0, 2 * np.pi, (3, NQ_NORMALS)), axis=-1)
+    q = _t((np.stack([np.cos(ang), np.sin(ang)], -1)
+            * rng.uniform(0.5, 1.0, (3, NQ_NORMALS, 1))).astype(np.float32))
+    q[1, 5] = q[1, 7]  # a zero difference: a zero normal at lane 6
+    qc = torch.full((3,), count, dtype=torch.int32)
+    fixed = [0, 1, max(count - 2, 0), max(count - 1, 0),
+             min(count, NQ_NORMALS - 1), NQ_NORMALS - 2, NQ_NORMALS - 1, 6]
+    idx = torch.cat([torch.tensor(fixed).expand(3, -1),
+                     torch.from_numpy(rng.integers(0, NQ_NORMALS, (3, 40)))],
+                    -1)
+    from h100bench.reference import icp as ref_icp
+
+    got = ticp.normals_at(q, qc, idx)
+    want = torch.gather(ref_icp.compute_normals(q, qc), -2,
+                        idx[..., None].expand(*idx.shape, 2))
+    assert torch.equal(got, want)
+    if count <= 2:
+        assert not got.any()
+
+
+@pytest.mark.parametrize("threshold", [None, 0.05], ids=["uniform", "step"])
+@pytest.mark.parametrize("batch", [(), (3,)], ids=["single", "batch3"])
+def test_plain_icp_is_the_frozen_plain_path(threshold, batch):
+    """On CPU tensors ``icp_point_to_normal`` (K4's plain version and
+    ``solve_step_reference`` per iteration) gives the benchmark's frozen
+    copy of the plain path before the solve kernel
+    (``h100bench/reference/icp.py``) bit for bit, masked lanes and a short
+    map included: the arithmetic is unchanged."""
+    from h100bench.reference import icp as ref_icp
+
+    rng = np.random.default_rng(31)
+    n = int(np.prod(batch, dtype=int))
+    ps, qs = [], []
+    for _ in range(n):
+        p, q = _ring()
+        ps.append(p + rng.normal(0, 0.002, p.shape).astype(np.float32))
+        qs.append(q)
+    p = _t(np.stack(ps).reshape(*batch, *ps[0].shape))
+    q = _t(np.stack(qs).reshape(*batch, *qs[0].shape))
+    mask = _t(rng.uniform(size=p.shape[:-1]) < 0.8)
+    qc = torch.full(batch, q.shape[-2], dtype=torch.int32)
+    if batch:
+        qc[-1] = 97
+    x0 = _t(rng.normal(0, 0.01, (*batch, 3)).astype(np.float32))
+    ours = ticp.icp_point_to_normal(p, mask, q, qc, x0, iterations=10,
+                                    step_threshold=threshold)
+    pose, moved = ref_icp.icp_point_to_normal(
+        p, mask, q, qc, x0, ref_icp.IcpConfig(16384, 10, threshold))
+    assert torch.equal(ours.transformation, pose)
+    assert torch.equal(ours.transformed_points, moved)
+    assert ours.chi_values.shape == (*batch, 10)
+
+
+def test_solve_wrapper_checks_inputs():
+    """``icp_solve_kernel``'s input checks raise on what it does not take,
+    before any kernel is loaded."""
+    p, q, qc = (_t(x) for x in _nn_case("counts_360_128_10"))
+    mask = torch.ones(p.shape[:2], dtype=torch.bool)
+    x = torch.zeros(p.shape[0], 3)
+    ticp.check_solve_inputs(p, mask, q, qc, x)
+    bad = [(p, mask.float(), q, qc, x), (p, mask[:, :-1], q, qc, x),
+           (p, mask.t().contiguous().t(), q, qc, x),
+           (p, mask, q, qc, x.double()), (p, mask, q, qc, x[:, :2]),
+           (p, mask, q, qc, x.t().contiguous().t()),
+           (p, mask, q, qc.long(), x), (p, mask, q[:4], qc, x)]
+    for args in bad:
+        with pytest.raises(ValueError):
+            ticp.check_solve_inputs(*args)
+    p_t, chi = torch.empty_like(p), torch.empty(p.shape[0], 10)
+    corr = torch.zeros(p.shape[:2], dtype=torch.int32)
+    for k, c, out in ((10, corr, p_t), (0, corr.long(), p_t),
+                      (0, corr[:, 1:], p_t), (0, corr, p_t[:, 1:])):
+        with pytest.raises(ValueError):
+            ticp.icp_solve(p, mask, q, qc, c, x, x, out, chi, k, 0.05)
