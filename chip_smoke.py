@@ -3766,7 +3766,7 @@ def profile_summary(prof, seconds) -> dict:
 
 class ProfiledReplays:
     """Profiles ``n`` calls of a program's ``method`` (``FrameProgram.
-    frame``, ``TickProgram.tick``) after its first ``skip``: replays once
+    frame``, ``FrameProgram.tick``) after its first ``skip``: replays once
     the graphs are captured.  After the run: the profile's summary over
     the window's wall time, the wrappers' launches in the window
     (``counts``) and the graph replays it held (``replays``)."""
@@ -3854,10 +3854,13 @@ def check_capture(torch, label, make, worlds, n_steps, per_frame):
             for c in (False, True)}
     prof_frames = {c: int(prof[c]["outs"].fired.shape[0]) for c in prof}
     n_worlds = worlds[0] if worlds else 1
+    # a fresh program's runs: the frames, then the trailing idle ticks' one
+    trailing = int(fires[-1] < n_steps - 1)
     emit({"phase": f"capture_{label}", "ticks": n_steps, "worlds": n_worlds,
           "frames": frames, "graphs": stats.graphs,
-          "idle_counts": sorted(stats.launches), "eager_frames":
-          stats.eager_frames, "replays": stats.replays,
+          "idle_counts": sorted(k for k in stats.launches
+                                if isinstance(k, int)),
+          "eager_frames": stats.eager - trailing, "replays": stats.replays,
           "capture_s": stats.capture_seconds,
           "bitwise_injected": same_injected, "bitwise_seed": same_seed,
           "launch_counts": counts, "eager_launch_counts": eager_counts,
@@ -4312,11 +4315,12 @@ def profiled_pair(torch, fw, worlds, fires, method, eager_units, skip, n,
     run (with ``units``) and the window."""
     from slamrs_tpu_torch.graph import capture
 
+    cls = capture.FrameProgram
     if per_tick:
-        cls, name, call = capture.TickProgram, "tick", "rollout"
+        name, call = "tick", "rollout"
         eager_ticks, ticks = eager_units, skip + n + int(fires[0]) + 1
     else:
-        cls, name, call = capture.FrameProgram, "frame", method
+        name, call = "frame", method
         eager_ticks = int(fires[eager_units - 1]) + 1
         ticks = int(fires[skip + n]) + 1
     eager = capture_run(torch, fw, worlds, eager_ticks, False, profiled=True,
@@ -4360,7 +4364,10 @@ def check_mesh_capture(torch, label, make, worlds, n_steps, exact, at_most,
     eager, window = profiled_pair(torch, fw, (worlds,), fires,
                                   "rollout_cadence", 2, 3, n)
     rate = {"eager": (eager, 2), "captured": (window.summary, n)}
-    split = [k for k in stats.launches if not isinstance(k, int)]
+    split = [k for k in stats.launches
+             if isinstance(k, tuple) and k[1] in ("head", "tail", "row")]
+    # a fresh program's runs: the frames, then the trailing idle ticks' one
+    trailing = int(fires[-1] < n_steps - 1)
     emit({"phase": f"mesh_capture_{label}", "ticks": n_steps,
           "worlds": worlds, "mesh": fw.mesh.shape, "frames": frames,
           "bitwise": same, "launch_counts": counts,
@@ -4368,9 +4375,8 @@ def check_mesh_capture(torch, label, make, worlds, n_steps, exact, at_most,
           "kernels_per_frame": {k: v / frames for k, v in counts.items()},
           "graphs": stats.graphs, "graph_keys":
           sorted(graph_key(k) for k in stats.launches),
-          "eager_frames": stats.eager_frames, "replays": stats.replays,
-          "capture_s": stats.capture_seconds + (
-              stats.ticks.capture_seconds if stats.ticks else 0.0),
+          "eager_frames": stats.eager - trailing, "replays": stats.replays,
+          "capture_s": stats.capture_seconds,
           "copy_back_bytes_per_frame": {graph_key(k): v for k, v in
                                         stats.copy_back_bytes.items()},
           "overflow_reads_per_frame": {
@@ -4402,8 +4408,8 @@ def check_mesh_capture(torch, label, make, worlds, n_steps, exact, at_most,
             f"{eager_counts}")
     check_kernels_a_frame(f"mesh capture {label}", counts, frames, exact,
                           at_most)
-    require(stats.replays >= 1 and stats.replays + stats.eager_frames
-            == frames, f"mesh capture {label}: frames not replayed")
+    require(stats.replays >= 1 and stats.replays + stats.eager
+            == frames + trailing, f"mesh capture {label}: frames not replayed")
     if local:
         require(reads[None][0] == frames == reads[False][0]
                 and stats.overflow_reads == frames - 1 and split,
@@ -4536,13 +4542,15 @@ def check_tick_capture(torch, label, make, n_steps, exact):
     eager, window = profiled_pair(torch, fw, (), fires, "rollout", 30, 20,
                                   60, per_tick=True)
     rate = {"eager": (eager, 30), "captured": (window.summary, 60)}
+    kinds = sorted(k[1] for k in stats.launches)  # ("tick", kind)
     emit({"phase": f"rollout_tick_capture_{label}", "ticks": n_steps,
           "scan_ticks": scans, "bitwise_injected": same["injected"],
           "bitwise_seed": same["seed"], "launch_counts": counts,
           "eager_launch_counts": eager_counts, "graphs": stats.graphs,
-          "graph_keys": sorted(stats.launches), "eager_ticks": stats.eager,
+          "graph_keys": kinds, "eager_ticks": stats.eager,
           "replays": stats.replays, "capture_s": stats.capture_seconds,
-          "copy_back_bytes_per_tick": stats.copy_back_bytes,
+          "copy_back_bytes_per_tick": {
+              k[1]: v for k, v in stats.copy_back_bytes.items()},
           "host_launch_calls_per_tick": {
               c: r["host_calls"] / k for c, (r, k) in rate.items()},
           "device_busy_us_per_tick": {
@@ -4560,9 +4568,9 @@ def check_tick_capture(torch, label, make, n_steps, exact):
     require(counts == eager_counts,
             f"tick capture {label}: launches {counts} != {eager_counts}")
     check_kernels_a_frame(f"tick capture {label}", counts, scans, exact, {})
-    require(sorted(stats.launches) == ["idle", "scan"]
+    require(kinds == ["idle", "scan"]
             and stats.replays + stats.eager == n_steps,
-            f"tick capture {label}: graphs {sorted(stats.launches)}")
+            f"tick capture {label}: graphs {kinds}")
     check_profiled(f"tick capture {label}", eager, window)
     return counts
 

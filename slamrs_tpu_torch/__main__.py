@@ -35,7 +35,8 @@ beams a frame; it only parses bytes and needs no device.
 
 The device defaults to ``cuda`` and nothing falls back: without CUDA it
 stops with an error, and ``--device cpu`` must be asked for.  The JAX
-package's ``bench`` is not ported yet (ROADMAP.md).
+package's ``bench`` has no subcommand here: the port's benchmark is
+``python3 -m h100bench.run``.
 """
 
 from __future__ import annotations
@@ -250,8 +251,8 @@ def cmd_replay(args) -> None:
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(
         prog="slamrs_tpu_torch",
-        epilog="The JAX package's bench subcommand is not ported yet "
-               "(ROADMAP.md, Queue 1 item 1).")
+        epilog="The JAX package's bench subcommand has no counterpart "
+               "here: the port's benchmark is python3 -m h100bench.run.")
     sub = p.add_subparsers(dest="cmd", required=True)
 
     r = sub.add_parser("run", help="run a node-graph config headlessly")

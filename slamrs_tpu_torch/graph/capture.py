@@ -1,7 +1,7 @@
 """Device work as captured CUDA graphs: the cadence rollout, one replay a
-frame, on one device or on a mesh whose entries are all one device; the
-tick-by-tick rollout, one replay a tick; and the App's node updates, one
-replay an update.
+frame, and the tick-by-tick rollout, one replay a tick, on one device or
+on a mesh whose entries are all one device; and the App's node updates,
+one replay an update.
 
 Counterpart of the JAX package's compiled programs: ``jax.jit`` over a
 ``lax.scan`` of frames in ``FusedWorld.rollout_cadence``
@@ -16,54 +16,48 @@ one ``torch.cuda.CUDAGraph`` replay.
 :class:`Program` holds what every captured call needs: a static state,
 copy-back of the leaves the work writes fresh, static input buffers, the
 generator registered with each graph, one graph pool, and the launch
-counters and statistics of each graph.  :class:`FrameProgram` is the
-cadence rollout's (:func:`run_program`), :class:`TickProgram` the tick
-rollout's (:func:`run_ticks`); the nodes of ``graph/nodes/`` hold one
-each (``App(capture=...)``).
-
-The frame program (:class:`FrameProgram`) is ``FusedWorld.frame`` on
-static buffers:
+counters and statistics of each graph.  :class:`FrameProgram`, the world
+program, serves both rollouts (:func:`run_program`, :func:`run_ticks`),
+keyed by the work it runs (a scan frame, the trailing idle ticks, an
+idle or a scan tick); the nodes of ``graph/nodes/`` hold one each
+(``App(capture=...)``).  The world program's buffers:
 
 * the world state: every tensor leaf of ``WorldState`` (every block of a
-  sharded leaf, ``parallel.Sharded``).  The first frame of the call that
-  builds the program runs eagerly on the caller's state and its result
-  becomes the static state.  A leaf that a frame writes as a fresh
-  tensor (K1's lineage maps, the dda and dense maps, poses, weights, the
-  ICP map) is copied back into its static leaf by the program's last
-  nodes; a leaf that the route updates in place (K1 in place, K2, K3's
-  tile pool, a fleet's maps) is not copied;
-* the frame's wheel speeds, ``f32[2, k + 1]``, filled with ``copy_``
-  before each replay;
-* injected draws (``noise=``, ``landmark_noise=``): every frame's moved
-  to the device once a call, the frame's copied into the static draw
-  buffers before each replay;
-* the outputs ``[F_max, ...]`` (the most frames the call's ticks can
-  fire), written at a frame index held on the device and advanced by
-  the program; the caller gets a copy of the call's rows.
+  sharded leaf, ``parallel.Sharded``).  The call that builds the program
+  runs its work up to and including the first scan tick eagerly on the
+  caller's state (the cadence rollout's frame 0, the tick rollout's lead
+  ticks), and the result becomes the static state: from then on no leaf
+  of the caller's state is in the static state where a scan writes
+  afresh.  A leaf that the work writes as a fresh tensor (K1's lineage
+  maps, the dda and dense maps, poses, weights, the ICP map) is copied
+  back into its static leaf by the program's last nodes; a leaf that the
+  route updates in place (K1 in place, K2, K3's tile pool, a fleet's
+  maps) is not copied;
+* each run's wheel speeds, ``f32[2, ticks]``, filled before each replay;
+* injected draws (``noise=``, ``landmark_noise=``): every scan frame's
+  moved to the device once a call, the frame's copied into the static
+  draw buffers before each replay;
+* the output rows ``[rows, ...]``, written at a frame index held on the
+  device and advanced by the program; the caller gets a copy of the
+  call's rows.
 
 The host resolves the timer before the loop (``FusedWorld.
-fire_schedule``), so a frame holds no data-dependent control flow.  The
-first frame with a given idle count ``k`` runs eagerly on the capture
-stream and is then captured; later frames of that ``k`` replay its
-graph.  That warm-up is a real frame of the rollout, run by the very
-program that is then captured: it consumes the run's own draws, and the
-capture itself draws nothing.  The graphs share one memory pool.
+fire_schedule``), so a run holds no data-dependent control flow.  The
+first run of a key runs eagerly on the capture stream and is then
+captured; later runs replay its graph.  That warm-up is real work of the
+rollout: it consumes the run's own draws, and the capture itself draws
+nothing.  The graphs share one memory pool.
 
-The program outlives the call: it is kept on the world
-(``FusedWorld.frame_program``, one a world; it holds the world weakly)
-with its graphs, its pool, its static buffers and its trailing-tick
-program.  A later call handed the state the last call returned (its
-static state, carried) runs on it (:meth:`FrameProgram.takes`): the
-generator re-seeded, the frame index reset, every frame a replay, frame
-0 included, except the first frame of an idle count the program has not
-met, which runs eagerly and is captured.  Any other state (a fresh
-``init()``, a checkpoint) builds a new program, which replaces the
-kept one.  The state returned is the static buffers: a state handed to
-a captured rollout is consumed, the state returned shares its storage,
-and the old state must not be used again.  Trailing idle ticks after
-the last scan run through the kept tick program's idle graph, and a
-call in which no scan fires through the tick rollout's programs
-(:func:`run_ticks`, built for the call).
+The program outlives the call, kept on the world
+(``FusedWorld.frame_program``; it holds the world weakly).  A later call
+of either rollout handed the state the last call returned runs on it
+(:meth:`FrameProgram.takes`): the generator re-seeded, the frame index
+reset, every run a replay but the first of a key the program has not
+met.  Any other state (a fresh ``init()``, a checkpoint), or a call that
+needs more output rows than the program holds, builds a new program,
+which replaces the kept one.  A state handed to a captured rollout is
+consumed: the state returned is the static buffers, and the old state
+must not be used again.
 
 Meshes (``parallel/``): a sharded state runs when every entry of its
 mesh is the same CUDA device (a mesh over several distinct devices is
@@ -77,13 +71,8 @@ up to every row's plan writes the rows' overflow flags into one static
 buffer, the host reads it once, each row replays the graph of its branch
 (both write the row's blocks in place), and a tail graph holds the rest.
 
-The tick programs (:class:`TickProgram`): an idle tick (motion, each
-filter's estimate carried) and a scan tick (motion and the scan update),
-picked by the host timer before the loop; each tick's output row goes
-into static ``[n_steps, ...]`` buffers.
-
 Draws: the program's ``torch.Generator`` is registered with every graph,
-so a replay draws what the eager frame would (the generator's offset
+so a replay draws what the eager run would (the generator's offset
 advances by the graph's whole increment); each call seeds it anew.
 Seeded and injected runs give the eager loop's bits.
 
@@ -96,7 +85,7 @@ would count once and a replay never.  Each graph keeps the counts its
 capture made (:func:`launch_counts`), the counters are put back after
 capture, and every replay adds them: the counters keep meaning kernels
 run on the card.  K4's arrival counters are per ``(device, stream)``
-(``ops/icp.py``); the first frame runs on the capture stream and makes
+(``ops/icp.py``); the first run is on the capture stream and makes
 that stream's set, which the kernel leaves at zero, so every replay
 starts clean.
 
@@ -106,7 +95,6 @@ runs the same program without capturing it (the CPU tests).
 
 from __future__ import annotations
 
-import collections
 import contextlib
 import dataclasses
 import gc
@@ -118,7 +106,7 @@ import numpy as np
 import torch
 
 from slamrs_tpu_torch.core.types import Command
-from slamrs_tpu_torch.models import gridslam as gs_model
+from slamrs_tpu_torch.graph import compile as world_compile
 from slamrs_tpu_torch.parallel import fleet as pf
 from slamrs_tpu_torch.parallel import resample as pres
 from slamrs_tpu_torch.utils import trace
@@ -192,23 +180,16 @@ class ProgramStats:
 
 @dataclasses.dataclass
 class CaptureStats(ProgramStats):
-    """What one captured rollout did (``FusedWorld.capture_stats``): the
-    cadence rollout's graphs are keyed by idle count k (a frame cut at
-    the overflow read by ``(k, part)``), the tick rollout's by ``"idle"``
-    and ``"scan"``; ``frames`` counts frames or ticks, and ``ticks``
-    holds the stats of the trailing idle ticks' program.  The per-graph
-    tables (``launches``, ``copy_back_bytes``) are the program's, which
-    a kept frame program carries from call to call."""
+    """What one captured rollout call did (``FusedWorld.capture_stats``):
+    ``frames`` counts its scan frames (the tick rollout's: its ticks),
+    ``eager`` and ``replays`` its runs, the trailing idle ticks' one run
+    included.  The graphs are keyed as :class:`FrameProgram`'s (a run
+    cut at the overflow read by ``(key, part)``); the per-graph tables
+    (``launches``, ``copy_back_bytes``) are the program's, which a kept
+    program carries from call to call.  ``ticks`` is always None."""
 
     frames: int = 0
     ticks: Optional[ProgramStats] = None
-
-    @property
-    def eager_frames(self) -> int:
-        """The call's frames run eagerly: frame 0 of a call that builds
-        the program, and the first frame of each idle count the program
-        had not met."""
-        return self.eager
 
 
 def _tensor_leaves(tree) -> list:
@@ -454,10 +435,10 @@ class Program:
         self._cut = (*self._finish(*self._open), branch)
         self._open = self._start(self._pool)
 
-    def run(self, key, capture_after: bool = True):
+    def run(self, key):
         """The program of ``key``: a replay of its graph, or else the body
-        run eagerly, then captured when ``graphs`` and
-        ``capture_after``.  Returns the body's outputs."""
+        run eagerly, then captured when ``graphs``.  Returns the body's
+        outputs."""
         graph = self._graphs.get(key)
         if graph is not None:
             if isinstance(graph, _Split):
@@ -469,7 +450,7 @@ class Program:
         with trace.span("frame.eager"):
             out = self._body(key)
         self.stats.eager += 1
-        if self.graphs and capture_after:
+        if self.graphs:
             self.capture(key)
         return out
 
@@ -569,32 +550,51 @@ class Program:
         return graph
 
 
-class WorldProgram(Program):
-    """The static buffers of a captured rollout of a ``FusedWorld``: the
-    world state (one device, or sharded over a one-card mesh), the
-    injected draws of every scan frame moved to the device once, and the
-    output rows ``[rows, ...]`` written at a frame index held on the
-    device and advanced by the program.  The world is held weakly: the
-    world keeps its frame program (``FusedWorld.frame_program``), and a
-    cycle would leave both to the cyclic collector (:class:`Program`)."""
 
-    def __init__(self, body, fw, first_state, first_rows, caller_state,
-                 rows: int, generator, draws, landmark_draws, graphs: bool,
-                 mesh, stats):
+
+def _world_parts(fw) -> tuple:
+    """What a world program bakes in of its world besides the state."""
+    return (fw.scene, fw.params, fw.dt, fw.grid_config, fw.icp_config,
+            fw.ekf_config, fw.num_beams)
+
+
+class FrameProgram(Program):
+    """A ``FusedWorld``'s program for both captured rollouts, kept on the
+    world (``FusedWorld.frame_program``), with output rows for ``rows``
+    frames or ticks.  Its keys:
+
+    * ``k``: a scan frame of ``k`` idle ticks (``fw.frame``,
+      :meth:`frame`), which writes a row;
+    * ``("idle", n)``: the cadence rollout's ``n`` trailing idle ticks
+      (``fw.idle``, :meth:`idle`), which writes none;
+    * ``("tick", "idle")`` and ``("tick", "scan")``: one tick of the tick
+      rollout (``fw.step`` with the timer forced so that only a scan tick
+      fires, :meth:`tick`), which writes a row.
+
+    ``first_rows`` are the rows of the eager work the program is built
+    from.  A later call on its static state runs on it (:meth:`takes`,
+    :meth:`start`).  The world is held weakly: the world keeps its
+    program, and a cycle would leave both to the cyclic collector
+    (:class:`Program`)."""
+
+    def __init__(self, fw, first_state, first_rows, caller_state, rows: int,
+                 generator, draws, landmark_draws, graphs: bool, mesh,
+                 stats: CaptureStats):
         dev = first_state.pose.device
-        super().__init__(body, dev, graphs, generator, stats)
+        super().__init__(self._work, dev, graphs, generator, stats)
         self._fw, self.mesh = weakref.ref(fw), mesh
+        self.world = _world_parts(fw)
+        self.rows = rows
+        self.injected = (draws is not None, landmark_draws is not None)
+        self.draws, self.landmark_draws = draws, landmark_draws
         self.own(first_state, caller_state)
         self.index = torch.zeros(1, dtype=torch.int64, device=dev)
-        first_rows = first_rows or []
-        row = first_rows[0] if first_rows else None
-        self.outputs = {} if row is None else {
+        row = first_rows[0]
+        self.outputs = {
             name: torch.empty((rows, *v.shape), dtype=v.dtype, device=dev)
             for name in _OUT_FIELDS
             if (v := getattr(row, name)) is not None
             and (name != "n_eff" or row.grid_pose is not None)}
-        self.draws = draws  # [F, ...] on the device, or None
-        self.landmark_draws = landmark_draws
         for row in first_rows:
             self._write_row(row)
 
@@ -602,69 +602,13 @@ class WorldProgram(Program):
     def fw(self):
         return self._fw()
 
-    def _write_row(self, row) -> None:
-        if not self.outputs:
-            return
-        for name, buf in self.outputs.items():
-            buf.index_copy_(0, self.index, getattr(row, name).unsqueeze(0))
-        self.index.add_(1)
-
-    def _fill_draws(self, f: int) -> None:
-        """Frame ``f``'s injected draws into the static draw buffers."""
-        if self.draws is not None:
-            self.fill("noise", gs_model.UpdateNoise(
-                *(x[f] for x in self.draws)))
-        if self.landmark_draws is not None:
-            self.fill("landmark_noise",
-                      tuple(x[f] for x in self.landmark_draws))
-
-    def outputs_as(self, fired: Tensor, copy: bool = False):
-        """The outputs of the ``len(fired)`` rows written; ``copy``: a
-        copy of them, which later replays leave alone."""
-        from slamrs_tpu_torch.graph.compile import WorldOutputs
-
-        n = fired.shape[0]
-        outs = {name: buf[:n].clone() if copy else buf[:n]
-                for name, buf in self.outputs.items()}
-        return WorldOutputs(
-            fired=fired, pose=outs["pose"], grid_pose=outs.get("grid_pose"),
-            icp_pose=outs.get("icp_pose"), ekf_pose=outs.get("ekf_pose"),
-            n_eff=outs.get("n_eff"))
-
-
-def _world_parts(fw) -> tuple:
-    """What a frame program bakes in of its world besides the state."""
-    return (fw.scene, fw.params, fw.dt, fw.grid_config, fw.icp_config,
-            fw.ekf_config, fw.num_beams)
-
-
-class FrameProgram(WorldProgram):
-    """The cadence rollout's frame program, keyed by idle count k, with
-    output rows for ``rows`` frames.  Kept on the world after the call
-    (``FusedWorld.frame_program``): a later call on its static state
-    runs on it (:meth:`takes`, :meth:`start`), and so does its tick
-    program for the trailing idle ticks (:meth:`idle_ticks`)."""
-
-    def __init__(self, fw, first_state, first_row, caller_state, rows: int,
-                 frames: int, generator, draws, landmark_draws,
-                 graphs: bool, mesh=None):
-        super().__init__(self._frame, fw, first_state, [first_row],
-                         caller_state, rows, generator, draws,
-                         landmark_draws, graphs, mesh,
-                         CaptureStats(frames=frames, eager=1))  # frame 0
-        self.rows = rows
-        self.injected = (draws is not None, landmark_draws is not None)
-        self.world = _world_parts(fw)
-        self.ticks: Optional[TickProgram] = None
-
     def takes(self, state, mesh, graphs: bool, draws, landmark_draws,
-              frames: int) -> bool:
-        """Whether a call of ``frames`` frames on ``state`` (placed on
-        ``mesh``) runs on this program: every tensor leaf of the state
-        (every block of a sharded leaf) is the static leaf, on the same
-        mesh, with or without graphs and injected draws as the program
-        was built, for a world unchanged, and the frames fit the output
-        rows."""
+              rows: int) -> bool:
+        """Whether a call on ``state`` (placed on ``mesh``) that writes
+        ``rows`` output rows runs on this program: every tensor leaf of
+        the state (every block of a sharded leaf) is the static leaf, on
+        the same mesh, with or without graphs and injected draws as the
+        program was built, for a world unchanged, and the rows fit."""
         leaves = _tensor_leaves(state)
         static = _tensor_leaves(self.state)
         return (len(leaves) == len(static)
@@ -674,95 +618,83 @@ class FrameProgram(WorldProgram):
                                       landmark_draws is not None)
                 and all(a is b for a, b in zip(_world_parts(self.fw),
                                                self.world))
-                and frames <= self.rows)
+                and rows <= self.rows)
 
-    def start(self, seed: int, frames: int, draws, landmark_draws) -> None:
-        """A call of ``frames`` frames on the kept program: the generator
-        seeded with ``seed``, as a fresh program's would be, the call's
-        draws taken, the frame index back at 0, statistics of its own."""
+    def start(self, seed: int, draws, landmark_draws,
+              stats: CaptureStats) -> None:
+        """A call on the kept program: the generator seeded with
+        ``seed``, as a fresh program's would be, the call's draws taken,
+        the frame index back at 0, the call's own ``stats``."""
         self.generator.manual_seed(seed)
         self.draws, self.landmark_draws = draws, landmark_draws
         self.index.zero_()
-        self.restart(CaptureStats(frames=frames))
+        self.restart(stats)
 
-    def _frame(self, k: int) -> None:
-        """The frame program of ``k`` idle ticks on the static buffers."""
-        new_state, row = self.fw.frame(
-            self.state, self.inputs[("speeds", k)], self.generator,
-            self.inputs.get("noise"), self.inputs.get("landmark_noise"),
-            self.mesh)
-        self._write_row(row)
+    def _write_row(self, row) -> None:
+        for name, buf in self.outputs.items():
+            buf.index_copy_(0, self.index, getattr(row, name).unsqueeze(0))
+        self.index.add_(1)
+
+    def _work(self, key) -> None:
+        """The work of ``key`` on the static buffers."""
+        speeds = self.inputs[("speeds", key)]
+        noise = self.inputs.get("noise")
+        landmark_noise = self.inputs.get("landmark_noise")
+        if isinstance(key, int):
+            new_state, row = self.fw.frame(self.state, speeds, self.generator,
+                                           noise, landmark_noise, self.mesh)
+        elif key[0] == "idle":
+            new_state, row = self.fw.idle(self.state, speeds, self.mesh), None
+        else:
+            scan = key[1] == "scan"
+            new_state, row = self.fw.step(
+                self.state._replace(scan_timer=0.0),
+                Command(speeds[0, 0], speeds[1, 0]), self.generator,
+                force_fire=scan, noise=noise if scan else None,
+                landmark_noise=landmark_noise if scan else None)
+            if row.fired != scan:
+                raise RuntimeError("world program: an idle tick fired (the "
+                                   "period is shorter than a tick)")
+        if row is not None:
+            self._write_row(row)
         self.copy_back(new_state)
+
+    def _run(self, key, speeds: Tensor, f: Optional[int]) -> None:
+        """The run of ``key`` at ``speeds``, with scan frame ``f``'s
+        injected draws (None: no scan): a replay of its graph, or else
+        the program run eagerly, then captured."""
+        with trace.span("frame.fill"):
+            self.fill(("speeds", key), speeds)
+            if f is not None:
+                for name, draws in (("noise", self.draws),
+                                    ("landmark_noise", self.landmark_draws)):
+                    if draws is not None:
+                        self.fill(name, world_compile.frame_draws(draws, f))
+        self.run(key)
 
     def frame(self, k: int, speeds: Tensor, f: int) -> None:
-        """Frame ``f`` (``k`` idle ticks at ``speeds``): a replay of k's
-        graph, or else the program run eagerly, then captured."""
-        with trace.span("frame.fill"):
-            self.fill(("speeds", k), speeds)
-            self._fill_draws(f)
-        self.run(k)
+        """Scan frame ``f`` of ``k`` idle ticks at ``speeds``
+        (f32[2, k + 1])."""
+        self._run(k, speeds, f)
 
-    def idle_ticks(self, speeds: Tensor):
-        """The idle ticks at ``speeds`` (f32[2, n]) through the tick
-        program's idle graph (the program made on first use, over this
-        program's static state); returns its state, whose leaves are this
-        program's static leaves."""
-        if self.ticks is None:
-            self.ticks = TickProgram(self.fw, self.state, None, None, 0,
-                                     self.generator, None, None, self.graphs,
-                                     self.mesh, eager=0)
-            self.ticks._caller = self._caller
-        n = speeds.shape[1]
-        self.ticks.restart(CaptureStats(frames=n))
-        for j in range(n):
-            self.ticks.tick("idle", speeds[:, j], 0, capture_after=True)
-        self.stats.ticks = self.ticks.stats
-        return self.ticks.state
+    def idle(self, speeds: Tensor) -> None:
+        """The idle ticks at ``speeds`` (f32[2, n]) as one run."""
+        self._run(("idle", speeds.shape[1]), speeds, None)
 
+    def tick(self, kind: str, speeds: Tensor, f: int) -> None:
+        """One tick of ``kind`` at ``speeds`` (f32[2, 1]); a scan tick
+        takes scan frame ``f``'s injected draws."""
+        self._run(("tick", kind), speeds, f if kind == "scan" else None)
 
-class TickProgram(WorldProgram):
-    """The tick rollout's programs (``FusedWorld.rollout``): ``"idle"``,
-    motion only with each filter's previous estimate carried, and
-    ``"scan"``, motion and the scan update.  The host timer picks the
-    kind before the loop; the static state's timer is not kept (the
-    caller sets it).  ``first_rows`` are the rows of the ticks run before
-    the program; without them no output is written (the cadence
-    rollout's trailing idle ticks)."""
-
-    def __init__(self, fw, first_state, first_rows, caller_state,
-                 ticks: int, generator, draws, landmark_draws, graphs: bool,
-                 mesh=None, eager: int = 1):
-        super().__init__(self._tick, fw, first_state, first_rows,
-                         caller_state, ticks, generator, draws,
-                         landmark_draws, graphs, mesh,
-                         CaptureStats(frames=ticks, eager=eager))
-
-    def _tick(self, kind: str) -> None:
-        """One tick of ``kind`` on the static buffers; the timer is
-        forced so that only a scan tick fires."""
-        speed = self.inputs["speed"]
-        scan = kind == "scan"
-        new_state, row = self.fw.step(
-            self.state._replace(scan_timer=0.0), Command(speed[0], speed[1]),
-            self.generator, force_fire=scan,
-            noise=self.inputs.get("noise") if scan else None,
-            landmark_noise=self.inputs.get("landmark_noise") if scan
-            else None)
-        if row.fired != scan:
-            raise RuntimeError("tick program: an idle tick fired (the "
-                               "period is shorter than a tick)")
-        self._write_row(row)
-        self.copy_back(new_state)
-
-    def tick(self, kind: str, speed: Tensor, f: int,
-             capture_after: bool) -> None:
-        """One tick of ``kind`` at ``speed`` (f32[2]); a scan tick takes
-        scan frame ``f``'s injected draws."""
-        with trace.span("frame.fill"):
-            self.fill("speed", speed)
-            if kind == "scan":
-                self._fill_draws(f)
-        self.run(kind, capture_after)
+    def outputs_as(self, fired: Tensor):
+        """A copy of the ``len(fired)`` rows written, which later runs
+        leave alone."""
+        n = fired.shape[0]
+        outs = {name: buf[:n].clone() for name, buf in self.outputs.items()}
+        return world_compile.WorldOutputs(
+            fired=fired, pose=outs["pose"], grid_pose=outs.get("grid_pose"),
+            icp_pose=outs.get("icp_pose"), ekf_pose=outs.get("ekf_pose"),
+            n_eff=outs.get("n_eff"))
 
 
 _STREAMS: dict[int, torch.cuda.Stream] = {}
@@ -805,14 +737,6 @@ def on_capture_stream(device):
         main.wait_stream(stream)
 
 
-def _device_draws(draws, device):
-    """Per-frame numpy draws, every frame's moved to ``device`` once."""
-    if draws is None:
-        return None
-    with trace.span("rollout.draws_upload"):
-        return tuple(torch.from_numpy(np.array(x)).to(device) for x in draws)
-
-
 def check_graphs(mesh, device, what: str) -> None:
     """Raise unless a rollout on ``device`` (a mesh's first device) can be
     captured: a mesh over several distinct devices is not captured yet
@@ -827,21 +751,6 @@ def check_graphs(mesh, device, what: str) -> None:
                          f"{device}")
 
 
-@contextlib.contextmanager
-def _program_stream(dev, graphs: bool):
-    """The block on ``dev``'s capture stream (with ``graphs``), after the
-    caller's stream's work; the caller's stream waits for it after."""
-    if not graphs:
-        yield None
-        return
-    main = torch.cuda.current_stream(dev)
-    stream = capture_stream(dev)
-    stream.wait_stream(main)
-    with torch.cuda.stream(stream):
-        yield main
-    main.wait_stream(stream)
-
-
 def _hand_over(main, *trees) -> None:
     """Tensors made on the capture stream, used on the caller's stream
     from here on."""
@@ -852,7 +761,7 @@ def _hand_over(main, *trees) -> None:
                     t.record_stream(main)
 
 
-# the host counter of a rollout call that ran on a kept frame program
+# the host counter of a rollout call that ran on a kept program
 REUSED = "rollout.program_reused"
 
 
@@ -866,21 +775,107 @@ def _frames_max(fw, n_steps: int) -> int:
     return min(n_steps, int(n_steps * fw.dt / period) + 2)
 
 
+class _Call:
+    """What a captured rollout call starts from: the state placed
+    (``mesh``), its device and, with graphs, the caller's stream
+    ``main``, the commands as ``speeds`` (f32[2, n_steps]), the scan
+    ticks ``fire_idx`` and the timer after the call; then (:meth:`upload`)
+    the injected draws of every scan frame on the device."""
+
+    def __init__(self, fw, state, n_steps: int, commands, timer,
+                 graphs: bool, what: str):
+        self.state, self.mesh = fw._placed(state)
+        self.dev = self.state.pose.device
+        self.main = None
+        if graphs:
+            check_graphs(self.mesh, self.dev, what)
+            self.main = torch.cuda.current_stream(self.dev)
+        if commands is None:
+            commands = fw.commands_for(n_steps)
+        self.speeds = torch.stack([commands.speed_left,
+                                   commands.speed_right]).to(self.dev)
+        self.fire_idx, self.timer = fw.fire_schedule(
+            n_steps, self.state.scan_timer if timer is None else timer)
+
+    def upload(self, noise, landmark_noise) -> None:
+        """The injected draws, which must cover the call's scan frames."""
+        for given in (noise, landmark_noise):
+            if given is not None and len(given[0]) < self.fire_idx.size:
+                raise ValueError(f"injected draws for {len(given[0])} scan "
+                                 f"frames, the rollout scans "
+                                 f"{self.fire_idx.size} times")
+        with trace.span("rollout.draws_upload"):
+            self.draws, self.landmark_draws = world_compile.device_draws(
+                noise, landmark_noise, self.dev)
+
+    def scan_draws(self, f: int) -> tuple:
+        """Scan frame ``f``'s injected draws: ``(noise, landmark_noise)``."""
+        return (world_compile.frame_draws(self.draws, f),
+                world_compile.frame_draws(self.landmark_draws, f))
+
+    def on_stream(self):
+        """The block on the capture stream, with graphs."""
+        return contextlib.nullcontext() if self.main is None \
+            else on_capture_stream(self.dev)
+
+    def finish(self, prog: FrameProgram, scans: int, fired: Tensor):
+        """The call's returned state and outputs, handed to the caller's
+        stream; the call's draws let go."""
+        prog.draws = prog.landmark_draws = None
+        last = prog.state._replace(
+            scan_timer=self.timer,
+            scan_counter=self.state.scan_counter + scans)
+        result = prog.outputs_as(fired)
+        _hand_over(self.main, last, result)
+        return last, result
+
+
+def _program_for(fw, call: _Call, seed: int, n_steps: int, rows: int,
+                 graphs: bool, stats: CaptureStats, lead):
+    """``(program, runs)``: the program a call that writes ``rows`` output
+    rows runs on, and how many of its frames or ticks are done.  The
+    kept program (``fw.frame_program``) when it takes the call (counted
+    as :data:`REUSED`), restarted, with none done; else a new program
+    built from ``lead(generator)``, the eager run of the call's work up
+    to and including its first scan tick, which returns the state after
+    it and its rows.  The kept program goes before the build (its pool
+    and buffers would stack on the new one's); the new one is kept when
+    its lead held a scan tick, after which no leaf of the caller's
+    state is in the static state where a scan writes afresh."""
+    prog = fw.frame_program
+    if prog is not None and prog.takes(call.state, call.mesh, graphs,
+                                       call.draws, call.landmark_draws,
+                                       rows):
+        trace.count(REUSED, 1)
+        prog.start(seed, call.draws, call.landmark_draws, stats)
+        return prog, 0
+    fw.frame_program = None
+    gen = fw._generator(seed, call.mesh)
+    first, first_rows = lead(gen)
+    stats.eager = len(first_rows)
+    prog = FrameProgram(fw, first, first_rows, call.state,
+                        max(rows, _frames_max(fw, n_steps)), gen, call.draws,
+                        call.landmark_draws, graphs, call.mesh, stats)
+    if any(row.fired for row in first_rows):
+        fw.frame_program = prog
+    return prog, len(first_rows)
+
+
 def run_program(fw, state, n_steps: int, seed: int = 0, commands=None,
                 initial_timer: Optional[float] = None, noise=None,
                 landmark_noise=None, graphs: bool = True):
-    """``fw.rollout_cadence`` through the frame program, on one device or
+    """``fw.rollout_cadence`` through the world program, on one device or
     on a mesh whose entries are all one device: with ``graphs`` each
-    frame after the first of its idle count is a CUDA graph replay (on
-    CUDA only); without, the program runs eagerly on any device (the CPU
+    run after the first of its key is a CUDA graph replay (on CUDA
+    only); without, the program runs eagerly on any device (the CPU
     tests hold it to the eager loop).  A call handed the state the last
     call on ``fw`` returned runs on the kept program
     (``fw.frame_program``); any other state builds one, frame 0 run
     eagerly on it, which replaces the kept one.  ``state`` is consumed:
     the state returned shares its storage.  The trailing idle ticks after
-    the last scan run through the kept program's tick program, and a
-    call in which no scan fires through the tick programs
-    (:func:`run_ticks`).  Sets ``fw.capture_stats``, the call's own.
+    the last scan are one run; a call in which no scan fires is the tick
+    rollout's (:func:`run_ticks`).  Sets ``fw.capture_stats``, the call's
+    own.
 
     Traced as the call ``rollout_cadence`` (``utils/trace.py``): spans
     ``rollout.draws_upload``, ``frame.eager``, ``frame.capture``,
@@ -888,137 +883,89 @@ def run_program(fw, state, n_steps: int, seed: int = 0, commands=None,
     ``rollout.hand_over``, the counter ``rollout.frames``, and
     :data:`REUSED` (1) in a call on the kept program."""
     with trace.call("rollout_cadence"):
-        state, mesh = fw._placed(state)
-        dev = state.pose.device
-        if graphs:
-            check_graphs(mesh, dev, "the frame program")
-        if commands is None:
-            commands = fw.commands_for(n_steps)
-        fire_idx, timer = fw.fire_schedule(
-            n_steps,
-            state.scan_timer if initial_timer is None else initial_timer)
+        call = _Call(fw, state, n_steps, commands, initial_timer, graphs,
+                     "the frame program")
+        fire_idx, speeds = call.fire_idx, call.speeds
         if fire_idx.size == 0:
             return run_ticks(fw, state, n_steps, seed, commands,
                              graphs=graphs)
+        call.upload(noise, landmark_noise)
         frames = len(fire_idx)
         trace.count("rollout.frames", frames)
-        speeds = torch.stack([commands.speed_left,
-                              commands.speed_right]).to(dev)
-        draws = _device_draws(noise, dev)
-        landmark_draws = _device_draws(landmark_noise, dev)
         idle = np.diff(fire_idx, prepend=-1) - 1  # idle ticks before each scan
 
-        with _program_stream(dev, graphs) as main:
-            prog = fw.frame_program
-            if prog is not None and prog.takes(state, mesh, graphs, draws,
-                                               landmark_draws, frames):
-                trace.count(REUSED, 1)
-                prog.start(seed, frames, draws, landmark_draws)
-                first = 0
-            else:
-                # the kept program's pool and buffers go before the build
-                fw.frame_program = None
-                gen = fw._generator(seed, mesh)
-                with trace.span("frame.eager"):
-                    built, row = fw.frame(
-                        state, speeds[:, :fire_idx[0] + 1], gen,
-                        None if draws is None else gs_model.UpdateNoise(
-                            *(x[0] for x in draws)),
-                        None if landmark_draws is None else tuple(
-                            x[0] for x in landmark_draws), mesh)
-                prog = fw.frame_program = FrameProgram(
-                    fw, built, row, state,
-                    max(frames, _frames_max(fw, n_steps)), frames, gen, draws,
-                    landmark_draws, graphs, mesh)
-                first = 1
-            for f in range(first, frames):
+        def frame_0(gen):
+            with trace.span("frame.eager"):
+                built, row = fw.frame(
+                    call.state, speeds[:, :fire_idx[0] + 1], gen,
+                    *call.scan_draws(0), call.mesh)
+            return built, [row]
+
+        with call.on_stream():
+            prog, done = _program_for(fw, call, seed, n_steps, frames,
+                                      graphs, CaptureStats(frames=frames),
+                                      frame_0)
+            for f in range(done, frames):
                 k = int(idle[f])
                 e = int(fire_idx[f])
                 prog.frame(k, speeds[:, e - k:e + 1], f)
-            last = prog.state
             trailing = n_steps - 1 - int(fire_idx[-1])
-            if trailing:  # idle ticks: the tick rollout's idle program
+            if trailing:
                 with trace.span("rollout.ticks"):
-                    last = prog.idle_ticks(speeds[:, n_steps - trailing:])
-            prog.draws = prog.landmark_draws = None  # the call's own
-            last = last._replace(
-                scan_timer=timer,
-                scan_counter=state.scan_counter + frames)
-            result = prog.outputs_as(
-                torch.ones(frames, dtype=torch.bool, device=dev), copy=True)
-            _hand_over(main, last, result)
+                    prog.idle(speeds[:, n_steps - trailing:])
+            out = call.finish(prog, frames, torch.ones(
+                frames, dtype=torch.bool, device=call.dev))
         fw.capture_stats = prog.stats
-        return last, result
+        return out
 
 
 def run_ticks(fw, state, n_steps: int, seed: int = 0, commands=None,
               noise=None, landmark_noise=None, graphs: bool = True):
-    """``fw.rollout`` through the tick programs, on one device or on a
+    """``fw.rollout`` through the world program, on one device or on a
     mesh whose entries are all one device: the host timer gives each
-    tick's kind before the loop.  The ticks up to the first scan tick run
-    eagerly on ``state``; after them each tick is a replay of its kind's
-    graph (with ``graphs``, on CUDA only; the first of each kind runs
-    eagerly, then is captured).  ``noise`` and ``landmark_noise`` hold
-    each scan frame's draws.  Sets ``fw.capture_stats``.
+    tick's kind before the loop, and each tick is a run of its kind
+    (with ``graphs`` a replay after the first, on CUDA only).  The
+    program is kept and taken as :func:`run_program`'s is; a call that
+    builds one runs its ticks up to and including the first scan tick
+    eagerly on ``state``.  ``state`` is consumed: the state returned
+    shares its storage.  ``noise`` and ``landmark_noise`` hold each scan
+    frame's draws.  Sets ``fw.capture_stats``.
 
     Traced as the call ``rollout`` (inside ``rollout_cadence``, a span of
     it), with :func:`run_program`'s spans and ``rollout.frames`` counting
     ticks."""
     with trace.call("rollout"):
-        state, mesh = fw._placed(state)
-        dev = state.pose.device
-        if graphs:
-            check_graphs(mesh, dev, "the tick program")
-        if commands is None:
-            commands = fw.commands_for(n_steps)
-        fire_idx, timer = fw.fire_schedule(n_steps, state.scan_timer)
+        call = _Call(fw, state, n_steps, commands, None, graphs,
+                     "the tick program")
+        call.upload(noise, landmark_noise)
+        fire_idx, speeds = call.fire_idx, call.speeds
         fired = np.zeros(n_steps, bool)
         fired[fire_idx] = True
-        kinds = ["scan" if x else "idle" for x in fired]
         trace.count("rollout.frames", n_steps)
-        gen = fw._generator(seed, mesh)
-        speeds = torch.stack([commands.speed_left,
-                              commands.speed_right]).to(dev)
-        draws = _device_draws(noise, dev)
-        landmark_draws = _device_draws(landmark_noise, dev)
-        for given in (draws, landmark_draws):
-            if given is not None and len(given[0]) < fire_idx.size:
-                raise ValueError(f"injected draws for {len(given[0])} scan "
-                                 f"frames, the rollout scans {fire_idx.size} "
-                                 "times")
+        lead = int(fire_idx[0]) + 1 if fire_idx.size else n_steps
 
-        def frame_draws(all_draws, f):
-            if all_draws is None or f >= len(all_draws[0]):
-                return None
-            return tuple(x[f] for x in all_draws)
-
-        # eager up to the first scan tick: from then on no leaf of the
-        # caller's state is in the static state where a tick writes afresh
-        lead = int(fire_idx[0]) + 1 if fire_idx.size else 1
-        later = collections.Counter(kinds[lead:])
-        with _program_stream(dev, graphs) as main:
-            first, rows = state, []
+        def lead_ticks(gen):
+            first, rows = call.state, []
             for i in range(lead):
-                grid_noise = frame_draws(draws, 0) if fired[i] else None
+                noise, landmark_noise = (call.scan_draws(0) if fired[i]
+                                         else (None, None))
                 with trace.span("frame.eager"):
                     first, row = fw.step(
                         first, Command(speeds[0, i], speeds[1, i]), gen,
-                        noise=None if grid_noise is None
-                        else gs_model.UpdateNoise(*grid_noise),
-                        landmark_noise=frame_draws(landmark_draws, 0)
-                        if fired[i] else None)
+                        noise=noise, landmark_noise=landmark_noise)
                 rows.append(row)
-            prog = TickProgram(fw, first, rows, state, n_steps, gen, draws,
-                               landmark_draws, graphs, mesh, eager=lead)
-            f = int(fired[:lead].sum())
-            for i in range(lead, n_steps):
-                later[kinds[i]] -= 1
-                prog.tick(kinds[i], speeds[:, i], f,
-                          capture_after=graphs and later[kinds[i]] > 0)
+            return first, rows
+
+        with call.on_stream():
+            prog, done = _program_for(fw, call, seed, n_steps, n_steps,
+                                      graphs, CaptureStats(frames=n_steps),
+                                      lead_ticks)
+            f = int(fired[:done].sum())
+            for i in range(done, n_steps):
+                prog.tick("scan" if fired[i] else "idle", speeds[:, i:i + 1],
+                          f)
                 f += int(fired[i])
-            last = prog.state._replace(
-                scan_timer=timer, scan_counter=state.scan_counter + int(f))
-            result = prog.outputs_as(torch.from_numpy(fired).to(dev))
-            _hand_over(main, last, result)
+            out = call.finish(prog, int(fire_idx.size),
+                              torch.from_numpy(fired).to(call.dev))
         fw.capture_stats = prog.stats
-        return last, result
+        return out

@@ -109,6 +109,30 @@ class _Row(NamedTuple):
     n_eff: Tensor
 
 
+def device_draws(noise, landmark_noise, device) -> tuple:
+    """Injected draws of every scan frame (arrays with a leading frame
+    axis) moved to ``device`` once: grid SLAM's as ``UpdateNoise`` and
+    the landmark sensor's ``(noise_a, noise_d)``; None stays None."""
+    def moved(draws):
+        return None if draws is None else tuple(
+            torch.from_numpy(np.array(x)).to(device) for x in draws)
+
+    noise = moved(noise)
+    return (None if noise is None else gs_model.UpdateNoise(*noise),
+            moved(landmark_noise))
+
+
+def frame_draws(draws, f: int):
+    """Scan frame ``f``'s draws of :func:`device_draws`' ``noise`` or
+    ``landmark_noise``, of the same type; None without draws or past
+    their last frame."""
+    if draws is None or f >= len(draws[0]):
+        return None
+    picked = [x[f] for x in draws]
+    return (gs_model.UpdateNoise(*picked)
+            if isinstance(draws, gs_model.UpdateNoise) else tuple(picked))
+
+
 def _stack_outputs(rows: list, device) -> WorldOutputs:
     def stacked(name):
         vals = [getattr(r, name) for r in rows]
@@ -143,8 +167,8 @@ class FusedWorld:
     # the last frame-program rollout's graph_capture.CaptureStats
     capture_stats: object = dataclasses.field(default=None, repr=False,
                                               compare=False)
-    # the cadence rollout's graph_capture.FrameProgram, kept for the next
-    # call on the state the last one returned; not copied by replace()
+    # the captured rollouts' graph_capture.FrameProgram, kept for the
+    # next call on the state the last one returned; not copied by replace()
     frame_program: object = dataclasses.field(default=None, init=False,
                                               repr=False, compare=False)
 
@@ -371,7 +395,10 @@ class FusedWorld:
         ``capture`` as :meth:`rollout_cadence`'s: where it captures, each
         tick is one replay of an idle tick's or a scan tick's CUDA graph
         (``graph/capture.run_ticks``, the counterpart of
-        ``jax.jit(fw.rollout)``), bitwise the eager loop."""
+        ``jax.jit(fw.rollout)``), bitwise the eager loop, on the world
+        program that the cadence rollout keeps too
+        (:attr:`frame_program`); a state handed to it is consumed, as
+        there."""
         if self._graphs_for(state, capture, "rollout"):
             from slamrs_tpu_torch.graph import capture as graph_capture
 
@@ -382,19 +409,16 @@ class FusedWorld:
             commands = self.commands_for(n_steps)
         state, mesh = self._placed(state)
         gen = self._generator(seed, mesh)
+        noise, landmark_noise = device_draws(noise, landmark_noise,
+                                             self._out_device(mesh))
         rows = []
         frame = 0
         for i in range(n_steps):
             # the next scan frame's draws (None past the last one)
-            lm = (self._frame_draws(landmark_noise, frame)
-                  if landmark_noise is not None
-                  and frame < len(landmark_noise[0]) else None)
-            grid = (gs_model.UpdateNoise(*self._frame_draws(noise, frame))
-                    if noise is not None and frame < len(noise[0])
-                    else None)
             state, row = self.step(
                 state, Command(commands.speed_left[i], commands.speed_right[i]),
-                generator=gen, noise=grid, landmark_noise=lm)
+                generator=gen, noise=frame_draws(noise, frame),
+                landmark_noise=frame_draws(landmark_noise, frame))
             frame += int(row.fired)
             rows.append(row)
         return state, _stack_outputs(rows, self._out_device(mesh))
@@ -419,13 +443,6 @@ class FusedWorld:
                 raise
             return False
         return True
-
-    def _frame_draws(self, draws, f: int):
-        """Frame ``f`` of per-frame numpy draws, as tensors (None stays)."""
-        if draws is None:
-            return None
-        return tuple(torch.from_numpy(np.array(x[f])).to(self.device)
-                     for x in draws)
 
     def fire_schedule(self, n_steps: int, timer: float
                       ) -> tuple[np.ndarray, float]:
@@ -469,13 +486,14 @@ class FusedWorld:
         replay that fails raises.  Both draw the same numbers and give the
         same bits.
 
-        The captured route keeps its frame program on the world
-        (:attr:`frame_program`): a call handed the state the last call
-        returned replays every frame on it, with no eager frame and no
-        capture of a graph it holds.  A state handed to a captured
-        rollout is consumed, as the fused path's in-place updates consume
-        theirs (``models/gridslam.py``): the state returned shares its
-        storage, and the old state must not be used again.
+        The captured route keeps its world program on the world
+        (:attr:`frame_program`, which :meth:`rollout` shares): a call
+        handed the state the last call returned replays every frame on
+        it, with no eager frame and no capture of a graph it holds.  A
+        state handed to a captured rollout is consumed, as the fused
+        path's in-place updates consume theirs (``models/gridslam.py``):
+        the state returned shares its storage, and the old state must not
+        be used again.
         """
         if self._graphs_for(state, capture, "rollout_cadence"):
             from slamrs_tpu_torch.graph import capture as graph_capture
@@ -494,15 +512,15 @@ class FusedWorld:
 
         state, mesh = self._placed(state)
         gen = self._generator(seed, mesh)
+        noise, landmark_noise = device_draws(noise, landmark_noise,
+                                             self._out_device(mesh))
         speeds = torch.stack([commands.speed_left, commands.speed_right])
         rows = []
         start = 0
         for f, e in enumerate(fire_idx):
-            frame_noise = None if noise is None else gs_model.UpdateNoise(
-                *self._frame_draws(noise, f))
             state, row = self.frame(
-                state, speeds[:, start:e + 1], gen, frame_noise,
-                self._frame_draws(landmark_noise, f), mesh)
+                state, speeds[:, start:e + 1], gen, frame_draws(noise, f),
+                frame_draws(landmark_noise, f), mesh)
             rows.append(row)
             start = e + 1
         state = self.idle(state, speeds[:, start:], mesh)

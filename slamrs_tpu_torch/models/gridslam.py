@@ -155,12 +155,12 @@ def check_supported(config: GridSlamConfig) -> None:
     if config.resample_cow == "deferred":
         raise ValueError(
             "resample_cow='deferred' (the JAX package's non-aliased band "
-            "kernel, a recorded dead end) is not ported (ROADMAP Queue 1 "
-            "item 5); use None or 'staged'")
+            "kernel, a recorded dead end) is not ported (ROADMAP.md, "
+            "'Port coverage'); use None or 'staged'")
     if config.resample_cow not in (None, True, False, "staged", "tiled"):
         raise ValueError(f"resample_cow must be None, True, False, 'staged' "
                          f"or 'tiled', got {config.resample_cow!r} "
-                         "(ROADMAP Queue 1 item 5)")
+                         "(ROADMAP.md, 'Port coverage')")
     if config.grid_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"grid_dtype must be float32 or bfloat16, got "
                          f"{config.grid_dtype!r}")

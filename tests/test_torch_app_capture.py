@@ -404,8 +404,7 @@ def test_program_refuses_a_changed_input_shape():
 
 def test_programs_free_with_their_owner():
     """No reference cycle holds a program: the App's node programs and a
-    rollout's frame program (kept on its world, with its tick program)
-    go when their owner does, without the cyclic collector, which could
+    rollout's world program (kept on its world) go when their owner does, without the cyclic collector, which could
     otherwise run inside a later capture, where destroying a graph
     invalidates that capture."""
     import gc
@@ -429,11 +428,12 @@ def test_programs_free_with_their_owner():
         state, _ = capture.run_program(fw, fw.init(), 20, graphs=False)
         capture.run_program(fw, state, 20, graphs=False)
         kept = weakref.ref(fw.frame_program)
-        assert kept().ticks is not None  # 20 ticks end on idle ticks
+        # 20 ticks end on idle ticks: the program holds their run's input
+        assert any(isinstance(name[1], tuple) and name[1][0] == "idle"
+                   for name in kept().inputs)
         del fw, state
         assert kept() is None
         assert not [o for o in gc.get_objects()
-                    if isinstance(o, (capture.FrameProgram,
-                                      capture.TickProgram))]
+                    if isinstance(o, capture.FrameProgram)]
     finally:
         gc.enable()

@@ -124,6 +124,12 @@ def _draws(fw, worlds, n_steps, seed, frames=None):
     return dict(noise=noise, landmark_noise=lm)
 
 
+def _trailing(fw, ticks, timer) -> int:
+    """1 when ``ticks`` ticks from ``timer`` end on idle ticks, which the
+    program runs as one ``("idle", n)`` run, else 0."""
+    return int(fw.fire_schedule(ticks, timer)[0][-1] < ticks - 1)
+
+
 def _assert_same_run(a, b):
     (sa, oa), (sb, ob) = a, b
     la, lb = capture._tensor_leaves(sa), capture._tensor_leaves(sb)
@@ -151,7 +157,9 @@ def test_frame_program_equals_the_eager_loop(route, draws):
                                   graphs=False, **kw)
     _assert_same_run(eager, program)
     stats = fw.capture_stats
-    assert stats.frames == eager[1].fired.shape[0] == stats.eager_frames
+    assert stats.frames == eager[1].fired.shape[0]
+    # without graphs every run is eager: each frame, the trailing ticks'
+    assert stats.eager == stats.frames + _trailing(fw, ticks, 0.0)
     assert stats.graphs == 0 and stats.replays == 0
     if worlds:
         assert eager[1].pose.shape[1] == worlds[0]
@@ -207,6 +215,7 @@ def test_kept_program_carries_calls_as_the_eager_loop(route, draws):
         kw = (_draws(fw, worlds, ticks, 20 + seed,
                      frames=capture._frames_max(fw, ticks))
               if draws == "injected" else {})
+        trailing = _trailing(fw, ticks, state.scan_timer)
         eager = fw.rollout_cadence(eager_state, ticks, seed=seed,
                                    capture=False, **kw)
         state, out = capture.run_program(fw, state, ticks, seed=seed,
@@ -220,7 +229,7 @@ def test_kept_program_carries_calls_as_the_eager_loop(route, draws):
         kept = fw.frame_program
         stats = fw.capture_stats
         assert stats.frames == out.fired.shape[0]
-        assert stats.eager_frames == stats.frames and stats.replays == 0
+        assert stats.eager == stats.frames + trailing and stats.replays == 0
         assert all(a is b for a, b in zip(
             capture._tensor_leaves(state), capture._tensor_leaves(kept.state)))
         if call == 0:
@@ -368,7 +377,8 @@ def test_captured_equals_eager_on_the_card(route, draws, dev):
     _assert_same_run(eager, captured)
     stats = fw.capture_stats
     assert stats.graphs >= 1 and stats.replays >= 1
-    assert stats.replays + stats.eager_frames == stats.frames
+    assert stats.replays + stats.eager \
+        == stats.frames + _trailing(fw, ticks, 0.0)
     for name in before:  # replays count what the eager frames count
         assert after[name] - mid[name] == mid[name] - before[name], name
 
@@ -403,13 +413,10 @@ def test_kept_program_of_an_icp_only_world_on_the_card(dev):
     fw = tcompile.compile_world(config, device=dev)
     fresh = tcompile.compile_world(config, device=dev)
     assert fw.grid_config is None and fw.icp_config is not None
-    for call, (stats, reused) in enumerate(
+    for call, (stats, reused, runs) in enumerate(
             _kept_calls(fw, fresh, (), 90, False, (3, 8, 5, 1))):
         assert reused == (call > 0)
-        assert stats.replays + stats.eager == stats.frames
+        assert stats.replays + stats.eager == runs
         if call >= 2:
             assert stats.eager == 0 and stats.capture_seconds == 0
-            assert stats.replays == stats.frames
-            if stats.ticks is not None:
-                assert stats.ticks.eager == 0
-                assert stats.ticks.capture_seconds == 0
+            assert stats.replays == runs and stats.ticks is None

@@ -39,7 +39,10 @@ local-first resample on the card slot for slot its CPU result.  Host mode
 an App run on the card against the same on the CPU under injected draws;
 the App's node programs as CUDA graphs bitwise the op-by-op App on every
 preset and the replay, and two firing ticks in one frame publishing a
-scan each.
+scan each.  Captured rollouts: meshes and the tick rollout bitwise the
+eager loops; the world program kept across calls of either rollout
+(every frame and tick a replay once its keys are met) and shared by
+cadence and tick calls on one carried state.
 Robot I/O: the FileLoader's Scan on the card, K4 ten times per ICP
 update of a short ``neato_replay.yaml`` replay, and the virtual robot's
 card scans within 1 mm of its CPU scans on fewer than 1e-3 of the beams.
@@ -1127,6 +1130,12 @@ def test_robot_process_exits_0_at_sigint_on_the_card(dev):
 # ---- sharded frames and the tick rollout as CUDA graphs -------------------
 
 
+def _split_keys(stats) -> list:
+    """The graph keys of runs cut at the overflow read: ``(key, part)``."""
+    return [k for k in stats.launches
+            if isinstance(k, tuple) and k[1] in ("head", "tail", "row")]
+
+
 def _run_counted(fn):
     """``fn()`` with the device synchronized after; returns its result and
     the wrappers' launches it made."""
@@ -1149,6 +1158,7 @@ def test_mesh_captured_equals_eager_on_the_card(route, draws, dev,
     """A mesh whose entries are all the card, ``capture=True`` against the
     eager mesh loop: state and outputs bitwise, the same launches; the
     local relabel reads its overflow flags once a frame."""
+    from test_torch_capture import _trailing
     from test_torch_mesh_capture import (MESH_ROUTES, _assert_same_run,
                                          _draws, _mesh, _Reads, _spill_cap,
                                          _world)
@@ -1167,8 +1177,9 @@ def test_mesh_captured_equals_eager_on_the_card(route, draws, dev,
     assert counts == eager_counts
     stats = fw.capture_stats
     frames = int(eager[1].fired.shape[0])
-    assert stats.replays >= 1 and stats.replays + stats.eager == frames
-    split = [k for k in stats.launches if not isinstance(k, int)]
+    assert stats.replays >= 1 and stats.replays + stats.eager \
+        == frames + _trailing(fw, ticks, 0.0)
+    split = _split_keys(stats)
     assert reads.reads == (frames if "local" in route else 0)
     assert bool(split) == ("local" in route)
 
@@ -1192,8 +1203,8 @@ def test_tick_capture_equals_eager_on_the_card(route, draws, dev):
     _assert_same_run(eager, captured)
     assert counts == eager_counts
     stats = fw.capture_stats
-    # a "local" mesh's scan tick is cut at its overflow read: (kind, part)
-    assert {k if isinstance(k, str) else k[0] for k in stats.launches} \
+    # a "local" mesh's scan tick is cut at its overflow read: (key, part)
+    assert {k[1] if k[0] == "tick" else k[0][1] for k in stats.launches} \
         == {"idle", "scan"}
     assert stats.replays + stats.eager == ticks and stats.replays > 0
 
@@ -1201,29 +1212,33 @@ def test_tick_capture_equals_eager_on_the_card(route, draws, dev):
 # ---- the frame program kept across rollout calls --------------------------
 
 
-def _kept_calls(fw, fresh, worlds, ticks, injected, seeds):
-    """Carried ``rollout_cadence`` calls on ``fw`` (its kept program),
-    each held bitwise to ``fresh`` (a world whose program is built anew
-    every call) run on a copy of the same input state with the same seed
-    and draws.  Yields each call's ``CaptureStats`` and whether it ran on
-    the kept program."""
+def _kept_calls(fw, fresh, worlds, ticks, injected, seeds,
+                method="rollout_cadence"):
+    """Carried ``method`` calls on ``fw`` (its kept program), each held
+    bitwise to ``fresh`` (a world whose program is built anew every call)
+    run on a copy of the same input state with the same seed and draws.
+    Yields each call's ``CaptureStats``, whether it ran on the kept
+    program, and its runs: its frames (or ticks) and the trailing idle
+    ticks' one run."""
     from slamrs_tpu_torch.graph import capture
     from slamrs_tpu_torch.utils import trace
-    from test_torch_capture import _assert_same_run, _draws
+    from test_torch_capture import _assert_same_run, _draws, _trailing
 
     state = fw.init(worlds)
-    frames = capture._frames_max(fw, ticks)
+    frames = ticks if method == "rollout" else capture._frames_max(fw, ticks)
     for seed in seeds:
         kw = (_draws(fw, worlds, ticks, 30 + seed, frames=frames)
               if injected else {})
         given = capture._map_tensors(lambda x: x.clone(), state)
-        state, out = fw.rollout_cadence(state, ticks, seed=seed, **kw)
+        trailing = (0 if method == "rollout"
+                    else _trailing(fw, ticks, state.scan_timer))
+        state, out = getattr(fw, method)(state, ticks, seed=seed, **kw)
         reused = trace.calls()[-1]["counts"].get(capture.REUSED) == 1
         stats = fw.capture_stats
-        _assert_same_run(fresh.rollout_cadence(given, ticks, seed=seed, **kw),
+        _assert_same_run(getattr(fresh, method)(given, ticks, seed=seed, **kw),
                          (state, out))
-        assert fresh.capture_stats.eager >= 1  # frame 0 on a new program
-        yield stats, reused
+        assert fresh.capture_stats.eager >= 1  # the lead on a new program
+        yield stats, reused, stats.frames + trailing
 
 
 @pytest.mark.parametrize("draws", ["seed", "injected"])
@@ -1241,15 +1256,12 @@ def test_kept_frame_program_replays_every_frame_on_the_card(route, draws,
     fresh, _ = _world(route, dev)
     calls = _kept_calls(fw, fresh, worlds, _ticks(route, card=True),
                         draws == "injected", (3, 8, 5, 1))
-    for call, (stats, reused) in enumerate(calls):
+    for call, (stats, reused, runs) in enumerate(calls):
         assert reused == (call > 0)
-        assert stats.replays + stats.eager == stats.frames
+        assert stats.replays + stats.eager == runs
         if call >= 2:
             assert stats.eager == 0 and stats.capture_seconds == 0
-            assert stats.replays == stats.frames
-            if stats.ticks is not None:
-                assert stats.ticks.eager == 0
-                assert stats.ticks.capture_seconds == 0
+            assert stats.replays == runs and stats.ticks is None
 
 
 @pytest.mark.parametrize("draws", ["seed", "injected"])
@@ -1267,14 +1279,54 @@ def test_kept_local_mesh_program_replays_on_the_card(draws, dev,
     graphs = 0
     calls = _kept_calls(fw, fresh, (w,), 90, draws == "injected",
                         (3, 8, 5, 1))
-    for call, (stats, reused) in enumerate(calls):
+    for call, (stats, reused, runs) in enumerate(calls):
         assert reused == (call > 0)
-        assert any(not isinstance(k, int) for k in stats.launches)
+        assert _split_keys(stats)
         if call >= 2:
-            assert stats.eager == 0 and stats.replays == stats.frames
+            assert stats.eager == 0 and stats.replays == runs
             assert (stats.capture_seconds == 0) \
                 == (len(stats.launches) == graphs)
         graphs = len(stats.launches)
+
+
+@pytest.mark.parametrize("draws", ["seed", "injected"])
+@pytest.mark.parametrize("route", ["fused", "dda", "icp", "ekf", "local_2x4"])
+def test_kept_tick_program_replays_every_tick_on_the_card(route, draws, dev):
+    """The tick rollout keeps its program as the cadence rollout does:
+    from the second carried call on, every tick is a replay (no eager
+    tick, no capture), each call the bits of a fresh program on the same
+    input state and seed."""
+    from test_torch_mesh_capture import TICK_ROUTES, _mesh, _world
+
+    kind, grid, mesh, worlds = TICK_ROUTES[route]
+    fw, fresh = (_world(kind, grid, None if mesh is None
+                        else _mesh(*mesh, dev), dev) for _ in range(2))
+    ticks = 120 if kind == "dda_yaml" else 60
+    calls = _kept_calls(fw, fresh, worlds, ticks, draws == "injected",
+                        (3, 8, 5), method="rollout")
+    for call, (stats, reused, runs) in enumerate(calls):
+        assert reused == (call > 0)
+        assert stats.replays + stats.eager == runs == ticks
+        if call >= 1:
+            assert stats.eager == 0 and stats.capture_seconds == 0
+
+
+@pytest.mark.parametrize("route", ["fused", "icp", "ekf", "local_2x4"])
+def test_cadence_and_tick_calls_share_the_kept_program_on_the_card(route,
+                                                                    dev):
+    """Cadence, tick and cadence calls on one carried state, captured:
+    each the bits of the eager loops continued; the last cadence call
+    runs on the program the tick call built."""
+    from test_torch_mesh_capture import (TICK_ROUTES, _interleaved, _mesh,
+                                         _world)
+
+    kind, grid, mesh, worlds = TICK_ROUTES[route]
+    fw = _world(kind, grid, None if mesh is None else _mesh(*mesh, dev), dev)
+
+    def run(method, state, ticks, seed):
+        return getattr(fw, method)(state, ticks, seed=seed, capture=True)
+
+    assert _interleaved(fw, worlds, 60, run) == [False, False, True]
 
 
 def test_kept_fleet_program_holds_its_memory_on_the_card(dev):

@@ -18,9 +18,11 @@ writing its blocks in place).  Meshes are ``[cpu] x n``.
 * the ``"gather"`` mesh against the JAX package's sharded rollout on its
   8 virtual CPU devices under the JAX draws, at
   ``test_update_fleet_mesh_matches_jax``'s gates;
+* the cadence rollout's trailing idle ticks as one ``("idle", n)`` run;
 * the tick programs bitwise ``FusedWorld.rollout``'s eager loop (fused,
   dda, ICP, EKF, and a ``"local"`` mesh), and the fused one against the
-  JAX package's ``fw.rollout`` under its draws;
+  JAX package's ``fw.rollout`` under its draws; kept across tick calls,
+  and shared by cadence and tick calls on one carried state;
 * ``capture=True`` raises on the CPU (``ValueError``) and on a mesh over
   several distinct devices (``NotImplementedError``).
 
@@ -99,10 +101,11 @@ def _mesh(n, particle_axis, device=CPU):
                             devices=[torch.device(device)] * n)
 
 
-def _draws(fw, worlds, n_steps, seed):
-    """numpy draws of every scan frame, as ``noise=`` and
-    ``landmark_noise=`` take them."""
-    frames = fw.fire_schedule(n_steps, 0.0)[0].size
+def _draws(fw, worlds, n_steps, seed, frames=None):
+    """numpy draws of every scan frame (or of ``frames``), as ``noise=``
+    and ``landmark_noise=`` take them."""
+    if frames is None:
+        frames = fw.fire_schedule(n_steps, 0.0)[0].size
     rng = np.random.default_rng(seed)
     out = {}
     if fw.grid_config is not None:
@@ -152,6 +155,20 @@ class _Reads:
         monkeypatch.setattr(tres, "_read_overflow", read)
 
 
+class _Runs:
+    """The keys of the programs' runs (``Program.run``), in order."""
+
+    def __init__(self, monkeypatch):
+        self.keys = []
+        orig = capture.Program.run
+
+        def run(prog, key):
+            self.keys.append(key)
+            return orig(prog, key)
+
+        monkeypatch.setattr(capture.Program, "run", run)
+
+
 def _spill_cap(monkeypatch, cap):
     if cap is not None:
         monkeypatch.setattr(tgs, "resample_fleet", functools.partial(
@@ -175,8 +192,9 @@ def test_mesh_program_equals_the_eager_mesh_rollout(route, draws,
     _assert_same_run(eager, program)
     frames = int(eager[1].fired.shape[0])
     stats = fw.capture_stats
-    assert frames == 4 and stats.frames == frames == stats.eager_frames
-    assert stats.ticks is not None and stats.ticks.eager == TICKS - 25
+    assert frames == 4 and stats.frames == frames
+    assert stats.eager == frames + 1  # and the trailing idle ticks' run
+    assert stats.ticks is None
     local = "local" in route
     # one overflow read a frame on "local" (frame 0 before the program)
     assert reads.reads == (frames if local else 0)
@@ -185,6 +203,20 @@ def test_mesh_program_equals_the_eager_mesh_rollout(route, draws,
         assert any(reads.flags), "no overflow fallback was taken"
     elif local:
         assert not any(reads.flags)
+
+
+@pytest.mark.parametrize("route", list(MESH_ROUTES))
+def test_trailing_idle_ticks_are_one_run(route, monkeypatch):
+    """The two idle ticks after the last scan are one run of the program,
+    keyed ``("idle", 2)``, after frames 1-3 (frame 0 builds it)."""
+    kind, grid, n, axis, w, cap = MESH_ROUTES[route]
+    _spill_cap(monkeypatch, cap)
+    fw = _world(kind, grid, _mesh(n, axis))
+    runs = _Runs(monkeypatch)
+    capture.run_program(fw, fw.init((w,)), TICKS, seed=3, graphs=False)
+    idle = np.diff(fw.fire_schedule(TICKS, 0.0)[0], prepend=-1) - 1
+    assert runs.keys == [*(int(k) for k in idle[1:]), ("idle", TICKS - 25)]
+    assert fw.capture_stats.replays + fw.capture_stats.eager == 4 + 1
 
 
 def test_mesh_program_resumes_and_splits_one_read_a_frame(monkeypatch):
@@ -285,6 +317,74 @@ def test_tick_programs_equal_the_eager_rollout(route, draws):
     stats = fw.capture_stats
     assert stats.frames == ticks and stats.eager == ticks
     assert eager[1].pose.shape[0] == ticks
+
+
+@pytest.mark.parametrize("draws", ["seed", "injected"])
+@pytest.mark.parametrize("route", list(TICK_ROUTES))
+def test_tick_program_is_kept_across_calls(route, draws, monkeypatch):
+    """A tick rollout handed the state the last one returned runs on the
+    kept program (``rollout.program_reused``): every tick a run of it,
+    none run before it, bitwise the eager rollout continued."""
+    from slamrs_tpu_torch.utils import trace
+
+    kind, grid, mesh, worlds = TICK_ROUTES[route]
+    fw = _world(kind, grid, None if mesh is None else _mesh(*mesh))
+    ticks = 35 if kind == "dda_yaml" else 20
+    state, eager = fw.init(worlds), fw.init(worlds)
+    runs = _Runs(monkeypatch)
+    kept = None
+    for call, seed in enumerate((2, 9)):
+        kw = (_draws(fw, worlds, ticks, 8 + seed, frames=ticks)
+              if draws == "injected" else {})
+        lead = int(fw.fire_schedule(ticks, state.scan_timer)[0][0]) + 1
+        want = fw.rollout(eager, ticks, seed=seed, capture=False, **kw)
+        runs.keys.clear()
+        got = capture.run_ticks(fw, state, ticks, seed=seed, graphs=False,
+                                **kw)
+        _assert_same_run(want, got)
+        eager, state = want[0], got[0]
+        assert trace.calls()[-1]["counts"].get(capture.REUSED) \
+            == (1 if call else None)
+        assert (fw.frame_program is kept) == (call > 0)
+        kept = fw.frame_program
+        assert len(runs.keys) == (ticks if call else ticks - lead)
+        assert {k[0] for k in runs.keys} == {"tick"}
+        assert fw.capture_stats.eager == ticks  # without graphs: every run
+
+
+def _interleaved(fw, worlds, ticks, run) -> list:
+    """Cadence, tick and cadence calls on one carried state through
+    ``run(method, state, ticks, seed)``, each bitwise the eager loops
+    continued; returns whether each ran on the kept program."""
+    from slamrs_tpu_torch.utils import trace
+
+    state, eager = fw.init(worlds), fw.init(worlds)
+    reused = []
+    for method, seed in (("rollout_cadence", 3), ("rollout", 8),
+                         ("rollout_cadence", 5)):
+        want = getattr(fw, method)(eager, ticks, seed=seed, capture=False)
+        got = run(method, state, ticks, seed)
+        _assert_same_run(want, got)
+        eager, state = want[0], got[0]
+        reused.append(trace.calls()[-1]["counts"].get(capture.REUSED) == 1)
+    return reused
+
+
+@pytest.mark.parametrize("route", list(TICK_ROUTES))
+def test_cadence_and_tick_calls_share_the_kept_program(route):
+    """The tick call needs a row a tick, more than the cadence call's
+    program holds, and builds; the cadence call after it runs on that
+    program."""
+    kind, grid, mesh, worlds = TICK_ROUTES[route]
+    fw = _world(kind, grid, None if mesh is None else _mesh(*mesh))
+    ticks = 35 if kind == "dda_yaml" else 20
+
+    def run(method, state, ticks, seed):
+        fn = capture.run_program if method == "rollout_cadence" \
+            else capture.run_ticks
+        return fn(fw, state, ticks, seed=seed, graphs=False)
+
+    assert _interleaved(fw, worlds, ticks, run) == [False, False, True]
 
 
 def test_tick_programs_match_jax_rollout():

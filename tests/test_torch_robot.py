@@ -389,8 +389,8 @@ def test_bench_is_not_a_port_subcommand(capsys):
         [sys.executable, "-m", "slamrs_tpu_torch", "--help"], cwd=ROOT,
         env=dict(os.environ, PYTHONPATH=str(ROOT)), capture_output=True,
         text=True, timeout=60).stdout
-    assert "bench subcommand is not ported yet" in tcli_help.replace(
-        "\n", " ")
+    assert "the port's benchmark is python3 -m h100bench.run" in " ".join(
+        tcli_help.split())
 
 
 def test_robot_process_exits_0_at_sigint_after_links_close():
