@@ -83,7 +83,8 @@ def log_prob(initial_pose: Tensor, new_pose: Tensor, distance_left,
 
 def integrate_exact(pose: Tensor, sl, sr, wheel_base) -> Tensor:
     """Noise-free kinematic update: turn first, then advance along the new
-    heading by the mean wheel travel."""
+    heading by the mean wheel travel.  The simulator kernel
+    (``models/simulator.sim_frame``) repeats it on the card."""
     sbar = (sr + sl) * 0.5
     theta = pose[..., 2] + (sr - sl) / wheel_base
     x = pose[..., 0] + sbar * torch.cos(theta)

@@ -124,6 +124,7 @@ def _counter_table() -> dict:
     its counts through it)."""
     global _COUNTERS
     if _COUNTERS is None:
+        from slamrs_tpu_torch.models import simulator
         from slamrs_tpu_torch.ops import cow, fused, icp, tiles
 
         _COUNTERS = {
@@ -133,7 +134,8 @@ def _counter_table() -> dict:
             "cow_copy": (cow.cow_copy, "launches"),
             "fused_update_tiled": (tiles.fused_update_tiled, "launches"),
             "nn_argmin": (icp.nearest_neighbors_fused, "launches"),
-            "icp_solve": (icp.icp_solve, "launches")}
+            "icp_solve": (icp.icp_solve, "launches"),
+            "sim_frame": (simulator.sim_frame, "launches")}
     return _COUNTERS
 
 
@@ -642,7 +644,7 @@ class FrameProgram(Program):
         landmark_noise = self.inputs.get("landmark_noise")
         if isinstance(key, int):
             new_state, row = self.fw.frame(self.state, speeds, self.generator,
-                                           noise, landmark_noise, self.mesh)
+                                           noise, landmark_noise)
         elif key[0] == "idle":
             new_state, row = self.fw.idle(self.state, speeds, self.mesh), None
         else:
@@ -898,7 +900,7 @@ def run_program(fw, state, n_steps: int, seed: int = 0, commands=None,
             with trace.span("frame.eager"):
                 built, row = fw.frame(
                     call.state, speeds[:, :fire_idx[0] + 1], gen,
-                    *call.scan_draws(0), call.mesh)
+                    *call.scan_draws(0))
             return built, [row]
 
         with call.on_stream():

@@ -8,7 +8,11 @@ The simulator's scan and landmark topics feed the filters directly
 float32 scalar, so the tick loop knows on the host which ticks fire and
 never waits for the device.  On a scan tick the lidar scan feeds grid
 SLAM and then the ICP mapper, and the landmark scan feeds the EKF; on
-the other ticks each filter's previous estimate is carried.
+the other ticks each filter's previous estimate is carried.  A frame's
+ticks (its idle ticks and the scan tick's motion and lidar), a trailing
+run of idle ticks and a single tick are each one
+``models/simulator.sim_frame`` call a world shard: on the card one
+launch of the simulator kernel.
 
 Randomness: one ``torch.Generator`` on the world's device, seeded from
 ``seed``, gives each scan tick its draws in this order: grid SLAM's
@@ -55,7 +59,6 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from slamrs_tpu_torch.core import motion
 from slamrs_tpu_torch.core.types import Command, OdometryReading
 from slamrs_tpu_torch.graph.config import (Config, ControlsNodeConfig,
                                            EKFLandmarkSlamNodeConfig,
@@ -189,24 +192,22 @@ class FusedWorld:
             ekf=(ekf_model.EkfState.init(self.ekf_config, self.device, w)
                  if self.ekf_config else None))
 
-    def _scan_update(self, state: WorldState, generator, noise,
-                     landmark_noise):
+    def _scan_update(self, state: WorldState, scans: list, generator,
+                     noise, landmark_noise):
         """The scan tick on ``state`` (pose and odometry already
-        advanced): the lidar feeds grid SLAM, then the ICP mapper; the
-        landmark sensor feeds the EKF.  Returns the filters' new states
-        and ``(grid_pose, icp_pose, ekf_pose, n_eff)``."""
+        advanced): the lidar scan (``scans``, one a world shard, made
+        with the motion by ``sim_frame``) feeds grid SLAM, then the ICP
+        mapper; the landmark sensor feeds the EKF.  Returns the filters'
+        new states and ``(grid_pose, icp_pose, ekf_pose, n_eff)``."""
         mesh = pf.mesh_of(state)
         if mesh is not None:
-            return self._scan_update_sharded(state, mesh, generator, noise,
-                                             landmark_noise)
+            return self._scan_update_sharded(state, scans, mesh, generator,
+                                             noise, landmark_noise)
         odometry = OdometryReading(state.accum_left, state.accum_right,
                                    self.params.wheel_base)
         grid, icp, ekf = state.grid, state.icp, state.ekf
         grid_pose = icp_pose = ekf_pose = n_eff = None
-        if grid is not None or icp is not None:
-            scan = sim_model.lidar_scan(state.pose, self.scene,
-                                        self.params.scanner_range,
-                                        self.num_beams)
+        scan = scans[0]
         if grid is not None:
             upd = gs_model.update_fleet if state.pose.dim() > 1 \
                 else gs_model.update
@@ -226,12 +227,12 @@ class FusedWorld:
             ekf_pose = eout.pose
         return grid, icp, ekf, (grid_pose, icp_pose, ekf_pose, n_eff)
 
-    def _scan_update_sharded(self, state: WorldState, mesh, generator,
-                             noise, landmark_noise):
+    def _scan_update_sharded(self, state: WorldState, scans: list, mesh,
+                             generator, noise, landmark_noise):
         """:meth:`_scan_update` of a sharded state: each world shard's
-        lidar scan, ICP and EKF on its row's first device, grid SLAM
-        through ``update_fleet`` on the mesh, the landmark draws whole on
-        the mesh's first device (after grid SLAM's, in
+        ICP and EKF on its row's first device, where its lidar scan was
+        made, grid SLAM through ``update_fleet`` on the mesh, the landmark
+        draws whole on the mesh's first device (after grid SLAM's, in
         ``update_fleet``)."""
         n_rows = mesh.devices.shape[0]
         dev0 = mesh.first_device
@@ -246,11 +247,6 @@ class FusedWorld:
             return pf.from_rows(mesh, rows,
                                 pf.tree_map(lambda _: pf.WORLD, rows[0]))
 
-        if grid is not None or icp is not None:
-            scans = [sim_model.lidar_scan(pose, self._scene_on(pose.device),
-                                          self.params.scanner_range,
-                                          self.num_beams)
-                     for pose in poses]
         if grid is not None:
             grid, gout = gs_model.update_fleet(
                 grid, sharded(scans),
@@ -320,27 +316,36 @@ class FusedWorld:
         ``(state, row)`` with ``row`` the tick's ``(fired, pose,
         grid_pose, icp_pose, ekf_pose, n_eff)``.  A sharded state (see the
         module docstring) stays sharded; the row's tensors are whole."""
-        state, mesh = self._placed(state)
-        moved = []
-        for pose, al, ar in _sim_rows(state, mesh):
-            dev = pose.device
-            pose, al, ar, timer, fired = sim_model.advance(
-                pose, al, ar, state.scan_timer,
-                Command(*(c.to(dev, non_blocking=True)
-                          if isinstance(c, Tensor) else c for c in cmd)),
-                self.params, self.dt)
-            moved.append((pose, al, ar))
-        fired = fired or force_fire or self.params.update_period == 0.0
+        return self._ticks(state, Command(cmd.speed_left.reshape(1),
+                                          cmd.speed_right.reshape(1)),
+                           generator, force_fire, noise, landmark_noise)
 
-        pose, accum_l, accum_r = (_join(mesh, rows) for rows in zip(*moved))
+    def _ticks(self, state: WorldState, speeds: Command, generator,
+               force_fire: bool, noise, landmark_noise):
+        """The ticks at ``speeds`` (f32[n] wheel speeds): motion only but
+        for the last, which is :meth:`step`'s tick; one
+        :func:`~slamrs_tpu_torch.models.simulator.sim_frame` call a world
+        shard moves the worlds and, where the last tick fires in a world
+        with grid SLAM or ICP, scans the lidar."""
+        state, mesh = self._placed(state)
+        timer, fired = sim_model.timer_step(state.scan_timer, self.params,
+                                            self.dt)
+        fired = fired or force_fire or self.params.update_period == 0.0
+        lidar = fired and (state.grid is not None or state.icp is not None)
+        moved = self._move(state, speeds, mesh, lidar)
+        pose, accum_l, accum_r = (_join(mesh, [m[i] for m in moved])
+                                  for i in range(3))
         state = state._replace(pose=pose, accum_left=accum_l,
                                accum_right=accum_r)
         grid, icp, ekf = state.grid, state.icp, state.ekf
         if fired:
             grid, icp, ekf, (grid_pose, icp_pose, ekf_pose, n_eff) = \
-                self._scan_update(state, generator, noise, landmark_noise)
-            accum_l = _join(mesh, [torch.zeros_like(a) for _, a, _ in moved])
-            accum_r = _join(mesh, [torch.zeros_like(a) for _, _, a in moved])
+                self._scan_update(state, [m.scan for m in moved], generator,
+                                  noise, landmark_noise)
+            accum_l = _join(mesh, [torch.zeros_like(m.accum_left)
+                                   for m in moved])
+            accum_r = _join(mesh, [torch.zeros_like(m.accum_right)
+                                   for m in moved])
         else:  # carry each filter's previous estimate
             grid_pose = _whole(grid.best_pose) if grid is not None else None
             icp_pose = _whole(icp.pose) if icp is not None else None
@@ -356,6 +361,21 @@ class FusedWorld:
                                grid=grid, icp=icp, ekf=ekf)
         return new_state, _Row(fired, _whole(pose), grid_pose, icp_pose,
                                ekf_pose, n_eff)
+
+    def _move(self, state: WorldState, speeds: Command, mesh,
+              lidar: bool) -> list:
+        """:func:`~slamrs_tpu_torch.models.simulator.sim_frame` on each
+        world shard's device: the ticks at ``speeds`` and, with
+        ``lidar``, the scan from the last pose."""
+        moved = []
+        for pose, al, ar in _sim_rows(state, mesh):
+            dev = pose.device
+            moved.append(sim_model.sim_frame(
+                pose, al, ar,
+                Command(*(c.to(dev, non_blocking=True) for c in speeds)),
+                self.params, self.dt,
+                self._scene_on(dev) if lidar else None, self.num_beams))
+        return moved
 
     def commands_for(self, n_steps: int) -> Command:
         """The Controls script as per-tick f32 speed tensors: row
@@ -520,7 +540,7 @@ class FusedWorld:
         for f, e in enumerate(fire_idx):
             state, row = self.frame(
                 state, speeds[:, start:e + 1], gen, frame_draws(noise, f),
-                frame_draws(landmark_noise, f), mesh)
+                frame_draws(landmark_noise, f))
             rows.append(row)
             start = e + 1
         state = self.idle(state, speeds[:, start:], mesh)
@@ -530,35 +550,27 @@ class FusedWorld:
     def frame(self, state: WorldState, speeds: Tensor,
               generator: torch.Generator | None = None,
               noise: gs_model.UpdateNoise | None = None,
-              landmark_noise: tuple[Tensor, Tensor] | None = None,
-              mesh=None) -> tuple[WorldState, _Row]:
+              landmark_noise: tuple[Tensor, Tensor] | None = None
+              ) -> tuple[WorldState, _Row]:
         """One frame of :meth:`rollout_cadence`: the idle ticks
         ``speeds[:, :-1]`` (motion only), then the scan tick at
-        ``speeds[:, -1]`` with the timer forced to fire.  ``speeds`` is
-        f32[2, k + 1], the left and right wheel speeds of the frame's
-        ticks.  Returns ``(state, row)`` as :meth:`step` does; this is
-        the program that ``graph/capture.py`` captures."""
-        state = self.idle(state, speeds[:, :-1], mesh)
+        ``speeds[:, -1]`` with the timer forced to fire, the motion and
+        the lidar in one ``sim_frame`` call.  ``speeds`` is f32[2, k + 1],
+        the left and right wheel speeds of the frame's ticks.  Returns
+        ``(state, row)`` as :meth:`step` does; this is the program that
+        ``graph/capture.py`` captures."""
         state = state._replace(
             scan_timer=float(np.float32(self.params.update_period)))
-        return self.step(state, Command(speeds[0, -1], speeds[1, -1]),
-                         generator=generator, force_fire=True, noise=noise,
-                         landmark_noise=landmark_noise)
+        return self._ticks(state, Command(speeds[0], speeds[1]), generator,
+                           True, noise, landmark_noise)
 
     def idle(self, state: WorldState, speeds: Tensor, mesh=None
              ) -> WorldState:
         """Ticks of motion only, one per column of ``speeds`` (f32[2, k]
-        wheel speeds), on each world shard's device."""
-        travel = speeds * float(np.float32(self.dt))
-        wb = self.params.wheel_base
-        moved = []
-        for pose, al, ar in _sim_rows(state, mesh):
-            sl, sr = travel.to(pose.device, non_blocking=True)
-            for i in range(travel.shape[1]):
-                pose = motion.integrate_exact(pose, sl[i], sr[i], wb)
-                al, ar = al + sl[i], ar + sr[i]
-            moved.append((pose, al, ar))
-        pose, al, ar = (_join(mesh, rows) for rows in zip(*moved))
+        wheel speeds), on each world shard's device: one ``sim_frame``
+        call a shard."""
+        moved = self._move(state, Command(speeds[0], speeds[1]), mesh, False)
+        pose, al, ar = (_join(mesh, [m[i] for m in moved]) for i in range(3))
         return state._replace(pose=pose, accum_left=al, accum_right=ar)
 
 

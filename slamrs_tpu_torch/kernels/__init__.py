@@ -117,4 +117,16 @@ def library() -> ctypes.CDLL:
                    ci, cf,  # threshold on, threshold squared
                    vp]  # stream
     fn.restype = ci
+    ll = ctypes.c_longlong
+    fn = lib.slamrs_sim_frame
+    fn.argtypes = [vp, vp, vp, vp, vp,  # pose, accumulators, speeds
+                   ll, ll, ci,  # speed strides, ticks
+                   cf, cf,  # dt, 1 / wheel base
+                   vp, vp, ci, cf, ci,  # segments, mask, count, range,
+                   # beams
+                   vp, vp, vp,  # pose and accumulators out
+                   vp, vp, vp, vp, vp,  # angles, distances, strengths,
+                   # valid, present
+                   ci, vp]  # worlds, stream
+    fn.restype = ci
     return lib

@@ -3,7 +3,10 @@
 Counterpart of ``slamrs_tpu/ops/raycast.py``: the two-line closed form
 with ``t`` on the segment and ``u`` along the ray, then a min over
 segments.  Plain tensor code over a ``[..., B, S]`` broadcast (the JAX
-package has no kernel here either).
+package has no kernel here either); on the card the world's lidar runs
+the same arithmetic inside the simulator kernel
+(``models/simulator.sim_frame``, ``csrc/sim_frame.cu``), and this is its
+plain version.
 """
 
 from __future__ import annotations

@@ -46,9 +46,16 @@ cadence and tick calls on one carried state.
 Robot I/O: the FileLoader's Scan on the card, K4 ten times per ICP
 update of a short ``neato_replay.yaml`` replay, and the virtual robot's
 card scans within 1 mm of its CPU scans on fewer than 1e-3 of the beams.
+The simulator kernel (a frame's ticks and its lidar scan) bitwise its
+plain version on the card on the three benchmark scenes, at one world
+and 256, with the roundings it repeats (cos and sin, ``deg2rad``, the
+division by the wheel base) bitwise ATen's, one launch a frame.
 """
 
+import functools
+import importlib.util
 import math
+from pathlib import Path
 
 import pytest
 
@@ -626,18 +633,22 @@ def test_grid_integrators_match_cpu(dev, integrate):
             assert torch.equal(a, b.cpu())
 
 
-def _fleet_k1_case(spec, worlds, p, static, dtype, seed=0):
-    """``chip_smoke.py``'s fleet inputs for K1 (per-world scans from the
-    simulator, a quarter of the worlds with beams past the range, edge
-    poses, block-diagonal lineage) at ``dtype``."""
-    import importlib.util
-    from pathlib import Path
-
+@functools.cache
+def _smoke():
+    """``chip_smoke.py`` as a module."""
     path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
     mod = importlib.util.spec_from_file_location("chip_smoke", path)
     smoke = importlib.util.module_from_spec(mod)
     mod.loader.exec_module(smoke)
-    args, kw = smoke.fleet_kernel_case(torch, spec, worlds, p, seed, static)
+    return smoke
+
+
+def _fleet_k1_case(spec, worlds, p, static, dtype, seed=0):
+    """``chip_smoke.py``'s fleet inputs for K1 (per-world scans from the
+    simulator, a quarter of the worlds with beams past the range, edge
+    poses, block-diagonal lineage) at ``dtype``."""
+    args, kw = _smoke().fleet_kernel_case(torch, spec, worlds, p, seed,
+                                          static)
     return (args[0].to(dtype), *args[1:]), kw
 
 
@@ -816,8 +827,6 @@ def test_resample_fleet_card_equals_cpu(dev):
 
 
 def _preset(name, particles=None):
-    from pathlib import Path
-
     text = (Path(__file__).resolve().parents[1] / "configs" / name)\
         .read_text()
     if particles is not None:
@@ -1345,3 +1354,62 @@ def test_kept_fleet_program_holds_its_memory_on_the_card(dev):
         torch.cuda.synchronize()
         peaks.append(torch.cuda.max_memory_allocated(dev))
     assert peaks[-1] <= peaks[0], peaks
+
+
+# --- the simulator kernel (csrc/sim_frame.cu) against its plain version ---
+
+@pytest.mark.parametrize("scan", [False, True], ids=["motion", "scan"])
+@pytest.mark.parametrize("k", [0, 1, 5])
+@pytest.mark.parametrize("worlds", [None, 256], ids=["one", "fleet256"])
+@pytest.mark.parametrize("preset", _smoke().SIM_PRESETS)
+def test_sim_frame_matches_plain_bitwise(dev, preset, worlds, k, scan):
+    """``sim_frame_kernel`` against ``sim_frame_reference`` on the card:
+    every output bit for bit (pose, accumulators, distances, strengths,
+    valid, present, the beam table), one launch a call; one world at each
+    of ``chip_smoke.py``'s edge poses, standing still (a beam along a
+    wall, beams through segment ends, hits past the range, poses outside
+    the room) and at a random pose, moving, or 256 worlds holding them and
+    random poses, moving; ``k`` idle ticks before the last."""
+    smoke = _smoke()
+    fw = smoke.preset_world(torch, preset)
+    reps = len(smoke.SIM_EDGE_POSES) + 1 if worlds is None else 1
+    for seed in range(reps):
+        pose, al, ar, speeds = smoke.sim_frame_case(torch, worlds, k, seed)
+        got, want = smoke.sim_frame_pair(torch, fw, pose, al, ar, speeds,
+                                         scan)
+        assert smoke.sim_frame_same(torch, got, want) == [], seed
+        assert (got.scan is None) == (not scan)
+
+
+def test_sim_frame_cos_and_sin_are_atens(dev):
+    """The kernel's ``cosf``/``sinf`` (nvcc, ``--fmad=false``) give
+    ``torch.cos``/``torch.sin``'s float32 bits on the card."""
+    assert _smoke().sim_cos_sin_mismatches(torch) == 0
+
+
+def test_sim_frame_beam_table_is_deg2rad(dev):
+    """The kernel's beam angles are ``torch.deg2rad`` of the beam index,
+    the product with the double pi / 180 cast to float32, bit for bit."""
+    assert _smoke().sim_deg2rad_mismatches(torch) == 0
+
+
+def test_sim_frame_divides_by_the_wheel_base_as_aten(dev):
+    """ATen's card division of a tensor by a Python float multiplies by
+    the float32 reciprocal, and the kernel's turn gives its bits."""
+    assert _smoke().sim_division_mismatches(torch) == 0
+
+
+def test_sim_frame_launches_once_a_frame(dev):
+    """An eager cadence rollout of ``icp_test.yaml`` launches the
+    simulator kernel once a scan frame and once for its trailing idle
+    ticks, and a tick rollout once a tick."""
+    from slamrs_tpu_torch.models import simulator
+
+    fw = _smoke().preset_world(torch, "icp_test.yaml")
+    before = simulator.sim_frame.launches
+    _, outs = fw.rollout_cadence(fw.init(), 62, capture=False)
+    assert outs.fired.shape[0] == 10
+    assert simulator.sim_frame.launches - before == 11
+    before = simulator.sim_frame.launches
+    fw.rollout(fw.init(), 13, capture=False)
+    assert simulator.sim_frame.launches - before == 13

@@ -42,12 +42,15 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
+from slamrs_tpu.core import types as jtypes  # noqa: E402
 from slamrs_tpu.graph import compile as jcompile  # noqa: E402
 from slamrs_tpu.graph.config import load_config as jload  # noqa: E402
 from slamrs_tpu.models import ekf as jekf  # noqa: E402
 from slamrs_tpu.models import icp_mapper as jmap  # noqa: E402
+from slamrs_tpu.models import simulator as jsim  # noqa: E402
 from slamrs_tpu_torch import convert  # noqa: E402
 from slamrs_tpu_torch.__main__ import main as cli_main  # noqa: E402
+from slamrs_tpu_torch.core.types import Command  # noqa: E402
 from slamrs_tpu_torch.graph import compile as tcompile  # noqa: E402
 from slamrs_tpu_torch.graph.config import load_config as tload  # noqa: E402
 from slamrs_tpu_torch.models import ekf as tekf  # noqa: E402
@@ -288,6 +291,67 @@ def test_icp_ekf_world_matches_jax():
     assert int(tst.icp.count) == int(jst.icp.count) == 2048  # map full
     np.testing.assert_array_equal(tst.ekf.seen.numpy(),
                                   np.asarray(jst.ekf.seen))
+
+
+@pytest.mark.parametrize("k", [0, 1, 5])
+def test_frame_idle_and_step_match_jax(k):
+    """``FusedWorld.frame`` (``k`` idle ticks, then the scan tick),
+    ``idle`` and ``step``, each one ``sim_frame`` call, against the JAX
+    package's simulator ``tick`` by tick on an ICP world, for three
+    rounds of two idle ticks, a frame and an idle step: the ground-truth
+    pose within 1e-5 m and the accumulators within 1e-7 m after each, and
+    the ICP pose, which reads the frame's lidar scan, within 1e-4 m, the
+    gates of the rollouts above."""
+    jw, tw = _icp_ekf_worlds()
+    tw.ekf_config = None
+    jcfg = jw.icp_config
+    rng = np.random.default_rng(k)
+    speeds = rng.uniform(-0.1, 0.1, (2, 3 * (k + 4))).astype(np.float32)
+    ts = torch.from_numpy(speeds)
+    tst = tw.init()
+    jst = jsim.SimState(pose=jnp.zeros(3), scan_timer=jnp.float32(0.0),
+                        scan_counter=jnp.int32(0),
+                        wheel_accum_left=jnp.float32(0.0),
+                        wheel_accum_right=jnp.float32(0.0))
+    jicp = jmap.IcpMapState.init(jcfg)
+    key = jax.random.key(0)
+
+    def jtick(jst, i, fire):
+        jst = jst._replace(scan_timer=jw.params.update_period if fire
+                           else jnp.float32(0.0))
+        return jsim.tick(jst, jtypes.Command(jnp.float32(speeds[0, i]),
+                                             jnp.float32(speeds[1, i])),
+                         key, jw.params, jw.scene)
+
+    def check(tst, jst):
+        np.testing.assert_allclose(tst.pose.numpy(), np.asarray(jst.pose),
+                                   atol=1e-5, rtol=0)
+        for a, b in ((tst.accum_left, jst.wheel_accum_left),
+                     (tst.accum_right, jst.wheel_accum_right)):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-7,
+                                       rtol=0)
+
+    col = 0
+    for _ in range(3):
+        tst = tw.idle(tst, ts[:, col:col + 2])
+        for i in (col, col + 1):
+            jst, _ = jtick(jst, i, False)
+        check(tst, jst)
+        col += 2
+        tst, row = tw.frame(tst, ts[:, col:col + k + 1])
+        for i in range(col, col + k + 1):
+            jst, jout = jtick(jst, i, i == col + k)
+        assert row.fired and bool(jout.fired)
+        check(tst, jst)
+        jicp, iout = jmap.update(jicp, jout.scan, jcfg)
+        np.testing.assert_allclose(row.icp_pose.numpy(),
+                                   np.asarray(iout.pose), atol=1e-4, rtol=0)
+        col += k + 1
+        tst, row = tw.step(tst, Command(ts[0, col], ts[1, col]))
+        jst, jout = jtick(jst, col, False)
+        assert not row.fired and not bool(jout.fired)
+        check(tst, jst)
+        col += 1
 
 
 def test_icp_ekf_state_carried_over_from_jax():
