@@ -44,6 +44,7 @@ from slamrs_tpu_torch.ops.fused import (_TWO_PI, Prepared, _ptr, disc_half,
                                         prepare, update_window, window_cols,
                                         window_rows)
 from slamrs_tpu_torch.ops.grid import GridSpec2D
+from slamrs_tpu_torch.utils import trace
 
 Tensor = torch.Tensor
 
@@ -152,7 +153,9 @@ def tiled_plan(table: Tensor, t0: Tensor, n_phys: int, kspan: int = 2
     i32[P, kspan], new_table i32[P, nb]): ``dst == src`` where the tile is
     exclusively owned (refcount 1), distinct fresh tiles otherwise.  The
     free list is the JAX package's dropped scatter written as a scatter
-    into a buffer with one sink slot; nothing syncs with the host."""
+    into a buffer with one sink slot; nothing syncs with the host.  The
+    bands privatized (fresh tiles handed out) are added on the device to
+    the counter ``k3.tiles_copied`` (``utils/trace.device_counter``)."""
     p, nb = table.shape
     if n_phys < p * nb + kspan * p:
         raise ValueError(f"pool of {n_phys} tiles is too small for {p} "
@@ -165,7 +168,9 @@ def tiled_plan(table: Tensor, t0: Tensor, n_phys: int, kspan: int = 2
     rc = torch.zeros(n_phys, dtype=i32, device=dev).index_add_(
         0, flat, torch.ones(flat.shape[0], dtype=i32, device=dev))
     fresh = rc[src.long()] != 1  # shared (or the self-shared zero tile)
-    rank = torch.cumsum(fresh.reshape(-1), 0, dtype=i32) - 1
+    n_fresh = torch.cumsum(fresh.reshape(-1), 0, dtype=i32)
+    trace.device_counter("k3.tiles_copied", dev).add_(n_fresh[-1])
+    rank = n_fresh - 1
     fmask = rc == 0
     fpos = torch.cumsum(fmask, 0, dtype=i32) - 1
     sink = kspan * p
