@@ -25,6 +25,17 @@ Phases, each printing one line, any failure raising (exit code != 0):
    100,000 beams, the division by the wheel base); then its device time
    beside the plain chain's at one world and at 256, for a 5 Hz frame
    and a one-tick frame (``kernel_time_sim_frame``);
+2c. ``kernel_vs_plain_slam_propose``: the proposal kernel
+   (``csrc/slam_propose.cu``) against its plain version on the card,
+   every output bitwise (sampled poses, motion log-probability, ``pp``,
+   ``r0``, the beam table) at the headline's maps, the config-5 fleet's
+   map geometry as one world and config 3's tile pool, 12 cases each:
+   poses on the window's clamp rows and far off the grid, on row halves,
+   headings at +-pi and on the remainder's wrap, zero odometry, a wheel
+   base on the card, invalid, absent, zero and over-range beams, 360, 383
+   and one beam, static and traced spacing; ``torch.remainder``'s form
+   over 2**20 values; then its device time beside the plain chain's at
+   the headline's and config 3's shapes (``kernel_time_slam_propose``);
 3. kernel vs plain version at ``[1024, 80, 128]`` bf16 (0.05 m) and
 4. at ``[1024, 200, 256]`` bf16 (0.02 m): static and traced beam
    spacing, the 360-beam scan, a 90-beam partial sector with mixed flags,
@@ -1623,6 +1634,221 @@ def check_sim_frame(torch):
     return times
 
 
+# the proposal kernel (csrc/slam_propose.cu): float32 operations a
+# particle (odometry 10, sample 11 with cos and sin, log_prob 20 with two
+# logs, prepare 12) and a beam-table lane (11 with cos and sin), bytes a
+# particle (poses and draws read, poses, log_motion, pp and r0 written)
+# and a lane (distance and flags read, eight rows written)
+PROPOSE_PARTICLE_OPS = 53
+PROPOSE_LANE_OPS = 11
+PROPOSE_PARTICLE_BYTES = 12 + 8 + 12 + 4 + 32 + 4
+PROPOSE_LANE_BYTES = 4 + 2 + 8 * 4
+# (map geometry, particles, tile pool) of the shapes it is checked at: the
+# headline's maps, the config-5 fleet's map geometry as one world, and
+# BASELINE config 3's tile pool; seeds a shape
+PROPOSE_SHAPES = {
+    "headline_1024": ((-2.0, -2.0, 4.0, 4.0, 0.05), 1024, False),
+    "fleet_geometry_10": ((-2.0, -2.0, 4.0, 4.0, 0.02), 10, False),
+    "config3_tiled_1024": (CONFIG3, 1024, True)}
+PROPOSE_SEEDS = 12
+
+
+def propose_rows_cols(torch, spec, p, tiled):
+    """The rows and columns the proposal prepares for: a dense map set's,
+    or a tile pool's bands times their rows."""
+    from slamrs_tpu_torch.ops import tiles
+
+    if tiled:
+        pool, table = tiles.init_tiled(p, spec, 1.0, device="meta")
+        return table.shape[1] * pool.shape[1], pool.shape[2]
+    return spec.rows, (spec.cols + 127) // 128 * 128
+
+
+def propose_case(torch, spec, p, seed):
+    """The proposal kernel's inputs on the card for ``seed``.  Poses over
+    the map and 1 m past its edges, headings to +-1.2 pi; the first rows
+    on the window's clamp rows (the map's bottom and top rows, far below
+    and above, far off the grid), on 16 float32 steps about a row's half
+    (where ``round`` ties), at headings +-pi and +-50; with 256 particles
+    or more, 64 of heading 0 whose draw puts the turn on and about the
+    remainder's wrap (new - old heading + pi at 0 and 2 pi).  Odometry
+    zero for ``seed % 4 == 0`` (the special rows then draw 0 for the
+    centre, so they keep their pose), else random to 2 cm; the wheel base
+    a card tensor (the robot's reading) for ``seed % 3 == 2``, else a
+    Python float.  The scan: 360 beams at 1-degree steps (383 for ``seed
+    % 6 == 5``, past the quantized row; one for seed 8), first angle 0.3
+    for ``seed % 5 == 1``, with invalid, absent, zero-distance and
+    over-range beams (to 5 m, past the quantizer's cap).  Static spacing
+    for odd seeds.  Returns ``(poses, odometry, eps, scan, static)``."""
+    import numpy as np
+
+    from slamrs_tpu_torch.core.types import OdometryReading, Scan
+
+    g = torch.Generator().manual_seed(4100 + seed)
+    x0, y0, res = spec.position_x, spec.position_y, spec.resolution
+    u = torch.rand(p, 3, generator=g)
+    poses = torch.stack([x0 - 1.0 + u[:, 0] * (spec.width + 2.0),
+                         y0 - 1.0 + u[:, 1] * (spec.height + 2.0),
+                         (u[:, 2] * 2.0 - 1.0) * 1.2 * math.pi], dim=-1)
+    eps_c = torch.randn(p, generator=g)
+    eps_t = torch.randn(p, generator=g)
+    xm = x0 + 0.5 * spec.width
+    top = y0 + spec.height
+    pi32 = float(np.float32(math.pi))
+    special = [(xm, y0 + 0.3 * res, pi32), (xm, top - 0.3 * res, -pi32),
+               (xm, y0 - 50.0, 50.0), (xm, top + 50.0, -50.0),
+               (x0 - 1e6, y0 - 1e6, 0.0), (x0 + 1e6, y0 + 1e6, 1.0)]
+    half = np.float32(y0 + (spec.rows // 2 + 0.5) * res)
+    for j in range(-8, 8):
+        special.append((xm, float(half + np.float32(j) * np.spacing(half)),
+                        0.1 * j))
+    n = min(p, len(special))
+    poses[:n] = torch.tensor(special[:n])
+    eps_c[:n] = 0.0
+    eps_t[:n] = 0.0
+    zero = seed % 4 == 0
+    dl, dr = ((0.0, 0.0) if zero else
+              (float(v) for v in torch.rand(2, generator=g) * 0.02))
+    wb = 0.1 if seed % 2 else 0.25
+    if p >= 256:  # the remainder's wrap: new - old heading near +-pi
+        f32 = np.float32
+        dt = f32(0.0) if zero else f32(f32(dr) - f32(dl)) * (f32(1) / f32(wb))
+        t_std = f32(f32(f32(abs(dt)) * f32(0.1)) + f32(5 * math.pi / 180))
+        k = np.arange(-16, 16, dtype=np.float64)
+        rows = slice(n, n + 64)
+        poses[rows, 2] = 0.0
+        eps_t[rows] = torch.from_numpy(np.concatenate([
+            (sign * math.pi - float(dt)) / float(t_std) * (1.0 + k * 2**-24)
+            for sign in (1.0, -1.0)]).astype(np.float32))
+    nb = 1 if seed == 8 else 383 if seed % 6 == 5 else 360
+    a0 = 0.3 if seed % 5 == 1 else 0.0
+    angles = a0 + torch.deg2rad(torch.arange(nb, dtype=torch.float32))
+    dist = torch.rand(nb, generator=g) * 1.3
+    dist[::11] = 0.0
+    dist[3::7] = 1.0 + 4.0 * torch.rand(dist[3::7].shape, generator=g)
+    valid = torch.rand(nb, generator=g) < 0.8
+    present = torch.rand(nb, generator=g) < 0.9
+    valid[::11] = True
+    present[::22] = True
+    cuda = [t.cuda() for t in (poses, eps_c, eps_t, angles, dist, valid,
+                               present)]
+    wheel = (torch.full((), wb, device="cuda") if seed % 3 == 2 else wb)
+    odometry = OdometryReading(torch.full((), dl, device="cuda"),
+                               torch.full((), dr, device="cuda"), wheel)
+    scan = Scan(cuda[3], cuda[4], torch.ones(nb, device="cuda"), *cuda[5:])
+    static = math.radians(1.0) if seed % 2 else None
+    return cuda[0], odometry, (cuda[1], cuda[2]), scan, static
+
+
+def propose_pair(torch, spec, rows, cols, case):
+    """The kernel and the plain version of ``slam_propose`` on the same
+    inputs, the kernel's launch counted: ``(kernel, plain)``."""
+    from slamrs_tpu_torch.ops import propose
+
+    poses, odometry, eps, scan, static = case
+    args = (poses, odometry, eps, scan, spec, 1.0, static, rows, cols)
+    before = propose.slam_propose.launches
+    got = propose.slam_propose(*args)
+    if propose.slam_propose.launches != before + 1:
+        raise AssertionError("the slam_propose launch counter did not count")
+    return got, propose.slam_propose_reference(*args)
+
+
+def propose_same(torch, got, want) -> list:
+    """The fields of two proposals that differ in any bit (floats as
+    their int32 words, so -0.0 is not 0.0)."""
+    def words(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    fields = [("poses", got.poses, want.poses),
+              ("log_motion", got.log_motion, want.log_motion),
+              *((name, getattr(got.prep, name), getattr(want.prep, name))
+                for name in ("pp", "r0", "table"))]
+    bad = [name for name, a, b in fields
+           if a.dtype != b.dtype or a.shape != b.shape
+           or not torch.equal(words(a), words(b))]
+    return bad + [name for name in ("wr", "binu")
+                  if getattr(got.prep, name) != getattr(want.prep, name)]
+
+
+def propose_remainder_mismatches(torch) -> int:
+    """``torch.remainder(v, 2 pi)`` on the card against ATen's form that
+    the kernel repeats (``torch.fmod``, then ``+ 2 pi`` where the signs
+    differ), over 2**20 values (wide, and on float32 steps about the
+    multiples of 2 pi)."""
+    g = torch.Generator(device="cuda").manual_seed(8)
+    n = 1 << 20
+    two_pi = 2.0 * math.pi
+    near = (torch.arange(n // 2, device="cuda") % 64 - 32).float()
+    base = torch.tensor(two_pi, device="cuda") * (
+        torch.arange(n // 2, device="cuda") // 64 % 17 - 8).float()
+    v = torch.cat([torch.rand(n // 2, generator=g, device="cuda") * 400 - 200,
+                   base + near * 2.0 ** -21])
+    m = torch.fmod(v, two_pi)
+    m = torch.where((m != 0) & (m < 0), m + two_pi, m)
+    got = torch.remainder(v, two_pi)
+    return int((got.view(torch.int32) != m.view(torch.int32)).sum())
+
+
+def check_slam_propose(torch):
+    """The proposal kernel against its plain version
+    (``ops/propose.slam_propose_reference``) on the card: every output
+    bitwise at :data:`PROPOSE_SHAPES`, :data:`PROPOSE_SEEDS` cases each
+    (:func:`propose_case`), and ``torch.remainder``'s form; then the
+    kernel's device time beside the plain chain's at the headline's and
+    config 3's shapes, with its bound and a one-element fill.  Returns the
+    kernels-line numbers by shape."""
+    from slamrs_tpu_torch.ops import propose
+    from slamrs_tpu_torch.ops.grid import GridSpec2D
+
+    cases = mismatched = 0
+    for label, (geom, p, tiled) in PROPOSE_SHAPES.items():
+        spec = GridSpec2D(*geom)
+        rows, cols = propose_rows_cols(torch, spec, p, tiled)
+        for seed in range(PROPOSE_SEEDS):
+            got, want = propose_pair(torch, spec, rows, cols,
+                                     propose_case(torch, spec, p, seed))
+            diff = propose_same(torch, got, want)
+            cases += 1
+            if diff:
+                mismatched += 1
+                emit({"phase": "kernel_vs_plain_slam_propose",
+                      "shape": label, "seed": seed, "differs": diff})
+    remainder = propose_remainder_mismatches(torch)
+    times = {}
+    for label in ("headline_1024", "config3_tiled_1024"):
+        geom, p, tiled = PROPOSE_SHAPES[label]
+        spec = GridSpec2D(*geom)
+        rows, cols = propose_rows_cols(torch, spec, p, tiled)
+        poses, odometry, eps, scan, static = propose_case(torch, spec, p, 1)
+        args = (poses, odometry, eps, scan, spec, 1.0, static, rows, cols)
+        ms = time_call(torch, lambda: propose.slam_propose(*args))
+        plain_ms = time_call(torch,
+                             lambda: propose.slam_propose_reference(*args))
+        floor_ms = time_call(torch, lambda: torch.zeros(1, device="cuda"))
+        lanes = 512
+        nbytes = p * PROPOSE_PARTICLE_BYTES + lanes * PROPOSE_LANE_BYTES
+        nops = p * PROPOSE_PARTICLE_OPS + lanes * PROPOSE_LANE_OPS
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        t_ops = nops / PEAK_F32_PER_S * 1e3
+        bound, by = ((t_bytes, "bytes") if t_bytes >= t_ops
+                     else (t_ops, "operations"))
+        times[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                            bound_by=by, launch_floor_ms=floor_ms)
+        emit({"phase": "kernel_time_slam_propose", "case": label,
+              "particles": p, "kernel_us": ms * 1e3,
+              "plain_us": plain_ms * 1e3, "bound_us": bound * 1e3,
+              "bound_by": by, "launch_floor_us": floor_ms * 1e3})
+    emit({"phase": "kernel_vs_plain_slam_propose", "cases": cases,
+          "mismatched_cases": mismatched, "remainder_mismatches": remainder,
+          "bitwise_equal": mismatched == 0 and remainder == 0})
+    if mismatched or remainder:
+        raise AssertionError(f"slam_propose disagrees with its plain "
+                             f"version: {mismatched} of {cases} cases, "
+                             f"remainder {remainder}")
+    return times
+
+
 def preset_world(torch, name, device="cuda"):
     from slamrs_tpu_torch.graph.compile import compile_world
     from slamrs_tpu_torch.graph.config import load_config
@@ -2146,7 +2372,7 @@ def check_grid_slam_yaml(torch):
 
 
 NO_KERNELS = {"fused_update": 0, "fused_update_tiled": 0, "cow_copy": 0,
-              "nn_argmin": 0, "icp_solve": 0}
+              "nn_argmin": 0, "icp_solve": 0, "slam_propose": 0}
 
 
 def check_path_deviation(torch):
@@ -3204,7 +3430,8 @@ def check_app_grid_slam_fused(torch):
           "peak_above_held_bytes": torch.cuda.max_memory_allocated() - held})
     want = {"fused_update": node.updates, "fused_update_in_place": 0,
             "cow_copy": 0, "fused_update_tiled": 0, "nn_argmin": 0,
-            "icp_solve": 0, "sim_frame": sim_ticks(app)}
+            "icp_solve": 0, "sim_frame": sim_ticks(app),
+            "slam_propose": node.updates}
     if counts != want or node.updates < 45 or len(spans.ms) != node.updates:
         raise AssertionError(f"app headline launches {counts}, expected "
                              f"{want} ({len(spans.ms)} spans)")
@@ -3790,7 +4017,8 @@ def check_app_neato_replay(torch, log_path, truth):
           "peak_above_held_bytes": peak})
     want = {"fused_update": 0, "fused_update_in_place": 0, "cow_copy": 0,
             "fused_update_tiled": 0, "nn_argmin": iters * n_frames,
-            "icp_solve": (iters + 1) * n_frames, "sim_frame": 0}
+            "icp_solve": (iters + 1) * n_frames, "sim_frame": 0,
+            "slam_propose": 0}
     if node.updates != n_frames or len(est) != n_frames or counts != want:
         raise AssertionError(f"replay: {node.updates} updates of "
                              f"{n_frames} frames, launches {counts}")
@@ -3923,10 +4151,11 @@ def check_robot_link_card(torch):
 # --- the captured rollout: one CUDA graph replay a frame ---------------
 
 # the kernels by the names the profiler shows, and their wrapper counters.
-# Not the simulator kernel: it is the first launch of every frame, and a
-# profile that opens at a frame drops the launches made as it starts (on
-# an 8-row mesh: 8 of 16 seen eager, 72 of 80 over 10 replays); the
-# benchmark's traced runs count it (sim_launches_per_frame)
+# Not the simulator kernel nor the proposal kernel: they are the first
+# launches of a frame, and a profile that opens at a frame drops the
+# launches made as it starts (on an 8-row mesh: 8 of 16 simulator kernels
+# seen eager, 72 of 80 over 10 replays); the benchmark's traced runs count
+# them (sim_launches_per_frame, slam_propose_launches_per_frame)
 PROFILED_KERNELS = {"fused_update": "fused_update_kernel",
                     "cow_copy": "cow_copy_kernel",
                     "fused_update_tiled": "fused_update_tiled_kernel",
@@ -3940,7 +4169,8 @@ def capture_routes(torch):
     """(label, world, worlds, ticks, kernel launches a frame) of every
     route the captured rollout covers."""
     k1 = {"fused_update": 1, "fused_update_in_place": 0,
-          "fused_update_tiled": 0, "cow_copy": 0, "nn_argmin": 0}
+          "fused_update_tiled": 0, "cow_copy": 0, "nn_argmin": 0,
+          "slam_propose": 1}
     in_place = dict(k1, fused_update_in_place=1)
     return [
         ("headline_0.05m", lambda: headline_world(torch, 0.05), (), 300, k1),
@@ -3964,7 +4194,7 @@ def capture_routes(torch):
         ("landmarks_yaml", lambda: preset_world(torch, "landmarks.yaml"), (),
          300, NO_KERNELS),
         ("fleet_256x10_0.02m", lambda: fleet_world(torch), (FLEET_WORLDS,),
-         300, dict(in_place, cow_copy=1)),
+         300, dict(in_place, cow_copy=1, slam_propose=0)),
     ]
 
 
@@ -4520,7 +4750,8 @@ def check_longrun(torch):
     failed = torch_longrun.failed_gates(numbers)
     require(not failed, f"longrun: {failed} missed ({numbers})")
     require(counts == dict(NO_KERNELS, fused_update=torch_longrun.UPDATES,
-                           fused_update_in_place=0, sim_frame=0),
+                           fused_update_in_place=0, sim_frame=0,
+                           slam_propose=torch_longrun.UPDATES),
             f"longrun launches {counts}")
     for k, s in stats.items():
         require((s.eager, s.replays, s.graphs)
@@ -4558,7 +4789,7 @@ def mesh_capture_routes(torch):
         ("config3_tiled_2x1", lambda: on_mesh(config3_world(torch),
                                               cuda_mesh(torch, 1, n=2)),
          MESH_CONFIG3_WORLDS, MESH_CONFIG3_TICKS,
-         kernels(fused_update_tiled=2), {}, False),
+         kernels(fused_update_tiled=2, slam_propose=2), {}, False),
         ("grid_slam_yaml_4x2", lambda: on_mesh(
             preset_world(torch, "grid_slam.yaml"), cuda_mesh(torch, 2)), 16,
          300, kernels(), {}, False),
@@ -4869,7 +5100,7 @@ def check_tick_capture(torch, label, make, n_steps, exact):
 
 
 def check_tick_captures(torch):
-    k1 = dict(NO_KERNELS, fused_update=1)
+    k1 = dict(NO_KERNELS, fused_update=1, slam_propose=1)
     return {label: check_tick_capture(torch, label, make, n, exact)
             for label, make, n, exact in (
                 ("headline_0.05m", lambda: headline_world(torch, 0.05), 300,
@@ -4917,6 +5148,7 @@ def main() -> int:
 
     nn_launched = check_nn_launches(torch)
     t_sim = check_sim_frame(torch)
+    t_propose = check_slam_propose(torch)
     spec05 = GridSpec2D(-2.0, -2.0, 4.0, 4.0, 0.05)
     spec02 = GridSpec2D(-2.0, -2.0, 4.0, 4.0, 0.02)
     worst = check_kernel(torch, fused, spec05, "0.05m")
@@ -5174,7 +5406,20 @@ def main() -> int:
          "captured_launches": captured_launches(cap, "sim_frame"),
          "app_capture_launches": captured_launches(app_cap, "sim_frame"),
          "mesh_capture_launches": captured_launches(mesh_cap, "sim_frame"),
-         "tick_capture_launches": captured_launches(tick_cap, "sim_frame")}
+         "tick_capture_launches": captured_launches(tick_cap, "sim_frame")},
+        {"name": "slam_propose", "route": "cuda",
+         "source": "slamrs_tpu_torch/csrc/slam_propose.cu",
+         "replaces": "slamrs_tpu/models/gridslam.py:395 (XLA: the motion "
+                     "sample and log-probability, the fused kernel's inputs)",
+         "max_abs_err": 0, "library_ms": None, **t_propose["headline_1024"],
+         **{f"{label}_{k}": v for label, t in t_propose.items()
+            if label != "headline_1024" for k, v in t.items()},
+         "captured_launches": captured_launches(cap, "slam_propose"),
+         "app_capture_launches": captured_launches(app_cap, "slam_propose"),
+         "mesh_capture_launches": captured_launches(mesh_cap,
+                                                    "slam_propose"),
+         "tick_capture_launches": captured_launches(tick_cap,
+                                                    "slam_propose")}
     ]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -9,7 +9,9 @@ fill as the floor of a launch timed this way; the inputs and the timing
 (CUDA events, median of 20) are ``chip_smoke.py``'s.  The ICP solve
 kernel at the ``icp_odometry`` cell's shape (360 lanes against the full
 16,384-point map, Step 0.05), one iteration and the prologue, beside its
-plain version on the card, where the tree has the kernel.  Then a
+plain version on the card, where the tree has the kernel; likewise the
+proposal kernel (a grid update's motion sample, log-probability and
+fused-kernel inputs) at the headline's and config 3's shapes.  Then a
 profiled 300-tick ICP run (``configs/icp_test.yaml``): device busy time,
 its device operations a scan frame, K4's and the solve kernel's share of
 it and their launches, and the memsets; and ptxas's register, spill and
@@ -92,6 +94,8 @@ def main() -> int:
         torch, lambda: torch.zeros(1, device="cuda"))
     if hasattr(icp, "icp_solve"):
         out.update(icp_solve_times(torch, cs, icp))
+    if hasattr(cs, "PROPOSE_SHAPES"):
+        out.update(slam_propose_times(torch, cs))
     out.update(icp_run_profile(torch, cs))
     print("KERNEL_TIMES", json.dumps(out), flush=True)
     return 0
@@ -130,6 +134,28 @@ def icp_solve_times(torch, cs, icp):
             "icp_solve_plain_step_us": 1e3 * cs.time_call(
                 torch, lambda: icp.solve_step_reference(
                     p, mask, q, qc, x0, p_t, corr, thr))}
+
+
+def slam_propose_times(torch, cs):
+    """The proposal kernel and its plain chain on the card at the
+    headline's maps and config 3's tile pool (``chip_smoke.propose_case``,
+    1,024 particles, 360 beams, static spacing)."""
+    from slamrs_tpu_torch.ops import propose
+    from slamrs_tpu_torch.ops.grid import GridSpec2D
+
+    out = {}
+    for label in ("headline_1024", "config3_tiled_1024"):
+        geom, p, tiled = cs.PROPOSE_SHAPES[label]
+        spec = GridSpec2D(*geom)
+        rows, cols = cs.propose_rows_cols(torch, spec, p, tiled)
+        poses, odometry, eps, scan, static = cs.propose_case(torch, spec, p,
+                                                             1)
+        args = (poses, odometry, eps, scan, spec, 1.0, static, rows, cols)
+        out[f"slam_propose_{label}_us"] = 1e3 * cs.time_call(
+            torch, lambda: propose.slam_propose(*args))
+        out[f"slam_propose_plain_{label}_us"] = 1e3 * cs.time_call(
+            torch, lambda: propose.slam_propose_reference(*args))
+    return out
 
 
 def icp_run_profile(torch, cs, ticks=300):

@@ -125,7 +125,7 @@ def _counter_table() -> dict:
     global _COUNTERS
     if _COUNTERS is None:
         from slamrs_tpu_torch.models import simulator
-        from slamrs_tpu_torch.ops import cow, fused, icp, tiles
+        from slamrs_tpu_torch.ops import cow, fused, icp, propose, tiles
 
         _COUNTERS = {
             "fused_update": (fused.fused_update, "launches"),
@@ -135,7 +135,8 @@ def _counter_table() -> dict:
             "fused_update_tiled": (tiles.fused_update_tiled, "launches"),
             "nn_argmin": (icp.nearest_neighbors_fused, "launches"),
             "icp_solve": (icp.icp_solve, "launches"),
-            "sim_frame": (simulator.sim_frame, "launches")}
+            "sim_frame": (simulator.sim_frame, "launches"),
+            "slam_propose": (propose.slam_propose, "launches")}
     return _COUNTERS
 
 

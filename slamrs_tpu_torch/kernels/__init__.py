@@ -129,4 +129,13 @@ def library() -> ctypes.CDLL:
                    # valid, present
                    ci, vp]  # worlds, stream
     fn.restype = ci
+    fn = lib.slamrs_slam_propose
+    fn.argtypes = [vp, vp, vp,  # poses, eps_c, eps_t
+                   vp, vp, vp,  # odometry: left, right, wheel base
+                   vp, vp, vp, vp, vp,  # angles 0 and 1, distances, valid,
+                   # present
+                   vp,  # the host scalars (SlamProposeParams)
+                   vp, vp, vp, vp, vp,  # poses, log_motion, pp, r0, table
+                   vp]  # stream
+    fn.restype = ci
     return lib

@@ -9,7 +9,9 @@ and N_eff, and resample systematically when N_eff falls to
 
 - ``fused`` (the throughput path): likelihood and integrate in one kernel
   (:func:`slamrs_tpu_torch.ops.fused.fused_update`), maps ``[P, H, Wp]``
-  with 128-padded columns, f32 or bf16;
+  with 128-padded columns, f32 or bf16; before it, one world's sample,
+  motion log-probability and kernel inputs are one more launch
+  (:func:`slamrs_tpu_torch.ops.propose.slam_propose`);
 - ``dda`` (the default, the fidelity path held against the reference's
   line-by-line oracle) and ``dense``: the likelihood on the old maps at
   the sampled poses (:func:`~slamrs_tpu_torch.ops.grid.grid_log_likelihood`),
@@ -82,6 +84,7 @@ from slamrs_tpu_torch.ops.fused import (fits_vmem_resident, fused_update,
 from slamrs_tpu_torch.ops.grid import (GridSpec2D, dense_window_for,
                                        grid_integrate, grid_integrate_dense,
                                        grid_log_likelihood)
+from slamrs_tpu_torch.ops.propose import Proposal, slam_propose
 from slamrs_tpu_torch.ops.tiles import (fused_update_tiled, init_tiled,
                                         materialize_one)
 from slamrs_tpu_torch.parallel import fleet as pf
@@ -309,29 +312,38 @@ def resample_mechanism(config: GridSlamConfig, state: GridSlamState) -> str:
     return "gather" if config.resample_cow is False else "cow"
 
 
-def _fused_integrate(state: GridSlamState, new_poses: Tensor, scan: Scan,
+def _propose(state: GridSlamState, scan: Scan, odometry: OdometryReading,
+             config: GridSlamConfig, noise: UpdateNoise) -> Proposal:
+    """The fused path's sampled poses, motion log-probability and kernel
+    inputs (one launch on the card, :func:`~slamrs_tpu_torch.ops.propose.
+    slam_propose`), for the rows the kernel clamps its windows to: the
+    maps', or a tile pool's bands times their rows."""
+    rows, cols = state.grids.shape[-2:]
+    if state.tile_table is not None:
+        rows *= state.tile_table.shape[-1]
+    return slam_propose(state.poses, odometry, (noise.eps_c, noise.eps_t),
+                        scan, config.grid_spec, config.max_scan_range,
+                        config.beam_spacing, rows, cols)
+
+
+def _fused_integrate(state: GridSlamState, proposal: Proposal, scan: Scan,
                      config: GridSlamConfig, mechanism: str):
-    """The fused kernel under ``mechanism``: ``(grids, tile_table,
-    log_lik)``."""
-    nb = scan.angles.shape[-1]
-    if config.beam_spacing is not None:
-        dphi = config.beam_spacing
-    elif nb > 1:
-        dphi = scan.angles[1] - scan.angles[0]
-    else:
-        dphi = torch.tensor(2.0 * torch.pi, dtype=torch.float32,
-                            device=new_poses.device)
-    args = (new_poses, scan.angles[0], scan.distances, scan.valid,
-            scan.present, config.grid_spec, nb, config.max_scan_range)
+    """The fused kernel under ``mechanism`` on the proposal's prepared
+    inputs: ``(grids, tile_table, log_lik)``."""
+    args = (proposal.poses, scan.angles[0], scan.distances, scan.valid,
+            scan.present, config.grid_spec, scan.angles.shape[-1],
+            config.max_scan_range)
     if mechanism == "tiled":
         return fused_update_tiled(state.grids, state.tile_table, *args,
-                                  dphi=dphi, ancestors=state.ancestors)
+                                  ancestors=state.ancestors,
+                                  prep=proposal.prep)
     if mechanism == "deferred":
         grids, log_lik = fused_update(state.grids, *args,
-                                      ancestors=state.ancestors, dphi=dphi)
+                                      ancestors=state.ancestors,
+                                      prep=proposal.prep)
     else:
-        grids, log_lik = fused_update(state.grids, *args, dphi=dphi,
-                                      in_place=True)
+        grids, log_lik = fused_update(state.grids, *args, in_place=True,
+                                      prep=proposal.prep)
     return grids, None, log_lik
 
 
@@ -352,14 +364,17 @@ def update(state: GridSlamState, scan: Scan, odometry: OdometryReading,
             raise ValueError("update needs noise or a generator")
         noise = draw_noise(generator, p, dev)
 
-    new_poses = motion.sample(state.poses, odometry.distance_left,
-                              odometry.distance_right, odometry.wheel_base,
-                              eps=(noise.eps_c, noise.eps_t))
     tile_table = None
     if config.integrate == "fused":
-        grids, tile_table, log_lik = _fused_integrate(state, new_poses, scan,
+        proposal = _propose(state, scan, odometry, config, noise)
+        new_poses, log_motion = proposal.poses, proposal.log_motion
+        grids, tile_table, log_lik = _fused_integrate(state, proposal, scan,
                                                       config, mechanism)
     else:
+        new_poses = motion.sample(state.poses, odometry.distance_left,
+                                  odometry.distance_right,
+                                  odometry.wheel_base,
+                                  eps=(noise.eps_c, noise.eps_t))
         # the likelihood on the old maps at the sampled poses, then the
         # old maps integrated at the same poses (gridslam.py:401-416);
         # dense takes its beam spacing from scan.angles
@@ -374,9 +389,10 @@ def update(state: GridSlamState, scan: Scan, odometry: OdometryReading,
         else:
             grids = grid_integrate(state.grids, *lik_args,
                                    config.max_ray_steps)
-    log_motion = motion.log_prob(state.poses, new_poses,
-                                 odometry.distance_left,
-                                 odometry.distance_right, odometry.wheel_base)
+        log_motion = motion.log_prob(state.poses, new_poses,
+                                     odometry.distance_left,
+                                     odometry.distance_right,
+                                     odometry.wheel_base)
 
     weights, ancestors, best_idx, n_eff, do_resample = _weigh_and_select(
         log_lik, log_motion, state.weights, config.resample_neff_frac, p,

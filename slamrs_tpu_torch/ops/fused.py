@@ -200,6 +200,22 @@ def particle_tables(prep: Prepared) -> Tensor:
         n, 8, BEAM_PAD)
 
 
+def check_geometry(cols: int, num_beams: int) -> None:
+    """Raise unless the kernels take maps of ``cols`` padded columns and a
+    scan of ``num_beams`` beams."""
+    if cols % 128:
+        raise ValueError(f"grid column axis must be padded to 128, got {cols}")
+    if num_beams > 383:
+        raise ValueError(f"num_beams must be <= 383, got {num_beams}")
+
+
+def prepared_window_rows(spec: GridSpec2D, max_range_m: float,
+                         rows: int) -> int:
+    """The window rows of :func:`prepare` for maps of ``rows`` rows."""
+    return min(window_rows(spec, max_range_m),
+               rows - rows % 8 if rows % 8 else rows)
+
+
 def prepare(rows: int, cols: int, poses: Tensor, angles0, distances: Tensor,
             valid: Tensor, present: Tensor, spec: GridSpec2D, num_beams: int,
             max_range_m: float, dphi) -> Prepared:
@@ -212,10 +228,7 @@ def prepare(rows: int, cols: int, poses: Tensor, angles0, distances: Tensor,
     [W]``, ``dphi`` a float, a scalar or ``[W]``) serve ``N / W``
     consecutive particles each, as the JAX package's kernel vmapped over
     worlds (``slamrs_tpu/parallel/shard.py:61-68``)."""
-    if cols % 128:
-        raise ValueError(f"grid column axis must be padded to 128, got {cols}")
-    if num_beams > 383:
-        raise ValueError(f"num_beams must be <= 383, got {num_beams}")
+    check_geometry(cols, num_beams)
     dev = poses.device
     p = poses.shape[0]
     if distances.dim() not in (1, 2):
@@ -235,8 +248,7 @@ def prepare(rows: int, cols: int, poses: Tensor, angles0, distances: Tensor,
             return v.expand(p)
         return v[:, None].expand(worlds, p // worlds).reshape(p)
 
-    wr = min(window_rows(spec, max_range_m),
-             rows - rows % 8 if rows % 8 else rows)
+    wr = prepared_window_rows(spec, max_range_m, rows)
 
     # per-column Python offsets (float32 when they meet the f32 poses):
     # the same values as subtracting a [2] tensor, without a host copy
@@ -399,17 +411,20 @@ def fused_update_reference(grids: Tensor, poses: Tensor, angles0,
                            spec: GridSpec2D, num_beams: int,
                            max_range_m: float, dphi=None,
                            ancestors: Tensor | None = None,
-                           in_place: bool = False
+                           in_place: bool = False,
+                           prep: Prepared | None = None
                            ) -> tuple[Tensor, Tensor]:
     """Plain PyTorch version of the fused update (counterpart of the JAX
     ``fused_update_reference``, ``fused.py:1915``, with lineage: the maps
     are gathered by ``ancestors`` first).  Returns ``(grids', lik [P])``;
     leaves ``grids`` untouched unless ``in_place``, where ``grids'`` is
-    ``grids`` with its window rows updated."""
+    ``grids`` with its window rows updated.  ``prep``: :func:`prepare`'s
+    result for these inputs, made by the caller."""
     _check_in_place(in_place, ancestors)
     p, rows, cols = grids.shape
-    prep = prepare(rows, cols, poses, angles0, distances, valid, present,
-                   spec, num_beams, max_range_m, dphi)
+    if prep is None:
+        prep = prepare(rows, cols, poses, angles0, distances, valid, present,
+                       spec, num_beams, max_range_m, dphi)
     if in_place:
         maps = grids
     else:
@@ -432,7 +447,8 @@ def fused_update(grids: Tensor, poses: Tensor, angles0, distances: Tensor,
                  valid: Tensor, present: Tensor, spec: GridSpec2D,
                  num_beams: int, max_range_m: float,
                  ancestors: Tensor | None = None, dphi=None,
-                 in_place: bool = False) -> tuple[Tensor, Tensor]:
+                 in_place: bool = False, prep: Prepared | None = None
+                 ) -> tuple[Tensor, Tensor]:
     """One RBPF grid update for all particles.
 
     grids: [P, H, Wp] f32 or bf16 log-odds, ``Wp % 128 == 0``; poses:
@@ -442,7 +458,9 @@ def fused_update(grids: Tensor, poses: Tensor, angles0, distances: Tensor,
     on the device, the resample clamps them); dphi: beam spacing, a
     Python float (static pipeline) or a tensor (traced pipeline), default
     2*pi/B; in_place: update the window rows of ``grids`` where they lie
-    (identity lineage: ``ancestors`` must be None).
+    (identity lineage: ``ancestors`` must be None); prep: the
+    :func:`prepare` of these inputs where the caller made it (one world's
+    proposal, ``ops/propose.py``), else it is made here.
 
     A fleet of ``W`` worlds is one call: ``grids``/``poses`` flattened to
     ``[W*P, ...]`` world by world, one scan per world (``distances``,
@@ -459,7 +477,7 @@ def fused_update(grids: Tensor, poses: Tensor, angles0, distances: Tensor,
         return fused_update_reference(grids, poses, angles0, distances, valid,
                                       present, spec, num_beams, max_range_m,
                                       dphi=dphi, ancestors=ancestors,
-                                      in_place=in_place)
+                                      in_place=in_place, prep=prep)
     if grids.device.type != "cuda":
         raise ValueError(
             f"fused_update runs on cuda or cpu, not {grids.device}")
@@ -489,8 +507,9 @@ def fused_update(grids: Tensor, poses: Tensor, angles0, distances: Tensor,
         if t.shape != distances.shape:
             raise ValueError(f"{name} must be shaped as distances "
                              f"{list(distances.shape)}, got {list(t.shape)}")
-    prep = prepare(rows, cols, poses, angles0, distances, valid, present,
-                   spec, num_beams, max_range_m, dphi)
+    if prep is None:
+        prep = prepare(rows, cols, poses, angles0, distances, valid, present,
+                       spec, num_beams, max_range_m, dphi)
     return launch_kernel(grids, ancestors, prep, spec, num_beams)
 
 

@@ -249,9 +249,11 @@ class TiledStep(NamedTuple):
 def plan_step(pool: Tensor, table: Tensor, poses: Tensor, angles0,
               distances: Tensor, valid: Tensor, present: Tensor,
               spec: GridSpec2D, num_beams: int, max_range_m: float,
-              dphi=None, ancestors: Tensor | None = None) -> TiledStep:
-    """Relabel ``table[ancestors]``, prepare the kernel's inputs, and plan
-    the copy on write (``tiles.py:553-614``, ``:683-740``).
+              dphi=None, ancestors: Tensor | None = None,
+              prep: Prepared | None = None) -> TiledStep:
+    """Relabel ``table[ancestors]``, prepare the kernel's inputs (or take
+    ``prep``, the caller's :func:`prepare` of them for ``nb*hb`` rows),
+    and plan the copy on write (``tiles.py:553-614``, ``:683-740``).
 
     The window row origin is the tiled construction: ``round(cy) -
     wr//2`` clipped to ``nb*hb - wr`` (into the band padding, whose rows
@@ -268,8 +270,9 @@ def plan_step(pool: Tensor, table: Tensor, poses: Tensor, angles0,
     if distances.dim() != 1:
         raise ValueError("the tiled update takes one world's [B] scan (a "
                          "tiled fleet runs it once per world)")
-    prep = prepare(nb * hb, cols, poses, angles0, distances, valid, present,
-                   spec, num_beams, max_range_m, dphi)
+    if prep is None:
+        prep = prepare(nb * hb, cols, poses, angles0, distances, valid,
+                       present, spec, num_beams, max_range_m, dphi)
     if prep.wr != wr:
         raise ValueError(f"{nb} bands of {hb} rows hold no {wr}-row window")
     t0 = torch.div(prep.r0, hb, rounding_mode="floor")
@@ -285,15 +288,17 @@ def plan_step(pool: Tensor, table: Tensor, poses: Tensor, angles0,
 def fused_update_tiled(pool: Tensor, table: Tensor, poses: Tensor, angles0,
                        distances: Tensor, valid: Tensor, present: Tensor,
                        spec: GridSpec2D, num_beams: int, max_range_m: float,
-                       dphi=None, ancestors: Tensor | None = None
+                       dphi=None, ancestors: Tensor | None = None,
+                       prep: Prepared | None = None
                        ) -> tuple[Tensor, Tensor, Tensor]:
     """One RBPF grid update over tiled maps.
 
     Same observable result as the dense ``fused_update`` on the
     materialized maps (likelihood on the pre-update window, full-width
     cell pass), with copy-on-write band privatization.  ``ancestors`` is
-    the pending resample lineage (i32[P]), applied as the table relabel.
-    Updates ``pool`` in place and returns ``(pool, new_table, lik f32[P])``.
+    the pending resample lineage (i32[P]), applied as the table relabel;
+    ``prep`` as in :func:`plan_step`.  Updates ``pool`` in place and
+    returns ``(pool, new_table, lik f32[P])``.
     """
     if pool.device.type != "cpu":
         check_inputs(pool, table, poses, ancestors)
@@ -303,7 +308,7 @@ def fused_update_tiled(pool: Tensor, table: Tensor, poses: Tensor, angles0,
         if pool.data_ptr() % 16:
             raise ValueError("pool must be 16-byte aligned")
     step = plan_step(pool, table, poses, angles0, distances, valid, present,
-                     spec, num_beams, max_range_m, dphi, ancestors)
+                     spec, num_beams, max_range_m, dphi, ancestors, prep)
     if pool.device.type == "cpu":
         lik = fused_update_tiled_reference(pool, step.src, step.dst,
                                            step.woff, step.prep, spec,

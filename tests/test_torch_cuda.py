@@ -50,6 +50,11 @@ The simulator kernel (a frame's ticks and its lidar scan) bitwise its
 plain version on the card on the three benchmark scenes, at one world
 and 256, with the roundings it repeats (cos and sin, ``deg2rad``, the
 division by the wheel base) bitwise ATen's, one launch a frame.
+The proposal kernel (a grid update's motion sample, motion
+log-probability and fused-kernel inputs) bitwise its plain version on the
+card at the headline's, the fleet's map geometry's and config 3's tile
+pool's shapes, ``torch.remainder`` in the form it repeats, one kernel a
+single-world fused update, and the same bits eager and replayed.
 """
 
 import functools
@@ -1413,3 +1418,104 @@ def test_sim_frame_launches_once_a_frame(dev):
     before = simulator.sim_frame.launches
     fw.rollout(fw.init(), 13, capture=False)
     assert simulator.sim_frame.launches - before == 13
+
+
+# --- the proposal kernel (csrc/slam_propose.cu) against its plain version ---
+
+@pytest.mark.parametrize("shape", sorted(_smoke().PROPOSE_SHAPES))
+def test_slam_propose_matches_plain_bitwise(dev, shape):
+    """``slam_propose_kernel`` against ``slam_propose_reference`` on the
+    card: every output bit for bit (sampled poses, log_motion, pp, r0, the
+    beam table), one launch a call, over ``chip_smoke.py``'s cases: poses
+    on the window's clamp rows, on row halves, headings at +-pi and on the
+    remainder's wrap, zero odometry, a wheel base on the card, invalid,
+    absent, zero and over-range beams, 360, 383 and one beam, static and
+    traced spacing."""
+    smoke = _smoke()
+    geom, p, tiled = smoke.PROPOSE_SHAPES[shape]
+    spec = GridSpec2D(*geom)
+    rows, cols = smoke.propose_rows_cols(torch, spec, p, tiled)
+    for seed in range(smoke.PROPOSE_SEEDS):
+        got, want = smoke.propose_pair(
+            torch, spec, rows, cols, smoke.propose_case(torch, spec, p, seed))
+        assert smoke.propose_same(torch, got, want) == [], seed
+
+
+def test_torch_remainder_is_fmod_then_add(dev):
+    """The card's ``torch.remainder`` by 2 pi is ``fmod`` with 2 pi added
+    where the signs differ, the form the kernel's angle difference
+    repeats."""
+    assert _smoke().propose_remainder_mismatches(torch) == 0
+
+
+def _headline_grid(p=64):
+    from slamrs_tpu_torch.models import gridslam as gs
+
+    config = gs.GridSlamConfig(
+        position_x=-2.0, position_y=-2.0, width=4.0, height=4.0,
+        resolution=0.05, n_particles=p, max_scan_range=1.0,
+        integrate="fused", resample_neff_frac=0.5, grid_dtype="bfloat16")
+    return config, gs.GridSlamState.init(config, "cuda")
+
+
+def test_a_grid_update_is_one_slam_propose_kernel(dev):
+    """One single-world fused update launches ``slam_propose_kernel``
+    once (the profiler's kernel names and the counter); a dda update
+    never."""
+    import dataclasses
+
+    from slamrs_tpu_torch.models import gridslam as gs
+    from slamrs_tpu_torch.ops import propose
+
+    smoke = _smoke()
+    for integrate, want in (("fused", 1), ("dda", 0)):
+        config, state = _headline_grid()
+        if integrate == "dda":
+            config = dataclasses.replace(config, integrate="dda",
+                                         grid_dtype="float32")
+            state = gs.GridSlamState.init(config, "cuda")
+        _, odometry, _, scan, _ = smoke.propose_case(
+            torch, config.grid_spec, 64, 1)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        state, _ = gs.update(state, scan, odometry, config, generator=gen)
+        noise = gs.draw_noise(gen, 64, "cuda")
+        before = propose.slam_propose.launches
+        prof = smoke.started_profile(torch)
+        gs.update(state, scan, odometry, config, noise=noise)
+        torch.cuda.synchronize()
+        prof.stop()
+        names = [e.key for e in prof.key_averages()
+                 if e.device_type.name == "CUDA"
+                 for _ in range(e.count) if "slam_propose_kernel" in e.key]
+        assert len(names) == want, integrate
+        assert propose.slam_propose.launches - before == want, integrate
+
+
+def test_slam_propose_is_the_same_eager_and_replayed(dev):
+    """The kernel captured in a CUDA graph and replayed gives the eager
+    launch's bits, every output, twice over."""
+    from slamrs_tpu_torch.ops import propose
+
+    smoke = _smoke()
+    geom, p, tiled = smoke.PROPOSE_SHAPES["headline_1024"]
+    spec = GridSpec2D(*geom)
+    rows, cols = smoke.propose_rows_cols(torch, spec, p, tiled)
+    poses, odometry, eps, scan, static = smoke.propose_case(torch, spec, p,
+                                                            3)
+    args = (poses, odometry, eps, scan, spec, 1.0, static, rows, cols)
+    eager = propose.slam_propose(*args)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        propose.slam_propose(*args)  # warm on the capture stream
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = propose.slam_propose(*args)
+    for _ in range(2):
+        for out in (replayed.poses, replayed.log_motion, replayed.prep.pp,
+                    replayed.prep.r0, replayed.prep.table):
+            out.fill_(7)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert smoke.propose_same(torch, replayed, eager) == []
