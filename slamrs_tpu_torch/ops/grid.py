@@ -21,7 +21,9 @@ computes them in plain ``jnp``, with no Pallas kernel.
   the same inputs on every call (``index_add_`` and ``scatter_add_`` use
   float atomics in arbitrary order and are not used).  Masked lanes add
   0.0 at their particle's cell (0, 0), as the JAX package does, so no
-  boolean compaction waits for the device.
+  boolean compaction waits for the device.  The lanes it adds (the walk's
+  emitted cells of present beams) are summed on the device into the
+  counter ``dda.cells`` (``utils/trace.device_counter``).
 - :func:`grid_integrate_dense` is the scatter-free polar update over a
   window around each pose; the beam lookup indexes the ``[B]`` tables
   directly (the JAX package's ``ops/lookup.radix_lookup`` is a TPU
@@ -38,6 +40,8 @@ import dataclasses
 import math as pymath
 
 import torch
+
+from slamrs_tpu_torch.utils import trace
 
 Tensor = torch.Tensor
 
@@ -211,7 +215,9 @@ def grid_integrate(grid: Tensor, spec: GridSpec2D, pose: Tensor,
     grid ``f32[P, H, W]``; pose ``f32[P, 3]``; the scan ``[B]`` or
     ``[P, B]`` lanes; ``max_steps`` the static DDA bound
     (``spec.max_ray_steps(range)``).  Returns the updated maps in a new
-    tensor.
+    tensor.  Adds the lanes it scatters (``mask & present``) to the
+    device counter ``dda.cells``, so the first call on a device must not
+    fall inside a CUDA graph capture.
     """
     p, h, w = grid.shape
     start = spec.world_to_grid(pose[..., 0:2])  # [P, 2]
@@ -223,6 +229,9 @@ def grid_integrate(grid: Tensor, spec: GridSpec2D, pose: Tensor,
     xs, ys, centers, mask = traverse_ray(sx, sy, ends[..., 0], ends[..., 1],
                                          spec.cols, spec.rows, max_steps)
     mask = mask & present[..., None]  # [P, B, T]
+    # an int32 sum casts the mask to half the bytes of the default int64
+    trace.device_counter("dda.cells", grid.device).add_(
+        mask.sum(dtype=torch.int32))
     ddx = centers[..., 0] - sx[..., None]
     ddy = centers[..., 1] - sy[..., None]
     d = torch.sqrt(ddx * ddx + ddy * ddy)
