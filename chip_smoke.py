@@ -36,6 +36,17 @@ Phases, each printing one line, any failure raising (exit code != 0):
    and one beam, static and traced spacing; ``torch.remainder``'s form
    over 2**20 values; then its device time beside the plain chain's at
    the headline's and config 3's shapes (``kernel_time_slam_propose``);
+2d. ``kernel_vs_plain_dda_integrate``: the dda integrate kernel
+   (``csrc/dda_integrate.cu``) against its plain version on the card, the
+   new maps bitwise and the ``dda.cells`` counts equal, at the
+   ``dda.rollout`` cell's maps, ``grid_slam.yaml``'s App maps and an
+   8-world fleet's ``[W*P, B]`` scan rows, 6 cases each (poses at cell
+   (0, 0), on cell corners and off the grid, zero-length, short, invalid,
+   absent and over-range beams), and against ``h100bench/reference/
+   dda.py`` on the in-range ones; runs of 1, 31, 32, 33, 63, 64, 65, 360
+   and ~6,000 lanes on one cell; ``index_put_(accumulate=True)``'s sum
+   order on random values; then its device time beside the plain chain's
+   at the cell's shape (``kernel_time_dda_integrate``);
 3. kernel vs plain version at ``[1024, 80, 128]`` bf16 (0.05 m) and
 4. at ``[1024, 200, 256]`` bf16 (0.02 m): static and traced beam
    spacing, the 360-beam scan, a 90-beam partial sector with mixed flags,
@@ -122,8 +133,8 @@ then ICP odometry (BASELINE config 1) and EKF landmark SLAM:
     300-tick EKF rollouts with their peak memory; a profiled 300-tick ICP
     run with K4's own device time and launches;
 
-then grid SLAM's dda (the default ``integrate``, the fidelity path) and
-dense integrators, plain PyTorch with no kernel of their own:
+then grid SLAM's dda (the default ``integrate``, the fidelity path: one
+dda integrate kernel an update) and dense (plain PyTorch) integrators:
 
 18. the grid functions on the card against the same on the CPU, on
     random 1,024-particle inputs at 0.05 m (edge poses, beams past the
@@ -132,19 +143,22 @@ dense integrators, plain PyTorch with no kernel of their own:
     within 5e-3 (``tests/test_parity.py``'s map gate: the card's cos, sin
     and atan2 are a few ulps from the CPU's); ``grid_log_likelihood``
     within rtol 1e-5 / atol 1e-4 on >= 99.9 % of the particles;
-    ``grid_integrate`` twice on the card bitwise equal (the sort-based
-    ``index_put_`` accumulate); the device time of each;
+    ``grid_integrate`` twice on the card bitwise equal (its kernel, in
+    the sort-based ``index_put_`` accumulate's order); the device time of
+    each;
 19. ``compile_world(configs/grid_slam.yaml)`` (dda, 10 particles at
-    0.02 m) for 300 ticks with numpy draws injected: no kernel launched,
-    finite outputs, weights summing to 1, best-pose RMSE <= 0.15 m (the
-    JAX package gives 0.012-0.052 m on the CPU over seeds 0-2); the same
-    ticks and draws on the CPU: best poses within 0.04 m (2 cells) RMSE,
-    and the frames whose ancestors differ are printed;
+    0.02 m) for 300 ticks with numpy draws injected: one dda integrate
+    kernel a frame and no other, finite outputs, weights summing to 1,
+    best-pose RMSE <= 0.15 m (the JAX package gives 0.012-0.052 m on the
+    CPU over seeds 0-2); the same ticks and draws on the CPU: best poses
+    within 0.04 m (2 cells) RMSE, and the frames whose ancestors differ
+    are printed;
 20. ``make_fused`` with the headline's scene and cadence at
     ``integrate="dda"`` and ``"dense"`` (1,024 particles, 0.05 m, maps
     ``f32[1024, 80, 80]``: bench.py's ``dda_parity_path`` shape) for 300
-    ticks: no kernel launched, finite outputs, RMSE <= 0.08 m (the JAX
-    package gives 0.018 and 0.027 m on the CPU);
+    ticks: one dda integrate kernel a frame (dda) or none (dense), finite
+    outputs, RMSE <= 0.08 m (the JAX package gives 0.018 and 0.027 m on
+    the CPU);
 21. ``tests/test_path_deviation.py`` on the card (its scene, odometry and
     draws, carried here as numbers): fused (K1 once per update), dense and
     dda; best-pose RMSE against dda <= 2 cells and occupancy agreement
@@ -179,11 +193,12 @@ f32 ``[256, 10, 200, 256]``, ``integrate="fused"``):
     and on the CPU: best poses within 0.04 m RMSE, the frames whose
     ancestors differ printed;
 28. other fleets: a tiled fleet (4 worlds x 64 particles, 6.4 x 12.8 m,
-    K3 once per world a frame), ``grid_slam.yaml`` at 16 worlds (dda, no
-    kernel), ``icp_test.yaml`` at 8 worlds (K4 once an iteration for all
-    worlds; the worlds bitwise equal to each other, and within 2e-3 m of
-    the single-world run of phase 14: batched products sum in another
-    order) and ``landmarks.yaml`` at 8 worlds;
+    K3 once per world a frame), ``grid_slam.yaml`` at 16 worlds (dda, one
+    dda integrate kernel a frame for all worlds), ``icp_test.yaml`` at 8
+    worlds (K4 once an iteration for all worlds; the worlds bitwise equal
+    to each other, and within 2e-3 m of the single-world run of phase 14:
+    batched products sum in another order) and ``landmarks.yaml`` at 8
+    worlds;
 29. one copy-on-write and one whole-set-gather fleet update at 256 x 10
     under ``torch.cuda.set_sync_debug_mode("error")``;
 30. times: K1 in place at the fleet shape (kernel, plain version, bound
@@ -207,7 +222,8 @@ path:
 32. ``app_icp_test_900``: K4 ten times an update, RMSE <= 0.04 m, the
     first 300 frames again on the CPU within 2e-3 m at every update;
 33. ``app_grid_slam_yaml_300`` (dda): the card and the CPU under the same
-    numpy draws, best poses within 0.04 m RMSE, no kernel;
+    numpy draws, best poses within 0.04 m RMSE, one dda integrate kernel
+    an update and no other;
 34. ``app_landmarks_300``: EKF RMSE <= 0.03 m, no kernel;
 35. ``app_no_host_sync``: after frames that capture and replay every
     graph, 30 idle simulator ticks and one frame whose SLAM update
@@ -258,9 +274,10 @@ CPU):
     particles, ``[10, 400, 400]`` f32) connected to it over TCP and
     driven forward through ``!Controls``: at least 20 ScanOdometry
     messages and 20 dda updates within 60 s, never more updates than
-    messages, no kernel, finite poses that move more than 0.05 m;
-    ``terminate()`` returns and the robot process ends at ctrl-C with
-    exit code 0 (its stderr printed); messages/s and the update span.
+    messages, one dda integrate kernel an update and no other, finite
+    poses that move more than 0.05 m; ``terminate()`` returns and the
+    robot process ends at ctrl-C with exit code 0 (its stderr printed);
+    messages/s and the update span.
 
 then sharded fleets (``slamrs_tpu_torch/parallel``): meshes whose
 every entry is ``cuda:0`` (``make_mesh(n, particle_axis=k,
@@ -283,7 +300,8 @@ says how long the phases took):
 47. ``mesh_config3_tiled_2x1_90``: two config-3 worlds (a 2.35 GB tile
     pool each) on 2 x 1 for 90 ticks: bitwise the one-device tiled
     fleet, K3 once per world a frame;
-48. ``mesh_grid_slam_yaml_4x2_300`` (dda, 16 worlds, bitwise, no kernel),
+48. ``mesh_grid_slam_yaml_4x2_300`` (dda, 16 worlds, bitwise, one dda
+    integrate kernel per grid block a frame),
     ``mesh_icp_test_4x1_300`` and ``mesh_landmarks_4x1_300`` (8 worlds:
     the RMSE gates of phases 14 and 15; ICP poses within 2e-3 m of the
     one-device fleet every frame, K4 ten times per world shard a frame;
@@ -1849,6 +1867,274 @@ def check_slam_propose(torch):
     return times
 
 
+# the dda integrate kernel (csrc/dda_integrate.cu); (map geometry,
+# particles, worlds) of the shapes it is checked at: the dda.rollout
+# cell's maps, grid_slam.yaml's App maps (10 particles at 0.02 m) and a
+# fleet of 8 worlds as [W*P, B] scan rows; seeds a shape
+DDA_SHAPES = {
+    "dda_1024": ((-2.0, -2.0, 4.0, 4.0, 0.05), 1024, None),
+    "app_geometry_10": ((-2.0, -2.0, 4.0, 4.0, 0.02), 10, None),
+    "fleet_8x16": ((-2.0, -2.0, 4.0, 4.0, 0.05), 16, 8)}
+DDA_SEEDS = 6
+# the run lengths whose sum order is checked: one, either side of one and
+# two warp passes, a beam's worth (the robot's cell), and a run as long
+# as the lanes that cell (0, 0) takes
+DDA_RUN_LENGTHS = (1, 31, 32, 33, 63, 64, 65, 360, 6000)
+
+
+def dda_case(torch, spec, p, seed, worlds=None, within=False):
+    """Inputs of ``grid_integrate`` on the card for ``seed``: ``(grids,
+    poses, (angles, distances, valid, present))``.  Maps of log-odds,
+    ~30 % nonzero and ~1 % -0.0; poses over the map and 0.3 m past its
+    edges, the first rows at cell (0, 0)'s centre and corner, left of the
+    grid, in the top right cell, far off and right of it, and on cell
+    corners (multiples of 0.25 m) at headings 0 and pi/2.  360 beams
+    (first angle 0.1 for odd seeds) out to 1.3 m (to the 1 m range with
+    ``within``), every 13th of zero length, every 17th a fifth of a cell,
+    ~80 % valid, ~90 % present.  With ``worlds``, ``worlds * p``
+    particles and ``[W*P, B]`` scan rows: a random scan a world, repeated
+    for its particles."""
+    g = torch.Generator().manual_seed(2700 + seed)
+    w = worlds or 1
+    n = w * p
+    x0, y0, res = spec.position_x, spec.position_y, spec.resolution
+    grids = torch.randn(n, spec.rows, spec.cols, generator=g) * 2.0
+    u = torch.rand(grids.shape, generator=g)
+    grids[u > 0.3] = 0.0
+    grids[u > 0.99] = -0.0
+    u = torch.rand(n, 3, generator=g)
+    poses = torch.stack([x0 - 0.3 + u[:, 0] * (spec.width + 0.6),
+                         y0 - 0.3 + u[:, 1] * (spec.height + 0.6),
+                         (u[:, 2] * 2.0 - 1.0) * math.pi], dim=-1)
+    special = [(x0 + 0.5 * res, y0 + 0.5 * res, 0.3), (x0, y0, 1.0),
+               (x0 - 0.3 * res, y0 + 0.5 * res, 0.0),
+               (x0 + spec.width - 0.5 * res, y0 + spec.height - 0.5 * res,
+                2.0), (x0 - 5.0, y0 - 5.0, 0.0),
+               (x0 + spec.width + 0.01, y0 + 1.0, math.pi)]
+    special += [(x0 + 0.25 * i, y0 + 0.25 * (i + 1),
+                 0.0 if i % 2 else math.pi / 2) for i in range(1, 13)]
+    k = min(n, len(special))
+    poses[:k] = torch.tensor(special[:k])
+    nb = 360
+    angles = (0.1 if seed % 2 else 0.0) + torch.deg2rad(
+        torch.arange(nb, dtype=torch.float32))
+
+    def scan():
+        dist = torch.rand(nb, generator=g) * (1.0 if within else 1.3)
+        dist[::13] = 0.0
+        dist[5::17] = 0.2 * res
+        return (dist, torch.rand(nb, generator=g) < 0.8,
+                torch.rand(nb, generator=g) < 0.9)
+
+    if worlds is None:
+        lanes = (angles, *scan())
+    else:
+        rows = [scan() for _ in range(w)]
+        lanes = (angles.expand(n, nb).contiguous(),
+                 *(torch.stack([r[i] for r in rows]).repeat_interleave(p, 0)
+                   for i in range(3)))
+    return grids.cuda(), poses.cuda(), tuple(t.cuda() for t in lanes)
+
+
+def dda_run_case(torch, spec, length, seed, p=8):
+    """Inputs whose robot cell takes a run of ``length`` lanes: ``p``
+    particles at a cell's centre mid-map, 360 beams of which the present
+    ones all emit that cell at step 0 (a zero-length beam thrice): a tenth
+    of the run from zero-length beams, the rest from beams a fifth of a
+    cell long or to 1 m, valid or not, so the run mixes the free,
+    occupied and +0.0 increments in beam order; the other beams absent.
+    With ``length`` over 360 the particles sit at cell (0, 0)'s centre
+    instead with every beam present, and cell (0, 0)'s run (its emitted
+    lanes among the ~6,000 not emitted) is the long one."""
+    g = torch.Generator().manual_seed(2800 + seed)
+    nb, res = 360, spec.resolution
+    corner = length > nb
+    cx = spec.position_x + (0.5 if corner else spec.cols // 2 + 0.5) * res
+    cy = spec.position_y + (0.5 if corner else spec.rows // 2 + 0.5) * res
+    poses = torch.stack([torch.full((p,), cx), torch.full((p,), cy),
+                         torch.rand(p, generator=g) * 2 * math.pi], dim=-1)
+    grids = torch.randn(p, spec.rows, spec.cols, generator=g)
+    angles = torch.deg2rad(torch.arange(nb, dtype=torch.float32))
+    dist = torch.where(torch.rand(nb, generator=g) < 0.5,
+                       torch.full((nb,), 0.2 * res),
+                       torch.rand(nb, generator=g))
+    valid = torch.rand(nb, generator=g) < 0.6
+    present = torch.ones(nb, dtype=torch.bool)
+    if corner:
+        dist[::7] = 0.0
+    else:
+        zero = length // 10
+        order = torch.randperm(nb, generator=g)
+        present[:] = False
+        present[order[:length - 2 * zero]] = True
+        dist[order[:zero]] = 0.0
+    cuda = [t.cuda() for t in (grids, poses, angles, dist, valid, present)]
+    return cuda[0], cuda[1], tuple(cuda[2:])
+
+
+def dda_pair(torch, spec, case, steps):
+    """``grid_integrate`` (the kernel, its launch counted) and
+    ``grid_integrate_reference`` on the same inputs on the card, and what
+    each added to ``dda.cells``: ``(kernel, plain, kernel_cells,
+    plain_cells)``."""
+    from slamrs_tpu_torch.ops import grid as G
+    from slamrs_tpu_torch.utils import trace
+
+    grids, poses, scan = case
+    counter = trace.device_counter("dda.cells", grids.device)
+    before, launched = int(counter), G.grid_integrate.launches
+    got = G.grid_integrate(grids, spec, poses, *scan, steps)
+    mid = int(counter)
+    if G.grid_integrate.launches != launched + 1:
+        raise AssertionError("grid_integrate did not launch its kernel")
+    want = G.grid_integrate_reference(grids, spec, poses, *scan, steps)
+    return got, want, mid - before, int(counter) - mid
+
+
+def bits_differ(torch, a, b) -> int:
+    """Elements of two float32 tensors whose bits differ (-0.0 is not
+    0.0)."""
+    return int((a.view(torch.int32) != b.view(torch.int32)).sum())
+
+
+def index_put_run_model(old, values):
+    """The sum ``index_put_(accumulate=True)`` writes on the card for one
+    cell's run of ``values`` (in lane order) onto ``old``, in numpy
+    float32: one warp, lane j adding entries j, j + 32, ... of the full
+    passes from 0.0, a ``__shfl_down`` tree (offsets 16 ... 1; a lane
+    with no partner adds its own value), lane 0 adding the rest in order,
+    then ``old + sum``."""
+    import numpy as np
+
+    f32 = np.float32
+    values = np.asarray(values, dtype=f32)
+    passes = len(values) // 32
+    lanes = np.zeros(32, dtype=f32)
+    for i in range(passes):
+        lanes = lanes + values[32 * i:32 * (i + 1)]
+    for off in (16, 8, 4, 2, 1):
+        lanes = lanes + np.concatenate([lanes[off:], lanes[32 - off:]])
+    total = lanes[0]
+    for v in values[32 * passes:]:
+        total = f32(total + v)
+    return f32(f32(old) + total)
+
+
+def index_put_run_mismatches(torch, seed=0, lengths=DDA_RUN_LENGTHS) -> list:
+    """``index_put_(accumulate=True)`` on the card against
+    :func:`index_put_run_model`: one cell a run length, random float32
+    values (normal, times 1, 1e3 or 1e-3, a tenth exact zeros) with the
+    cells' lanes interleaved at random, random old values.  Returns the
+    run lengths whose cell differs in any bit."""
+    import numpy as np
+
+    rng = np.random.default_rng(9100 + seed)
+    keys = np.concatenate([np.full(n, c) for c, n in enumerate(lengths)])
+    rng.shuffle(keys)
+    scale = rng.choice(np.float32([1.0, 1e3, 1e-3]), size=keys.size)
+    values = (rng.standard_normal(keys.size) * scale).astype(np.float32)
+    values[rng.random(keys.size) < 0.1] = 0.0
+    old = rng.standard_normal(len(lengths)).astype(np.float32)
+    out = torch.from_numpy(old).cuda()
+    out.index_put_((torch.from_numpy(keys).cuda(),),
+                   torch.from_numpy(values).cuda(), accumulate=True)
+    got = out.cpu().numpy()
+    return [n for c, n in enumerate(lengths)
+            if got[c].view(np.int32) != index_put_run_model(
+                old[c], values[keys == c]).view(np.int32)]
+
+
+def check_dda_integrate(torch):
+    """The dda integrate kernel against its plain version
+    (``ops/grid.grid_integrate_reference``) on the card: the new maps
+    bitwise and ``dda.cells``' gains equal at :data:`DDA_SHAPES`,
+    :data:`DDA_SEEDS` cases each (:func:`dda_case`), at the run lengths of
+    :data:`DDA_RUN_LENGTHS` (:func:`dda_run_case`), and the benchmark
+    reference's ``integrate`` (``h100bench/reference/dda.py``) on the
+    in-range cases; ``index_put_``'s order (:func:`index_put_run_model`)
+    on random values; then the kernel's device time beside the plain
+    chain's at the ``dda.rollout`` cell's shape, with its bound (each map
+    read and written once) and a one-element fill.  Returns the
+    kernels-line numbers."""
+    from h100bench.reference import dda as ref_dda
+    from h100bench.reference.fused import Spec
+    from slamrs_tpu_torch.ops import grid as G
+    from slamrs_tpu_torch.ops.grid import GridSpec2D
+
+    cases = mismatched = 0
+    for label, (geom, p, worlds) in DDA_SHAPES.items():
+        spec = GridSpec2D(*geom)
+        steps = spec.max_ray_steps(1.0)
+        for seed in range(DDA_SEEDS):
+            within = seed % 2 == 1 and worlds is None
+            case = dda_case(torch, spec, p, seed, worlds, within)
+            got, want, cells, plain_cells = dda_pair(torch, spec, case, steps)
+            bad = bits_differ(torch, got, want)
+            if within:
+                bad += bits_differ(torch, got, ref_dda.integrate(
+                    case[0], Spec(*geom), case[1], *case[2], steps))
+            cases += 1
+            if bad or cells != plain_cells:
+                mismatched += 1
+                emit({"phase": "kernel_vs_plain_dda_integrate",
+                      "shape": label, "seed": seed, "cells_differ": bad,
+                      "dda_cells": [cells, plain_cells]})
+    spec = GridSpec2D(*DDA_SHAPES["dda_1024"][0])
+    steps = spec.max_ray_steps(1.0)
+    runs_bad = []
+    for length in DDA_RUN_LENGTHS:
+        got, want, cells, plain_cells = dda_pair(
+            torch, spec, dda_run_case(torch, spec, length, 0), steps)
+        if bits_differ(torch, got, want) or cells != plain_cells:
+            runs_bad.append(length)
+    order_bad = sorted({n for seed in range(4)
+                        for n in index_put_run_mismatches(torch, seed)})
+    times = dda_integrate_times(torch)
+    emit({"phase": "kernel_time_dda_integrate", **times})
+    emit({"phase": "kernel_vs_plain_dda_integrate", "cases": cases,
+          "mismatched_cases": mismatched, "run_lengths_mismatched": runs_bad,
+          "index_put_order_mismatched": order_bad,
+          "bitwise_equal": not (mismatched or runs_bad or order_bad)})
+    if mismatched or runs_bad or order_bad:
+        raise AssertionError(f"dda_integrate disagrees with its plain "
+                             f"version: {mismatched} of {cases} cases, run "
+                             f"lengths {runs_bad}, index_put_'s order "
+                             f"{order_bad}")
+    return times
+
+
+def dda_integrate_times(torch):
+    """At the ``dda.rollout`` cell's shape (1,024 f32 80 x 80 maps, 360
+    beams, 34 steps; :func:`dda_case` seed 1): the kernel alone on the
+    grid coordinates, ``grid_integrate`` (the kernel and the endpoints'
+    ATen kernels), the plain chain, the bound (each map read and written
+    once, start and ends read) and a one-element fill, in microseconds."""
+    from slamrs_tpu_torch.ops import grid as G
+    from slamrs_tpu_torch.ops.grid import GridSpec2D
+
+    spec = GridSpec2D(*DDA_SHAPES["dda_1024"][0])
+    steps = spec.max_ray_steps(1.0)
+    grids, poses, scan = dda_case(torch, spec, 1024, 1)
+    args = (grids, spec, poses, *scan, steps)
+    res = torch.tensor(spec.resolution, device="cuda")
+    start = ((poses[:, 0] - spec.position_x) / res,
+             (poses[:, 1] - spec.position_y) / res)
+    ends = G.endpoint_cells(spec, poses, scan[0], scan[1])
+    measured = scan[1] / res
+    kernel_ms = time_call(torch, lambda: G._integrate_on_card(
+        grids, start, ends, measured, scan[2], scan[3], steps))
+    ms = time_call(torch, lambda: G.grid_integrate(*args))
+    plain_ms = time_call(torch, lambda: G.grid_integrate_reference(*args))
+    floor_ms = time_call(torch, lambda: torch.zeros(1, device="cuda"))
+    nbytes = 4 * (2 * grids.numel() + 2 * start[0].numel()
+                  + 2 * ends[0].numel())
+    return {"shape": list(grids.shape), "steps": steps,
+            "kernel_us": kernel_ms * 1e3, "integrate_us": ms * 1e3,
+            "plain_us": plain_ms * 1e3,
+            "bound_us": nbytes / PEAK_BYTES_PER_S * 1e6, "bound_by": "bytes",
+            "launch_floor_us": floor_ms * 1e3}
+
+
 def preset_world(torch, name, device="cuda"):
     from slamrs_tpu_torch.graph.compile import compile_world
     from slamrs_tpu_torch.graph.config import load_config
@@ -2126,7 +2412,7 @@ def time_icp_ekf_rollouts(torch):
                     kernel="nn_argmin")
 
 
-# --- grid SLAM's dda and dense integrators (plain PyTorch, no kernel) ---
+# --- grid SLAM's dda (its integrate kernel) and dense integrators ---
 
 GRID_SLAM_RMSE_GATE_M = 0.15
 GRID_SLAM_CPU_GATE_M = 0.04  # 2 cells of configs/grid_slam.yaml
@@ -2357,9 +2643,11 @@ def check_grid_slam_yaml(torch):
           "card_vs_cpu_best_pose_rmse_m": gap,
           "frames_where_ancestors_differ": differ, "weights_sum": wsum,
           "finite": finite, "seconds": seconds})
-    if any(slam_counts(counts).values()) \
+    if slam_counts(counts) != dict(DDA_KERNELS, grid_integrate=frames) \
             or counts["sim_frame"] != sim_launches(fw, 300):
-        raise AssertionError(f"the dda path launched a kernel: {counts}")
+        raise AssertionError(f"the dda path launched {counts}, expected one "
+                             f"dda integrate kernel in each of {frames} "
+                             f"frames")
     if not finite or abs(wsum - 1.0) > 1e-5:
         raise AssertionError("non-finite outputs or weights not normalized")
     if not rmse <= GRID_SLAM_RMSE_GATE_M:
@@ -2372,7 +2660,10 @@ def check_grid_slam_yaml(torch):
 
 
 NO_KERNELS = {"fused_update": 0, "fused_update_tiled": 0, "cow_copy": 0,
-              "nn_argmin": 0, "icp_solve": 0, "slam_propose": 0}
+              "nn_argmin": 0, "icp_solve": 0, "slam_propose": 0,
+              "grid_integrate": 0}
+# the dda path: the dda integrate kernel once an update, no other
+DDA_KERNELS = dict(NO_KERNELS, fused_update_in_place=0, grid_integrate=1)
 
 
 def check_path_deviation(torch):
@@ -2741,11 +3032,11 @@ def check_fleet_card_vs_cpu(torch):
 
 def check_other_fleets(torch, icp_single_outs):
     """A small tiled fleet (K3 once per world a frame), ``grid_slam.yaml``
-    at 16 worlds (dda, no kernel), ``icp_test.yaml`` at 8 worlds (K4 once
-    an iteration for all worlds; the worlds, which draw nothing and see
-    the same scans, bitwise equal, and within ``ICP_CPU_GATE_M`` of the
-    single-world run) and ``landmarks.yaml`` at 8 worlds.  Returns the
-    launch counts of the tiled and ICP fleets."""
+    at 16 worlds (dda, one dda integrate kernel a frame), ``icp_test.yaml``
+    at 8 worlds (K4 once an iteration for all worlds; the worlds, which
+    draw nothing and see the same scans, bitwise equal, and within
+    ``ICP_CPU_GATE_M`` of the single-world run) and ``landmarks.yaml`` at
+    8 worlds.  Returns the launch counts of the tiled and ICP fleets."""
     tiled = fleet_world(torch, position_x=-3.2, position_y=-6.4, width=6.4,
                         height=12.8, resolution=0.05, n_particles=64,
                         grid_dtype="bfloat16", resample_cow="tiled")
@@ -2757,7 +3048,8 @@ def check_other_fleets(torch, icp_single_outs):
         raise AssertionError("the tiled fleet holds no per-world tables")
     check_fleet_rollout(torch, preset_world(torch, "grid_slam.yaml"), 16, 300,
                         "grid_slam_yaml_16_300",
-                        rmse_gate=GRID_SLAM_RMSE_GATE_M, expect=NO_KERNELS)
+                        rmse_gate=GRID_SLAM_RMSE_GATE_M,
+                        expect=dict(DDA_KERNELS, grid_integrate="frames"))
     icp_fw = preset_world(torch, "icp_test.yaml")
     icp_counts, outs, _ = check_fleet_rollout(
         torch, icp_fw, 8, 300, "icp_8_300", est="icp_pose",
@@ -3112,7 +3404,8 @@ def check_mesh_config3(torch):
 
 def check_mesh_other_filters(torch):
     """``grid_slam.yaml`` (dda) at 16 worlds on 4 x 2 for 300 ticks,
-    bitwise the one-device fleet, no kernel; ``icp_test.yaml`` and
+    bitwise the one-device fleet, one dda integrate kernel per grid block
+    a frame; ``icp_test.yaml`` and
     ``landmarks.yaml`` at 8 worlds on 4 x 1 for 300 ticks against the
     one-device fleets: ICP poses within 2e-3 m every frame (K4 at ``b =
     W_loc``, ten launches per world shard a frame) and the RMSE gates
@@ -3126,10 +3419,12 @@ def check_mesh_other_filters(torch):
     equal = same_run(torch, sharded, plain)
     mesh_phase("grid_slam_yaml_4x2_300", sharded, plain, bitwise_equal=equal,
                frames=sharded.frames)
-    require(equal and not any(slam_counts(sharded.counts).values())
+    blocks = 8  # 4 x 2: each grid block integrates its scans at once
+    require(equal and slam_counts(sharded.counts) == dict(
+                DDA_KERNELS, grid_integrate=blocks * sharded.frames)
             and sharded.counts["sim_frame"] == sim_launches(fw, 300, rows=4),
             "grid_slam.yaml on 4 x 2 differs from the one-device fleet or "
-            "launched a kernel")
+            "launched other than one dda integrate kernel a block a frame")
     mesh = cuda_mesh(torch, 1, n=4)
     icp_counts = None
     for name, est, gate in (("icp_test.yaml", "icp_pose", ICP_RMSE_GATE_M),
@@ -3431,7 +3726,7 @@ def check_app_grid_slam_fused(torch):
     want = {"fused_update": node.updates, "fused_update_in_place": 0,
             "cow_copy": 0, "fused_update_tiled": 0, "nn_argmin": 0,
             "icp_solve": 0, "sim_frame": sim_ticks(app),
-            "slam_propose": node.updates}
+            "slam_propose": node.updates, "grid_integrate": 0}
     if counts != want or node.updates < 45 or len(spans.ms) != node.updates:
         raise AssertionError(f"app headline launches {counts}, expected "
                              f"{want} ({len(spans.ms)} spans)")
@@ -3476,8 +3771,9 @@ def check_app_icp(torch):
 
 def check_app_grid_slam_yaml(torch):
     """``configs/grid_slam.yaml`` (dda) through the App for 300 frames on
-    the card and on the CPU under the same numpy draws: no kernel, best
-    poses within 2 cells RMSE of each other."""
+    the card and on the CPU under the same numpy draws: one dda integrate
+    kernel an update and no other, best poses within 2 cells RMSE of each
+    other."""
     import numpy as np
 
     rng = np.random.default_rng(8)
@@ -3495,11 +3791,13 @@ def check_app_grid_slam_yaml(torch):
           "grid_pose_rmse_xy_m": rmse, "card_vs_cpu_best_pose_rmse_m": gap,
           "seconds": seconds, "frames_per_s": 300 / seconds,
           "cpu_seconds": cpu_s})
-    if any(slam_counts(counts).values()) or node.updates != len(cpu_est) \
+    if slam_counts(counts) != dict(DDA_KERNELS, grid_integrate=node.updates) \
+            or node.updates != len(cpu_est) \
             or counts["sim_frame"] != sim_ticks(app):
         raise AssertionError(f"app dda launches {counts}")
     if not gap <= GRID_SLAM_CPU_GATE_M or not rmse <= GRID_SLAM_RMSE_GATE_M:
         raise AssertionError(f"app dda: card vs CPU {gap} m, RMSE {rmse} m")
+    return counts
 
 
 def check_app_landmarks(torch):
@@ -4018,7 +4316,7 @@ def check_app_neato_replay(torch, log_path, truth):
     want = {"fused_update": 0, "fused_update_in_place": 0, "cow_copy": 0,
             "fused_update_tiled": 0, "nn_argmin": iters * n_frames,
             "icp_solve": (iters + 1) * n_frames, "sim_frame": 0,
-            "slam_propose": 0}
+            "slam_propose": 0, "grid_integrate": 0}
     if node.updates != n_frames or len(est) != n_frames or counts != want:
         raise AssertionError(f"replay: {node.updates} updates of "
                              f"{n_frames} frames, launches {counts}")
@@ -4066,9 +4364,10 @@ def check_robot_link_card(torch):
     on the card) and ``configs/neato_grid_slam.yaml`` at full size on the
     card, connected over TCP, driven forward through ``!Controls``: at
     least 20 ScanOdometry messages and 20 dda updates in at most 60 s,
-    never more updates than messages, no kernel, finite poses that move
-    more than 0.05 m; ``terminate()`` returns and the robot process ends
-    at ctrl-C with exit code 0."""
+    never more updates than messages, one dda integrate kernel an update
+    and no other, finite poses that move more than 0.05 m;
+    ``terminate()`` returns and the robot process ends at ctrl-C with exit
+    code 0."""
     import select
     import signal
 
@@ -4141,7 +4440,9 @@ def check_robot_link_card(torch):
           "terminate_s": terminate_s, "link_state_after": link.state,
           "robot_exit_code": ended, "robot_stderr": robot_log})
     if (received < LINK_MIN_MESSAGES or slam.updates < LINK_MIN_MESSAGES
-            or slam.updates > received or any(counts.values())
+            or slam.updates > received
+            or counts != dict(DDA_KERNELS, grid_integrate=slam.updates,
+                              sim_frame=0)
             or not np.isfinite(est).all() or not moved > 0.05
             or state != "running" or link.state != "idle"
             or ended != 0):
@@ -4160,7 +4461,8 @@ PROFILED_KERNELS = {"fused_update": "fused_update_kernel",
                     "cow_copy": "cow_copy_kernel",
                     "fused_update_tiled": "fused_update_tiled_kernel",
                     "nn_argmin": "nn_argmin_kernel",
-                    "icp_solve": "icp_solve_kernel"}
+                    "icp_solve": "icp_solve_kernel",
+                    "grid_integrate": "dda_integrate_kernel"}
 # runtime calls by which the host puts work on the card
 HOST_LAUNCH_CALLS = ("LaunchKernel", "GraphLaunch", "Memcpy", "Memset")
 
@@ -4183,12 +4485,12 @@ def capture_routes(torch):
             headline_world(torch, 0.05), resample_cow=False,
             fused_resident=False), (), 300, in_place),
         ("dda_grid_slam_yaml", lambda: preset_world(torch, "grid_slam.yaml"),
-         (), 300, NO_KERNELS),
+         (), 300, DDA_KERNELS),
         ("dense_grid_slam_yaml", lambda: with_grid(
             preset_world(torch, "grid_slam.yaml"), integrate="dense"), (),
          300, NO_KERNELS),
         ("dda_0.05m", lambda: headline_world(torch, 0.05, "dda", "float32"),
-         (), 300, NO_KERNELS),
+         (), 300, DDA_KERNELS),
         ("icp_test_yaml", lambda: preset_world(torch, "icp_test.yaml"), (),
          300, dict(NO_KERNELS, nn_argmin=10, icp_solve=11)),
         ("landmarks_yaml", lambda: preset_world(torch, "landmarks.yaml"), (),
@@ -4453,7 +4755,8 @@ APP_CAPTURES = [
      {"fused_update": 1}),
     ("icp_test", "icp_test.yaml", 900, 30, 60,
      {"nn_argmin": 10, "icp_solve": 11}),
-    ("grid_slam_yaml", "grid_slam.yaml", 300, 60, 120, {}),
+    ("grid_slam_yaml", "grid_slam.yaml", 300, 60, 120,
+     {"grid_integrate": 1}),
     ("landmarks", "landmarks.yaml", 300, 30, 60, {}),
 ]
 APP_TOPICS = ("robot/pose", "slam/pose", "slam/map",
@@ -4751,7 +5054,8 @@ def check_longrun(torch):
     require(not failed, f"longrun: {failed} missed ({numbers})")
     require(counts == dict(NO_KERNELS, fused_update=torch_longrun.UPDATES,
                            fused_update_in_place=0, sim_frame=0,
-                           slam_propose=torch_longrun.UPDATES),
+                           slam_propose=torch_longrun.UPDATES,
+                           grid_integrate=torch_longrun.UPDATES),
             f"longrun launches {counts}")
     for k, s in stats.items():
         require((s.eager, s.replays, s.graphs)
@@ -4792,7 +5096,7 @@ def mesh_capture_routes(torch):
          kernels(fused_update_tiled=2, slam_propose=2), {}, False),
         ("grid_slam_yaml_4x2", lambda: on_mesh(
             preset_world(torch, "grid_slam.yaml"), cuda_mesh(torch, 2)), 16,
-         300, kernels(), {}, False),
+         300, kernels(grid_integrate=8), {}, False),
         ("icp_test_4x1", lambda: on_mesh(preset_world(torch, "icp_test.yaml"),
                                          cuda_mesh(torch, 1, n=4)),
          MESH_OTHER_WORLDS, 300, kernels(nn_argmin=40, icp_solve=44), {},
@@ -5149,6 +5453,7 @@ def main() -> int:
     nn_launched = check_nn_launches(torch)
     t_sim = check_sim_frame(torch)
     t_propose = check_slam_propose(torch)
+    t_dda = check_dda_integrate(torch)
     spec05 = GridSpec2D(-2.0, -2.0, 4.0, 4.0, 0.05)
     spec02 = GridSpec2D(-2.0, -2.0, 4.0, 4.0, 0.02)
     worst = check_kernel(torch, fused, spec05, "0.05m")
@@ -5245,14 +5550,16 @@ def main() -> int:
     time_icp_batch(torch)
     time_icp_ekf_rollouts(torch)
 
-    # grid SLAM's dda and dense integrators: plain PyTorch, no kernel
+    # grid SLAM's dda (its integrate kernel) and dense integrators
     check_grid_ops(torch)
     grid_slam_world = check_grid_slam_yaml(torch)
-    for integrate in ("dda", "dense"):
-        check_rollout(torch, headline_world(torch, 0.05, integrate,
-                                            "float32"),
-                      300, f"{integrate}_0.05m_300", RMSE_GATE_M,
-                      expect=NO_KERNELS)
+    dda_counts = {}
+    for integrate, expect in (
+            ("dda", dict(DDA_KERNELS, grid_integrate="frames")),
+            ("dense", NO_KERNELS)):
+        dda_counts[integrate], _, _ = check_rollout(
+            torch, headline_world(torch, 0.05, integrate, "float32"), 300,
+            f"{integrate}_0.05m_300", RMSE_GATE_M, expect=expect)
     check_path_deviation(torch)
     check_nonfused_no_host_sync(torch)
     time_nonfused_rollouts(torch, grid_slam_world)
@@ -5277,7 +5584,7 @@ def main() -> int:
     # the host graph: the App's nodes on the card, the CLI, checkpoints
     app_k1 = check_app_grid_slam_fused(torch)
     app_k4 = check_app_icp(torch)
-    check_app_grid_slam_yaml(torch)
+    app_dda = check_app_grid_slam_yaml(torch)
     check_app_landmarks(torch)
     check_app_no_host_sync(torch)
     check_app_no_host_sync_icp_ekf(torch)
@@ -5419,7 +5726,24 @@ def main() -> int:
          "mesh_capture_launches": captured_launches(mesh_cap,
                                                     "slam_propose"),
          "tick_capture_launches": captured_launches(tick_cap,
-                                                    "slam_propose")}
+                                                    "slam_propose")},
+        {"name": "dda_integrate", "route": "cuda",
+         "source": "slamrs_tpu_torch/csrc/dda_integrate.cu",
+         "replaces": "slamrs_tpu/ops/grid.py:215 (XLA: the DDA walk, the "
+                     "inverse sensor model and the scatter-add)",
+         "launches": dda_counts["dda"]["grid_integrate"], "max_abs_err": 0,
+         "ms": t_dda["kernel_us"] / 1e3, "plain_ms": t_dda["plain_us"] / 1e3,
+         "bound_ms": t_dda["bound_us"] / 1e3, "bound_by": t_dda["bound_by"],
+         "library_ms": None, "integrate_ms": t_dda["integrate_us"] / 1e3,
+         "launch_floor_ms": t_dda["launch_floor_us"] / 1e3,
+         "app_launches": app_dda["grid_integrate"],
+         "captured_launches": captured_launches(cap, "grid_integrate"),
+         "app_capture_launches": captured_launches(app_cap,
+                                                   "grid_integrate"),
+         "mesh_capture_launches": captured_launches(mesh_cap,
+                                                    "grid_integrate"),
+         "tick_capture_launches": captured_launches(tick_cap,
+                                                    "grid_integrate")}
     ]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -11,7 +11,9 @@ kernel at the ``icp_odometry`` cell's shape (360 lanes against the full
 16,384-point map, Step 0.05), one iteration and the prologue, beside its
 plain version on the card, where the tree has the kernel; likewise the
 proposal kernel (a grid update's motion sample, log-probability and
-fused-kernel inputs) at the headline's and config 3's shapes.  Then a
+fused-kernel inputs) at the headline's and config 3's shapes, and the
+dda integrate kernel (walk, inverse sensor model and per-cell sum) at the
+``dda.rollout`` cell's shape beside the plain chain.  Then a
 profiled 300-tick ICP run (``configs/icp_test.yaml``): device busy time,
 its device operations a scan frame, K4's and the solve kernel's share of
 it and their launches, and the memsets; and ptxas's register, spill and
@@ -96,6 +98,9 @@ def main() -> int:
         out.update(icp_solve_times(torch, cs, icp))
     if hasattr(cs, "PROPOSE_SHAPES"):
         out.update(slam_propose_times(torch, cs))
+    if hasattr(cs, "dda_integrate_times"):
+        out.update({f"dda_integrate_{k}": v
+                    for k, v in cs.dda_integrate_times(torch).items()})
     out.update(icp_run_profile(torch, cs))
     print("KERNEL_TIMES", json.dumps(out), flush=True)
     return 0

@@ -125,7 +125,8 @@ def _counter_table() -> dict:
     global _COUNTERS
     if _COUNTERS is None:
         from slamrs_tpu_torch.models import simulator
-        from slamrs_tpu_torch.ops import cow, fused, icp, propose, tiles
+        from slamrs_tpu_torch.ops import (cow, fused, grid, icp, propose,
+                                          tiles)
 
         _COUNTERS = {
             "fused_update": (fused.fused_update, "launches"),
@@ -136,7 +137,8 @@ def _counter_table() -> dict:
             "nn_argmin": (icp.nearest_neighbors_fused, "launches"),
             "icp_solve": (icp.icp_solve, "launches"),
             "sim_frame": (simulator.sim_frame, "launches"),
-            "slam_propose": (propose.slam_propose, "launches")}
+            "slam_propose": (propose.slam_propose, "launches"),
+            "grid_integrate": (grid.grid_integrate, "launches")}
     return _COUNTERS
 
 

@@ -138,4 +138,11 @@ def library() -> ctypes.CDLL:
                    vp, vp, vp, vp, vp,  # poses, log_motion, pp, r0, table
                    vp]  # stream
     fn.restype = ci
+    fn = lib.slamrs_dda_integrate
+    fn.argtypes = [vp, vp, vp, vp, vp,  # maps, start x and y, ends x and y
+                   vp, vp, vp,  # measured, valid, present
+                   vp, vp,  # new maps, the dda.cells counter
+                   vp,  # the host scalars (DdaIntegrateParams)
+                   vp]  # stream
+    fn.restype = ci
     return lib

@@ -8,22 +8,27 @@ package lifts one map with ``vmap``: ``grid`` is ``[P, H, W]`` and
 every particle, or ``[P, B]``, one row per particle: a fleet of worlds
 runs as one call over its ``W*P`` particles with each world's scan
 repeated for its particles.  A ``[B]`` scan gives the same bits as before
-the ``[P, B]`` form existed.  These are plain PyTorch: the JAX package
-computes them in plain ``jnp``, with no Pallas kernel.
+the ``[P, B]`` form existed.  The JAX package computes them in plain
+``jnp``, with no Pallas kernel; here the dda integrator runs one
+hand-written kernel on the card, the rest is plain PyTorch.
 
 - :func:`traverse_ray` is the integer DDA walk of the reference's
   ``GridRayIterator``, a Python loop of ``max_steps`` steps carrying the
   same sequential float32 error accumulator as the JAX package's
   ``lax.scan`` (no cumulative sum or closed form: those round otherwise).
-- :func:`grid_integrate` adds every visited cell's log-odds increment
-  with one ``index_put_(accumulate=True)`` on a flattened int64 index.
-  On the card that is PyTorch's sort-based accumulate, the same sum for
-  the same inputs on every call (``index_add_`` and ``scatter_add_`` use
-  float atomics in arbitrary order and are not used).  Masked lanes add
-  0.0 at their particle's cell (0, 0), as the JAX package does, so no
-  boolean compaction waits for the device.  The lanes it adds (the walk's
-  emitted cells of present beams) are summed on the device into the
-  counter ``dda.cells`` (``utils/trace.device_counter``).
+- :func:`grid_integrate_reference` adds every visited cell's log-odds
+  increment with one ``index_put_(accumulate=True)`` on a flattened int64
+  index.  On the card that is PyTorch's sort-based accumulate, the same
+  sum for the same inputs on every call (``index_add_`` and
+  ``scatter_add_`` use float atomics in arbitrary order and are not
+  used).  Masked lanes add 0.0 at their particle's cell (0, 0), as the
+  JAX package does, so no boolean compaction waits for the device.  The
+  lanes it adds (the walk's emitted cells of present beams) are summed on
+  the device into the counter ``dda.cells``
+  (``utils/trace.device_counter``).  :func:`grid_integrate` runs it on
+  CPU tensors; on the card it launches ``csrc/dda_integrate.cu`` once,
+  which walks, models and sums each cell in that accumulate's order: the
+  same bits and count.
 - :func:`grid_integrate_dense` is the scatter-free polar update over a
   window around each pose; the beam lookup indexes the ``[B]`` tables
   directly (the JAX package's ``ops/lookup.radix_lookup`` is a TPU
@@ -36,9 +41,11 @@ by its reciprocal, which can move a ``floor`` by one cell.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import math as pymath
 
+import numpy as np
 import torch
 
 from slamrs_tpu_torch.utils import trace
@@ -204,6 +211,19 @@ def scan_endpoints(pose: Tensor, angles: Tensor, distances: Tensor) -> Tensor:
     return torch.stack([ex, ey], dim=-1)
 
 
+def endpoint_cells(spec: GridSpec2D, pose: Tensor, angles: Tensor,
+                   distances: Tensor) -> tuple[Tensor, Tensor]:
+    """Each beam's endpoint in grid coordinates, ``x`` and ``y``
+    ``f32[..., B]``: ``spec.world_to_grid(scan_endpoints(...))``'s values,
+    with no ``[..., B, 2]`` stack made and taken apart again."""
+    a = pose[..., 2:3] + angles
+    res = _f32_scalar(spec.resolution, pose.device)
+    return ((pose[..., 0:1] + torch.cos(a) * distances - spec.position_x)
+            / res,
+            (pose[..., 1:2] + torch.sin(a) * distances - spec.position_y)
+            / res)
+
+
 def grid_integrate(grid: Tensor, spec: GridSpec2D, pose: Tensor,
                    angles: Tensor, distances: Tensor, valid: Tensor,
                    present: Tensor, max_steps: int) -> Tensor:
@@ -218,7 +238,41 @@ def grid_integrate(grid: Tensor, spec: GridSpec2D, pose: Tensor,
     tensor.  Adds the lanes it scatters (``mask & present``) to the
     device counter ``dda.cells``, so the first call on a device must not
     fall inside a CUDA graph capture.
+
+    CPU tensors run :func:`grid_integrate_reference`.  CUDA tensors
+    (float32 ``[P, H, W]`` maps) launch ``dda_integrate_kernel`` once,
+    counted in ``grid_integrate.launches``: the same bits as
+    :func:`grid_integrate_reference` on the card, or raise.
     """
+    if grid.device.type == "cpu":
+        return grid_integrate_reference(grid, spec, pose, angles, distances,
+                                        valid, present, max_steps)
+    if grid.device.type != "cuda":
+        raise ValueError(f"grid_integrate runs on cuda or cpu, not "
+                         f"{grid.device}")
+    if grid.dtype != torch.float32 or grid.dim() != 3:
+        raise ValueError(f"grid_integrate takes f32[P, H, W] maps on the "
+                         f"card, got {grid.dtype}{list(grid.shape)}")
+    res = _f32_scalar(spec.resolution, pose.device)
+    start = ((pose[:, 0] - spec.position_x) / res,
+             (pose[:, 1] - spec.position_y) / res)  # [P] each
+    ends = endpoint_cells(spec, pose, angles, distances)  # [P, B] each
+    measured = distances / res  # [B] or [P, B]
+    return _integrate_on_card(grid, start, ends, measured, valid, present,
+                              max_steps)
+
+
+grid_integrate.launches = 0
+
+
+def grid_integrate_reference(grid: Tensor, spec: GridSpec2D, pose: Tensor,
+                             angles: Tensor, distances: Tensor,
+                             valid: Tensor, present: Tensor,
+                             max_steps: int) -> Tensor:
+    """:func:`grid_integrate` in plain PyTorch, on any device: the walk
+    (:func:`traverse_ray`) of every ``[P, B, T]`` lane, the inverse sensor
+    model, and one ``index_put_(accumulate=True)`` on a flattened int64
+    index (the masked lanes add 0.0 at their particle's cell (0, 0))."""
     p, h, w = grid.shape
     start = spec.world_to_grid(pose[..., 0:2])  # [P, 2]
     ends = spec.world_to_grid(scan_endpoints(pose, angles,
@@ -244,6 +298,74 @@ def grid_integrate(grid: Tensor, spec: GridSpec2D, pose: Tensor,
     out = grid.clone(memory_format=torch.contiguous_format)
     out.view(-1).index_put_((flat.reshape(-1),), vals.reshape(-1),
                             accumulate=True)
+    return out
+
+
+class _DdaParams(ctypes.Structure):
+    """``csrc/dda_integrate.cu``'s ``DdaIntegrateParams`` (the entry sets
+    the window, ``win_rows`` and ``win_cols``)."""
+
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "particles", "beams", "steps", "rows", "cols", "win_rows",
+        "win_cols", "budget0", "measured_stride", "valid_stride",
+        "present_stride")] + [(name, ctypes.c_float) for name in (
+            "l_free", "l_occupied", "half_tolerance")]
+
+
+def _lanes(t: Tensor, p: int, b: int, dtype) -> tuple[Tensor, int]:
+    """A ``[B]`` or ``[P, B]`` lane tensor as the kernel reads it: one
+    contiguous row (stride 0) or ``P`` rows (stride ``B``)."""
+    t = t.to(dtype).expand(p, b)
+    if t.stride(0) == 0:
+        return t[0].contiguous(), 0
+    return t.contiguous(), b
+
+
+def _ptr(t: Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _integrate_on_card(grid: Tensor, start: tuple[Tensor, Tensor],
+                       ends: tuple[Tensor, Tensor], measured: Tensor,
+                       valid: Tensor, present: Tensor,
+                       max_steps: int) -> Tensor:
+    """:func:`grid_integrate`'s kernel route from the grid coordinates
+    (the start's ``x, y`` ``[P]``, the endpoints' ``[P, B]``): one launch
+    of ``dda_integrate_kernel`` on the current stream into a new map
+    set."""
+    from slamrs_tpu_torch import kernels
+
+    p, h, w = grid.shape
+    b = ends[0].shape[-1]
+    dev = grid.device
+    old = grid.contiguous()
+    out = torch.empty_like(old)
+    start = [t.expand(p).contiguous() for t in start]
+    ends = [t.expand(p, b).contiguous() for t in ends]
+    measured, ms = _lanes(measured, p, b, torch.float32)
+    valid, vs = _lanes(valid, p, b, torch.bool)
+    present, ps = _lanes(present, p, b, torch.bool)
+    counter = trace.device_counter("dda.cells", dev)
+    prm = _DdaParams(
+        particles=p, beams=b, steps=max_steps, rows=h, cols=w,
+        budget0=1 + ADDITIONAL_STEPS, measured_stride=ms,
+        valid_stride=vs, present_stride=ps,
+        l_free=float(np.float32(L_FREE)),
+        l_occupied=float(np.float32(L_OCCUPIED)),
+        half_tolerance=float(np.float32(TOLERANCE_CELLS / 2.0)))
+    lib = kernels.library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.slamrs_dda_integrate(
+            _ptr(old), *map(_ptr, start), *map(_ptr, ends), _ptr(measured),
+            _ptr(valid), _ptr(present), _ptr(out), _ptr(counter),
+            ctypes.byref(prm), ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(
+            f"dda_integrate kernel launch failed: CUDA error {rc} (1: the "
+            f"{b} beams x {max_steps} steps on {h} x {w} maps are past its "
+            f"shared-memory plan)")
+    grid_integrate.launches += 1
     return out
 
 
@@ -349,9 +471,7 @@ def grid_log_likelihood(grid: Tensor, spec: GridSpec2D, pose: Tensor,
     ``[P, B]`` -> ``f32[P]``.
     """
     p, h, w = grid.shape
-    ends = spec.world_to_grid(scan_endpoints(pose, angles,
-                                             distances))  # [P, B, 2]
-    gx, gy = ends[..., 0], ends[..., 1]
+    gx, gy = endpoint_cells(spec, pose, angles, distances)  # [P, B]
     in_bounds = (gx >= 0.0) & (gy >= 0.0) & (gx < spec.cols) \
         & (gy < spec.rows)
     use = valid & present & in_bounds

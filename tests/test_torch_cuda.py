@@ -24,9 +24,9 @@ iteration and once before, and bitwise reproducible eager and
 replayed.  One ICP mapper update on the card against the same on the
 CPU: pose and points within 1e-5 m (the normal equations' sums run in
 another order).  The dda
-and dense grid integrators (plain PyTorch, no kernel) on the card against
+(its kernel on the card) and dense grid integrators on the card against
 the CPU at ``tests/test_parity.py``'s map gate, the DDA walk bitwise, the
-dda scatter bitwise reproducible on the card.  Fleets: K1 with the world
+dda integrate bitwise reproducible on the card.  Fleets: K1 with the world
 axis (a beam table per world, one launch for every world) against its
 plain version at the same gates, a one-world call bitwise the
 single-world call; K2 on a flattened fleet plan bitwise, every copy
@@ -55,6 +55,13 @@ log-probability and fused-kernel inputs) bitwise its plain version on the
 card at the headline's, the fleet's map geometry's and config 3's tile
 pool's shapes, ``torch.remainder`` in the form it repeats, one kernel a
 single-world fused update, and the same bits eager and replayed.
+The dda integrate kernel (the walk, the inverse sensor model and each
+cell's sum) bitwise the plain chain's ``index_put_(accumulate=True)`` and
+the benchmark's reference on the card at the ``dda.rollout`` cell's, the
+App's and a fleet's shapes, on runs of 1 to ~6,000 lanes and at cell (0,
+0) among the lanes not emitted, ``dda.cells`` counted alike; that
+accumulate's sum order on random values; one kernel a replayed dda
+update and no sort; the same bits eager and replayed.
 """
 
 import functools
@@ -605,7 +612,7 @@ def _grid_inputs(spec, p, seed):
 @pytest.mark.parametrize("integrate", ["dda", "dense"])
 def test_grid_integrators_match_cpu(dev, integrate):
     """The dda and dense integrators and the endpoint likelihood on the
-    card against the CPU (plain PyTorch on both): maps on >= 99.9 % of
+    card against the CPU (the dda kernel on the card): maps on >= 99.9 % of
     cells within 5e-3 (cos, sin and atan2 a few ulps apart), likelihood
     rtol 1e-5 / atol 1e-4 on >= 99.9 % of particles; the DDA walk on
     identical grid coordinates and the dda scatter on the card bitwise
@@ -1519,3 +1526,193 @@ def test_slam_propose_is_the_same_eager_and_replayed(dev):
         graph.replay()
         torch.cuda.synchronize()
         assert smoke.propose_same(torch, replayed, eager) == []
+
+
+# --- the dda integrate kernel (csrc/dda_integrate.cu) against its plain
+# version ---
+
+@pytest.mark.parametrize("shape", sorted(_smoke().DDA_SHAPES))
+def test_dda_integrate_matches_plain_bitwise(dev, shape):
+    """``grid_integrate`` on the card (one ``dda_integrate_kernel``
+    launch) against ``grid_integrate_reference``: every map bit and the
+    ``dda.cells`` gain, over ``chip_smoke.py``'s cases (poses at cell (0,
+    0), on cell corners, at the top right cell and off the grid; zero-
+    length, short, invalid, absent and over-range beams; [B] scans and an
+    8-world fleet's [W*P, B] rows); on the in-range [B] cases also the
+    benchmark reference's ``integrate`` (``h100bench/reference/dda.py``)."""
+    from h100bench.reference import dda as ref_dda
+    from h100bench.reference.fused import Spec
+
+    smoke = _smoke()
+    geom, p, worlds = smoke.DDA_SHAPES[shape]
+    spec = GridSpec2D(*geom)
+    steps = spec.max_ray_steps(1.0)
+    for seed in range(smoke.DDA_SEEDS):
+        within = seed % 2 == 1 and worlds is None
+        case = smoke.dda_case(torch, spec, p, seed, worlds, within)
+        got, want, cells, plain_cells = smoke.dda_pair(torch, spec, case,
+                                                       steps)
+        assert smoke.bits_differ(torch, got, want) == 0, seed
+        assert cells == plain_cells > 0, seed
+        if within:
+            ref = ref_dda.integrate(case[0], Spec(*geom), case[1], *case[2],
+                                    steps)
+            assert smoke.bits_differ(torch, got, ref) == 0, seed
+
+
+@pytest.mark.parametrize("length", _smoke().DDA_RUN_LENGTHS)
+def test_dda_integrate_sums_each_run_length_as_index_put(dev, length):
+    """A run of ``length`` lanes on one cell (the robot's, or cell (0, 0)
+    with the lanes not emitted for the longest), mixing the free,
+    occupied and +0.0 increments: the kernel's maps bitwise the plain
+    chain's ``index_put_(accumulate=True)``."""
+    smoke = _smoke()
+    spec = GridSpec2D(*smoke.DDA_SHAPES["dda_1024"][0])
+    case = smoke.dda_run_case(torch, spec, length, 1)
+    got, want, cells, plain_cells = smoke.dda_pair(
+        torch, spec, case, spec.max_ray_steps(1.0))
+    assert smoke.bits_differ(torch, got, want) == 0
+    assert cells == plain_cells
+
+
+def test_index_put_accumulate_sums_runs_in_warp_pass_order(dev):
+    """The order the kernel repeats: ``index_put_(accumulate=True)`` on
+    the card, random float32 values on runs of 1, 31, 32, 33, 63, 64, 65,
+    360 and 6,000 lanes interleaved, is ``chip_smoke.index_put_run_model``
+    bit for bit (a warp's full passes lane by lane, a shuffle-down tree,
+    then the rest in order, then old + sum)."""
+    smoke = _smoke()
+    for seed in range(4):
+        assert smoke.index_put_run_mismatches(torch, seed) == [], seed
+
+
+def test_dda_integrate_cell_zero_takes_emitted_and_masked_lanes(dev):
+    """Particles in cell (0, 0): every present beam emits it, among the
+    thousands of lanes not emitted that add +0.0 there; the kernel's sum
+    at that cell, and every other, is the plain chain's."""
+    from slamrs_tpu_torch.ops import grid as G
+
+    smoke = _smoke()
+    spec = GridSpec2D(*smoke.DDA_SHAPES["dda_1024"][0])
+    steps = spec.max_ray_steps(1.0)
+    grids, poses, scan = smoke.dda_run_case(torch, spec, 6000, 2)
+    start = spec.world_to_grid(poses[:, 0:2])
+    ends = spec.world_to_grid(G.scan_endpoints(poses, scan[0], scan[1]))
+    xs, ys, _, mask = G.traverse_ray(start[:, 0:1], start[:, 1:2],
+                                     ends[..., 0], ends[..., 1], spec.cols,
+                                     spec.rows, steps)
+    mask = mask & scan[3][:, None]
+    at_zero = mask & (xs == 0) & (ys == 0)
+    assert int(at_zero.sum()) > 0 and int((~mask).sum()) > 5000
+    got, want, _, _ = smoke.dda_pair(torch, spec, (grids, poses, scan),
+                                     steps)
+    assert smoke.bits_differ(torch, got, want) == 0
+    assert not torch.equal(got[:, 0, 0], grids[:, 0, 0])
+
+
+def test_dda_update_launches_one_dda_integrate_kernel_replayed(dev):
+    """A dda update captured in a CUDA graph: one ``grid_integrate`` call
+    at capture, and each replay runs ``dda_integrate_kernel`` once (the
+    profiler's kernel names), with no radix sort and no
+    ``indexing_backward_kernel``; ``grid_integrate`` alone launches no
+    ``torch.stack`` copy either."""
+    from slamrs_tpu_torch.models import gridslam as gs
+    from slamrs_tpu_torch.ops import grid as G
+
+    smoke = _smoke()
+    config = gs.GridSlamConfig(
+        position_x=-2.0, position_y=-2.0, width=4.0, height=4.0,
+        resolution=0.05, n_particles=64, max_scan_range=1.0,
+        integrate="dda", resample_neff_frac=0.5, grid_dtype="float32")
+    state = gs.GridSlamState.init(config, "cuda")
+    _, odometry, _, scan, _ = smoke.propose_case(torch, config.grid_spec,
+                                                 64, 1)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    state, _ = gs.update(state, scan, odometry, config, generator=gen)
+    noise = gs.draw_noise(gen, 64, "cuda")
+    spec, steps = config.grid_spec, config.max_ray_steps
+    lanes = (scan.angles, scan.distances, scan.valid, scan.present)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):  # warm on the capture stream
+        gs.update(state, scan, odometry, config, noise=noise)
+        G.grid_integrate(state.grids, spec, state.poses, *lanes, steps)
+    torch.cuda.current_stream().wait_stream(stream)
+    graphs = [torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()]
+    before = G.grid_integrate.launches
+    with torch.cuda.graph(graphs[0]):
+        gs.update(state, scan, odometry, config, noise=noise)
+    with torch.cuda.graph(graphs[1]):
+        G.grid_integrate(state.grids, spec, state.poses, *lanes, steps)
+    assert G.grid_integrate.launches == before + 2
+    for graph, unwanted in ((graphs[0], ("DeviceRadixSort",
+                                         "indexing_backward_kernel")),
+                            (graphs[1], ("DeviceRadixSort",
+                                         "indexing_backward_kernel",
+                                         "CatArrayBatchedCopy"))):
+        prof = smoke.started_profile(torch)
+        for _ in range(3):
+            graph.replay()
+        torch.cuda.synchronize()
+        prof.stop()
+        names = [e.key for e in prof.key_averages()
+                 if e.device_type.name == "CUDA" for _ in range(e.count)]
+        assert sum("dda_integrate_kernel" in n for n in names) == 3
+        assert not [n for n in names if any(u in n for u in unwanted)]
+
+
+def test_dda_integrate_is_the_same_eager_and_replayed(dev):
+    """The kernel captured in a CUDA graph and replayed gives the eager
+    launch's bits and adds the eager launch's lanes to ``dda.cells``,
+    twice over."""
+    from slamrs_tpu_torch.ops import grid as G
+    from slamrs_tpu_torch.utils import trace
+
+    smoke = _smoke()
+    geom, p, _ = smoke.DDA_SHAPES["dda_1024"]
+    spec = GridSpec2D(*geom)
+    steps = spec.max_ray_steps(1.0)
+    grids, poses, scan = smoke.dda_case(torch, spec, p, 3)
+    counter = trace.device_counter("dda.cells", dev)
+    before = int(counter)
+    eager = G.grid_integrate(grids, spec, poses, *scan, steps)
+    eager_cells = int(counter) - before
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        G.grid_integrate(grids, spec, poses, *scan, steps)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = G.grid_integrate(grids, spec, poses, *scan, steps)
+    for _ in range(2):
+        replayed.fill_(7.0)
+        before = int(counter)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert int(counter) - before == eager_cells > 0
+        assert smoke.bits_differ(torch, replayed, eager) == 0
+
+
+def test_dda_integrate_raises_past_its_plan(dev):
+    """A shape past the kernel's shared-memory plan (20,000 beams a
+    particle) and maps that are not float32 raise on the card: no other
+    route runs there."""
+    from slamrs_tpu_torch.ops import grid as G
+
+    spec = GridSpec2D(-2.0, -2.0, 4.0, 4.0, 0.05)
+    steps = spec.max_ray_steps(1.0)
+    grids = torch.zeros(4, spec.rows, spec.cols, device=dev)
+    poses = torch.zeros(4, 3, device=dev)
+    b = 20_000
+    scan = (torch.linspace(0.0, 6.28, b, device=dev),
+            torch.full((b,), 0.5, device=dev),
+            torch.ones(b, dtype=torch.bool, device=dev),
+            torch.ones(b, dtype=torch.bool, device=dev))
+    launches = G.grid_integrate.launches
+    with pytest.raises(RuntimeError, match="shared-memory plan"):
+        G.grid_integrate(grids, spec, poses, *scan, steps)
+    with pytest.raises(ValueError, match="f32"):
+        G.grid_integrate(grids.bfloat16(), spec, poses,
+                         *(t[:360] for t in scan), steps)
+    assert G.grid_integrate.launches == launches
