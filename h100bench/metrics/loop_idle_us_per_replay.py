@@ -1,0 +1,13 @@
+"""Microseconds a sampled replay cycle (one graph replay's end to the
+next's) in which the device waited under the rollout call's own Python
+between replays (the frame loop's bookkeeping, outside the next frame's
+``frame.fill`` and ``graph.launch`` spans), from the port's replay
+events on the host clock with the profiler off
+(``h100bench/replay_idle.py``), median over the window's calls
+that no profiler recorded in (None where there is none)."""
+
+from h100bench.replay_idle import median_per_replay_us
+
+
+def read(record):
+    return median_per_replay_us(record, "loop")

@@ -440,16 +440,22 @@ class Program:
         self._cut = (*self._finish(*self._open), branch)
         self._open = self._start(self._pool)
 
-    def run(self, key):
+    def run(self, key, sample=None):
         """The program of ``key``: a replay of its graph, or else the body
         run eagerly, then captured when ``graphs``.  Returns the body's
-        outputs."""
+        outputs.  ``sample`` (``trace.replay_sample``): a replay's
+        launch, a split program's replays and reads as one, lies between
+        its two hooks."""
         graph = self._graphs.get(key)
         if graph is not None:
+            if sample is not None:
+                sample.replaying()
             if isinstance(graph, _Split):
                 self._replay_split(key, graph)
             else:
                 self._replay(graph, key)
+            if sample is not None:
+                sample.replayed()
             self.stats.replays += 1
             return self._outputs[key]
         with trace.span("frame.eager"):
@@ -667,15 +673,18 @@ class FrameProgram(Program):
     def _run(self, key, speeds: Tensor, f: Optional[int]) -> None:
         """The run of ``key`` at ``speeds``, with scan frame ``f``'s
         injected draws (None: no scan): a replay of its graph, or else
-        the program run eagerly, then captured."""
-        with trace.span("frame.fill"):
+        the program run eagerly, then captured.  With replays sampled
+        (``trace.replay_stride``), a sampled run's device points."""
+        fill = trace.span("frame.fill")
+        sample = trace.replay_sample(fill) if trace.replay_stride else None
+        with fill:
             self.fill(("speeds", key), speeds)
             if f is not None:
                 for name, draws in (("noise", self.draws),
                                     ("landmark_noise", self.landmark_draws)):
                     if draws is not None:
                         self.fill(name, world_compile.frame_draws(draws, f))
-        self.run(key)
+        self.run(key, sample)
 
     def frame(self, k: int, speeds: Tensor, f: int) -> None:
         """Scan frame ``f`` of ``k`` idle ticks at ``speeds``
@@ -760,7 +769,7 @@ def _hand_over(main, *trees) -> None:
     """Tensors made on the capture stream, used on the caller's stream
     from here on."""
     if main is not None:
-        with trace.span("rollout.hand_over"):
+        with trace.end_span("rollout.hand_over"):
             for tree in trees:
                 for t in _tensor_leaves(tree):
                     t.record_stream(main)
@@ -795,6 +804,7 @@ class _Call:
         if graphs:
             check_graphs(self.mesh, self.dev, what)
             self.main = torch.cuda.current_stream(self.dev)
+            trace.replays_open(self.main)
         if commands is None:
             commands = fw.commands_for(n_steps)
         self.speeds = torch.stack([commands.speed_left,
@@ -809,7 +819,7 @@ class _Call:
                 raise ValueError(f"injected draws for {len(given[0])} scan "
                                  f"frames, the rollout scans "
                                  f"{self.fire_idx.size} times")
-        with trace.span("rollout.draws_upload"):
+        with trace.end_span("rollout.draws_upload"):
             self.draws, self.landmark_draws = world_compile.device_draws(
                 noise, landmark_noise, self.dev)
 
@@ -818,10 +828,19 @@ class _Call:
         return (world_compile.frame_draws(self.draws, f),
                 world_compile.frame_draws(self.landmark_draws, f))
 
+    @contextlib.contextmanager
     def on_stream(self):
-        """The block on the capture stream, with graphs."""
-        return contextlib.nullcontext() if self.main is None \
-            else on_capture_stream(self.dev)
+        """The block on the capture stream, with graphs (and the call's
+        device points, ``utils/trace.py``)."""
+        if self.main is None:
+            yield
+            return
+        with on_capture_stream(self.dev):
+            trace.replays_stream(capture_stream(self.dev))
+            try:
+                yield
+            finally:
+                trace.replays_stream(self.main)
 
     def finish(self, prog: FrameProgram, scans: int, fired: Tensor):
         """The call's returned state and outputs, handed to the caller's
@@ -886,7 +905,11 @@ def run_program(fw, state, n_steps: int, seed: int = 0, commands=None,
     ``rollout.draws_upload``, ``frame.eager``, ``frame.capture``,
     ``frame.fill``, ``graph.launch``, ``rollout.ticks`` and
     ``rollout.hand_over``, the counter ``rollout.frames``, and
-    :data:`REUSED` (1) in a call on the kept program."""
+    :data:`REUSED` (1) in a call on the kept program.  With graphs and
+    replays sampled (``trace.replay_stride``), the call's head, its
+    ends' spans, its frame loop and its sampled frames are device
+    points, and its record gains ``replays``: the device's idle by what
+    the host was doing."""
     with trace.call("rollout_cadence"):
         call = _Call(fw, state, n_steps, commands, initial_timer, graphs,
                      "the frame program")
@@ -900,7 +923,7 @@ def run_program(fw, state, n_steps: int, seed: int = 0, commands=None,
         idle = np.diff(fire_idx, prepend=-1) - 1  # idle ticks before each scan
 
         def frame_0(gen):
-            with trace.span("frame.eager"):
+            with trace.end_span("frame.eager"):
                 built, row = fw.frame(
                     call.state, speeds[:, :fire_idx[0] + 1], gen,
                     *call.scan_draws(0))
@@ -910,13 +933,15 @@ def run_program(fw, state, n_steps: int, seed: int = 0, commands=None,
             prog, done = _program_for(fw, call, seed, n_steps, frames,
                                       graphs, CaptureStats(frames=frames),
                                       frame_0)
+            trace.replay_loop_start()
             for f in range(done, frames):
                 k = int(idle[f])
                 e = int(fire_idx[f])
                 prog.frame(k, speeds[:, e - k:e + 1], f)
+            trace.replay_loop_end()
             trailing = n_steps - 1 - int(fire_idx[-1])
             if trailing:
-                with trace.span("rollout.ticks"):
+                with trace.end_span("rollout.ticks"):
                     prog.idle(speeds[:, n_steps - trailing:])
             out = call.finish(prog, frames, torch.ones(
                 frames, dtype=torch.bool, device=call.dev))
@@ -954,7 +979,7 @@ def run_ticks(fw, state, n_steps: int, seed: int = 0, commands=None,
             for i in range(lead):
                 noise, landmark_noise = (call.scan_draws(0) if fired[i]
                                          else (None, None))
-                with trace.span("frame.eager"):
+                with trace.end_span("frame.eager"):
                     first, row = fw.step(
                         first, Command(speeds[0, i], speeds[1, i]), gen,
                         noise=noise, landmark_noise=landmark_noise)
@@ -966,10 +991,12 @@ def run_ticks(fw, state, n_steps: int, seed: int = 0, commands=None,
                                       graphs, CaptureStats(frames=n_steps),
                                       lead_ticks)
             f = int(fired[:done].sum())
+            trace.replay_loop_start()
             for i in range(done, n_steps):
                 prog.tick("scan" if fired[i] else "idle", speeds[:, i:i + 1],
                           f)
                 f += int(fired[i])
+            trace.replay_loop_end()
             out = call.finish(prog, int(fire_idx.size),
                               torch.from_numpy(fired).to(call.dev))
         fw.capture_stats = prog.stats

@@ -20,8 +20,7 @@ and N_eff, and resample systematically when N_eff falls to
   polar update (:func:`~slamrs_tpu_torch.ops.grid.grid_integrate_dense`)
   of the old maps at the same poses; maps ``f32[P, H, W]`` unpadded,
   whatever ``grid_dtype`` says.  Plain PyTorch: the JAX package computes
-  these in plain ``jnp``.  The likelihood and the integrate together are
-  the span ``gridslam.integrate`` (``utils/trace.py``).
+  these in plain ``jnp``.
 
 The resample is applied by one of four mechanisms, picked exactly as the
 JAX package picks them (:func:`resample_mechanism`):
@@ -91,7 +90,6 @@ from slamrs_tpu_torch.ops.tiles import (fused_update_tiled, init_tiled,
 from slamrs_tpu_torch.parallel import fleet as pf
 from slamrs_tpu_torch.parallel.resample import gather_row, resample_fleet
 from slamrs_tpu_torch.parallel.shard import fused_update_batched
-from slamrs_tpu_torch.utils import trace
 
 Tensor = torch.Tensor
 
@@ -383,15 +381,14 @@ def update(state: GridSlamState, scan: Scan, odometry: OdometryReading,
         spec = config.grid_spec
         lik_args = (spec, new_poses, scan.angles, scan.distances,
                     scan.valid, scan.present)
-        with trace.span("gridslam.integrate"):
-            log_lik = grid_log_likelihood(state.grids, *lik_args)
-            if config.integrate == "dense":
-                grids = grid_integrate_dense(
-                    state.grids, *lik_args,
-                    dense_window_for(spec, config.max_scan_range))
-            else:
-                grids = grid_integrate(state.grids, *lik_args,
-                                       config.max_ray_steps)
+        log_lik = grid_log_likelihood(state.grids, *lik_args)
+        if config.integrate == "dense":
+            grids = grid_integrate_dense(
+                state.grids, *lik_args,
+                dense_window_for(spec, config.max_scan_range))
+        else:
+            grids = grid_integrate(state.grids, *lik_args,
+                                   config.max_ray_steps)
         log_motion = motion.log_prob(state.poses, new_poses,
                                      odometry.distance_left,
                                      odometry.distance_right,

@@ -1716,3 +1716,101 @@ def test_dda_integrate_raises_past_its_plan(dev):
         G.grid_integrate(grids.bfloat16(), spec, poses,
                          *(t[:360] for t in scan), steps)
     assert G.grid_integrate.launches == launches
+
+
+# ---- the device's idle, sampled on the replays -----------------------------
+
+
+def _headline_world(dev):
+    from slamrs_tpu_torch.graph.compile import compile_world
+    from slamrs_tpu_torch.graph.config import parse_config
+
+    yaml = Path(__file__).resolve().parents[1] / "h100bench" / "configs" \
+        / "grid_slam_fused.yaml"
+    return compile_world(parse_config(yaml.read_text()), device=dev)
+
+
+def test_a_slow_fill_on_the_sampled_frames_reads_as_fill_idle(dev,
+                                                              monkeypatch):
+    """The headline's world in carried 900-tick calls with every 4th
+    replay sampled, each frame's loop slowed by ~300 µs of host time (so
+    the device finishes each replay before the next frame starts): the
+    slow loop reads as loop idle, and ~200 µs more spent inside
+    ``frame.fill`` on the frame after each sampled one (the frame whose
+    fill and launch a sampled cycle holds) reads as 150-250 µs more fill
+    idle a sampled replay, launch and loop unmoved by more than 50 µs;
+    every cycle's device interval lies inside its call; with the stride
+    0 no event is made or recorded and no record gains ``replays``."""
+    import statistics
+    import time
+
+    from slamrs_tpu_torch.graph import capture
+    from slamrs_tpu_torch.utils import trace
+
+    def spin(ns):
+        until = time.perf_counter_ns() + ns
+        while time.perf_counter_ns() < until:
+            pass
+
+    fw = _headline_world(dev)
+    state = fw.init(())
+
+    def calls(n):
+        nonlocal state
+        trace.reset()
+        for seed in range(n):
+            state, out = fw.rollout_cadence(state, 900, seed=seed)
+            out.pose.cpu()
+        return [c for c in trace.calls() if c["name"] == "rollout_cadence"]
+
+    def median(recs, phase):
+        return statistics.median(s[phase] for r in recs
+                                 for s in r["replays"]["samples"])
+
+    real_frame = capture.FrameProgram.frame
+    real_fill = capture.Program.fill
+
+    def slow_frame(self, k, speeds, f):
+        spin(300_000)
+        return real_frame(self, k, speeds, f)
+
+    def slow_fill(self, name, value):
+        r = trace._replays()
+        # during frame j's fill r.runs is j + 1; j follows a sampled
+        # frame j - 1 >= 1 where (j - 2) % every is the call's offset
+        if name[0] == "speeds" and r is not None and r.loop \
+                and r.runs >= 3 and (r.runs - 3) % r.every == r.offset:
+            spin(200_000)
+        return real_fill(self, name, value)
+
+    monkeypatch.setattr(trace, "replay_stride", 4)
+    calls(2)  # the kept program built and every key captured
+    monkeypatch.setattr(capture.FrameProgram, "frame", slow_frame)
+    plain = calls(4)
+    monkeypatch.setattr(capture.Program, "fill", slow_fill)
+    slow = calls(4)
+    monkeypatch.setattr(capture.Program, "fill", real_fill)
+    for rec in plain + slow:
+        r = rec["replays"]
+        assert r["every"] == 4 and r["cycles"] == 148
+        assert len(r["samples"]) == 37  # 1 + offset, 5 + offset, ...
+        assert not r["profiled"]
+        for s in r["samples"]:
+            lo, hi = s["device"]
+            assert 0 <= lo <= hi <= (r["wall_s"] or math.inf)
+    assert median(plain, "loop") > 150e-6
+    extra = median(slow, "fill") - median(plain, "fill")
+    assert 150e-6 <= extra <= 250e-6, extra
+    for phase in ("launch", "loop"):
+        assert abs(median(slow, phase) - median(plain, phase)) < 50e-6
+    monkeypatch.setattr(trace, "replay_stride", 0)
+    made, marked = [], []
+    monkeypatch.setattr(trace.CudaTimer, "event",
+                        lambda: made.append(1))
+    real_mark = trace._Replays.mark
+    monkeypatch.setattr(trace._Replays, "mark",
+                        lambda *a: marked.append(1) or real_mark(*a))
+    pool = len(trace._TIMER.free)
+    for rec in calls(3):
+        assert "replays" not in rec
+    assert made == [] and marked == [] and len(trace._TIMER.free) == pool

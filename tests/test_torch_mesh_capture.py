@@ -162,9 +162,9 @@ class _Runs:
         self.keys = []
         orig = capture.Program.run
 
-        def run(prog, key):
+        def run(prog, key, sample=None):
             self.keys.append(key)
-            return orig(prog, key)
+            return orig(prog, key, sample)
 
         monkeypatch.setattr(capture.Program, "run", run)
 
