@@ -47,6 +47,15 @@ Phases, each printing one line, any failure raising (exit code != 0):
    and ~6,000 lanes on one cell; ``index_put_(accumulate=True)``'s sum
    order on random values; then its device time beside the plain chain's
    at the cell's shape (``kernel_time_dda_integrate``);
+2e. ``kernel_vs_plain_slam_select``: the selection kernel
+   (``csrc/slam_select.cu``) against its plain version on the card, every
+   output bitwise (weights, ancestors, best index and pose, N_eff, the
+   gate, the gathered poses) at the cells' 1,024 particles and the App's
+   10, 12 cases each with and without the gather: zero, subnormal and
+   -inf weights, argmax ties, ``u01`` at 0 and just below 1, gates that
+   fire and hold; ATen's row-sum and cumsum orders against numpy models
+   and another order of each; then its device time beside the plain
+   chain's and a one-element fill (``kernel_time_slam_select``);
 3. kernel vs plain version at ``[1024, 80, 128]`` bf16 (0.05 m) and
 4. at ``[1024, 200, 256]`` bf16 (0.02 m): static and traced beam
    spacing, the 360-beam scan, a 90-beam partial sector with mixed flags,
@@ -1867,6 +1876,271 @@ def check_slam_propose(torch):
     return times
 
 
+# the selection kernel (csrc/slam_select.cu): float32 operations a particle
+# (log, two adds, the shift, exp, the division, the square, the sums'
+# adds, the offsets) beside P compares, and bytes a particle (three rows
+# and a pose read, weights, ancestors and a gathered pose written)
+SELECT_PARTICLE_OPS = 12
+SELECT_PARTICLE_BYTES = 3 * 4 + 12 + 4 + 4 + 12
+# particles of the shapes it is checked at: the single-world grid cells'
+# 1,024 and the App's 10 (configs/grid_slam.yaml); cases a shape
+SELECT_PARTICLES = {"cells_1024": 1024, "app_10": 10}
+SELECT_SEEDS = 12
+# row lengths the ATen sum and cumsum orders are proven on
+SELECT_ORDER_LENGTHS = (1, 2, 3, 5, 8, 10, 31, 32, 33, 64, 100, 127, 128,
+                        129, 130, 200, 255, 256, 257, 500, 511, 512, 513,
+                        700, 1000, 1023, 1024)
+
+
+def aten_row_sum_model(x, decreasing=True):
+    """The sum ATen's CUDA ``torch.sum`` gives one contiguous float32 row
+    (``Reduce.cuh``, four floats a vector load, 512 threads at most), in
+    numpy float32: from 128 floats on, ``bw = last_pow2(n // 4)`` threads,
+    thread t keeping four accumulators (lane i of vectors t, t + bw, ...)
+    from 0.0 and the ``n % 4`` tail added to accumulator 0 of threads 0..;
+    below 128, ``bw = last_pow2(n)`` threads, accumulator i of thread t
+    holding ``x[t + i * bw]``; then ``((a0 + a1) + a2) + a3``, a tree
+    ``v[t] += v[t + off]`` for ``off = bw / 2`` down to 32, and a warp
+    tree with offsets from ``min(bw, 32) / 2`` down to 1 (up from 1 with
+    ``decreasing`` False: the order of older torch builds)."""
+    import numpy as np
+
+    f32 = np.float32
+    x = np.asarray(x, dtype=f32)
+    n = len(x)
+    vec = n >= 128
+    bw = 1 << (int(n // 4 if vec else n).bit_length() - 1)
+    acc = np.zeros((bw, 4), dtype=f32)
+    for t in range(bw):
+        if vec:
+            idx = t
+            while idx * 4 + 3 < n:
+                acc[t] = acc[t] + x[4 * idx:4 * idx + 4]
+                idx += bw
+            if n - n % 4 + t < n:
+                acc[t, 0] = acc[t, 0] + x[n - n % 4 + t]
+        else:
+            for i, j in enumerate(range(t, n, bw)):
+                acc[t, i] = acc[t, i] + x[j]
+    v = ((acc[:, 0] + acc[:, 1]) + acc[:, 2]) + acc[:, 3]
+    off = bw // 2
+    while off >= 32:
+        v = v[:off] + v[off:2 * off]
+        off //= 2
+    dim_x = min(bw, 32)
+    offs = [dim_x >> k for k in range(1, dim_x.bit_length())]
+    for off in (offs if decreasing else offs[::-1]):
+        v = np.concatenate([v[:dim_x - off] + v[off:dim_x], v[dim_x - off:]])
+    return v[0]
+
+
+def cub_scan_model(x, items=15):
+    """The inclusive sums ATen's CUDA ``torch.cumsum`` gives a tensor whose
+    numel is its length (CUB's single-tile scan), in numpy float32: thread
+    t holds ``items`` items ``items*t ..``, sums them left to right, a
+    Kogge-Stone scan of those sums in each warp of 32 threads (offsets 1
+    .. 16), warp w's prefix the left-to-right sum of the warps before it,
+    then each thread's items summed left to right from its exclusive
+    prefix (thread 0 from its first item)."""
+    import numpy as np
+
+    f32 = np.float32
+    x = np.asarray(x, dtype=f32)
+    n = len(x)
+    threads = -(-n // items)
+    agg = np.zeros(threads, dtype=f32)
+    for t in range(threads):
+        s = x[items * t]
+        for v in x[items * t + 1:items * (t + 1)]:
+            s = f32(s + v)
+        agg[t] = s
+    incl = agg.copy()
+    for w in range(0, threads, 32):
+        seg = incl[w:w + 32]
+        off = 1
+        while off < 32:
+            seg = np.concatenate([seg[:off], seg[:-off] + seg[off:]])
+            off *= 2
+        incl[w:w + 32] = seg
+    out = np.zeros(n, dtype=f32)
+    prefix = f32(0)
+    for t in range(threads):
+        lane = t % 32
+        if lane == 0 and t:
+            prefix = incl[t - 1] if t == 32 else f32(prefix + incl[t - 1])
+        excl = (None if t == 0 else prefix if lane == 0
+                else incl[t - 1] if t < 32 else f32(prefix + incl[t - 1]))
+        s = x[items * t] if excl is None else f32(excl + x[items * t])
+        out[items * t] = s
+        for j in range(items * t + 1, min(items * (t + 1), n)):
+            s = f32(s + x[j])
+            out[j] = s
+    return out
+
+
+def select_order_rows(seed, n):
+    """Float32 rows of ``n`` whose sums differ under another order: wide
+    magnitudes (2**-24 to 8), a filter's peaked weights, and uniform."""
+    import numpy as np
+
+    rng = np.random.default_rng(9300 + seed * 1031 + n)
+    lw = rng.standard_normal(n) * 30
+    w = np.exp(lw - lw.max())
+    return [(rng.random(n) * 2.0 ** rng.integers(-24, 4, n)).astype("f4"),
+            (w / w.sum()).astype("f4"), rng.random(n).astype("f4")]
+
+
+def select_order_mismatches(torch, seeds=2,
+                            lengths=SELECT_ORDER_LENGTHS) -> dict:
+    """ATen's ``torch.sum`` over one row and ``torch.cumsum`` on the card
+    against :func:`aten_row_sum_model` and :func:`cub_scan_model`, and
+    against another order of each (the warp tree's offsets up, and 16
+    items a thread): the lengths at which the card differs from each, in
+    any bit of any row."""
+    import numpy as np
+
+    out = {"sum": set(), "sum_other": set(), "cumsum": set(),
+           "cumsum_other": set()}
+    for seed in range(seeds):
+        for n in lengths:
+            for x in select_order_rows(seed, n):
+                t = torch.from_numpy(x).cuda()
+                got = torch.sum(t, dim=-1, keepdim=True).cpu().numpy()
+                cum = torch.cumsum(t, dim=-1).cpu().numpy()
+                for key, want in (
+                        ("sum", aten_row_sum_model(x)),
+                        ("sum_other", aten_row_sum_model(x, False))):
+                    if got.view(np.int32)[0] != np.float32(want).view(
+                            np.int32):
+                        out[key].add(n)
+                for key, want in (("cumsum", cub_scan_model(x)),
+                                  ("cumsum_other", cub_scan_model(x, 16))):
+                    if not np.array_equal(cum.view(np.int32),
+                                          want.view(np.int32)):
+                        out[key].add(n)
+    return {k: sorted(v) for k, v in out.items()}
+
+
+def select_case(torch, p, seed):
+    """The selection kernel's inputs on the card for ``seed``: ``(prev
+    weights, log_lik, log_motion, u01, poses, frac)``.  Previous weights
+    normalized (a tenth exact zeros for ``seed % 3 == 1``, uniform for
+    ``seed % 4 == 0``); log-likelihoods spread by 1, 30 or 300 (so exp
+    underflows to subnormals and 0), a tenth -inf for ``seed % 3 == 2``,
+    motion log-probabilities by 0.1, 2 and 2 (broad weights at seed % 3
+    == 0, which a gate of 0.05 holds);
+    for ``seed % 5 == 3`` a quarter of the particles tie at the maximum
+    (the same three values); ``u01`` 0 for ``seed % 6 == 0``, the largest
+    float32 below 1 for ``seed % 6 == 1``, else uniform; ``frac`` 0.05, 1
+    or 0.5 by ``seed // 3``."""
+    import numpy as np
+
+    rng = np.random.default_rng(9400 + 37 * seed + p)
+    f32 = np.float32
+    prev = rng.random(p) + 0.01
+    if seed % 3 == 1:
+        prev[rng.random(p) < 0.1] = 0.0
+        prev[0] = max(prev[0], 0.5)
+    if seed % 4 == 0:
+        prev[:] = 1.0
+    prev = (prev / prev.sum()).astype(f32)
+    lik = (rng.standard_normal(p) * (1.0, 30.0, 300.0)[seed % 3]).astype(f32)
+    if seed % 3 == 2:
+        lik[rng.random(p) < 0.1] = -np.inf
+    motion = (rng.standard_normal(p) * (0.1, 2.0, 2.0)[seed % 3]).astype(f32)
+    if seed % 5 == 3:
+        tied = rng.choice(p, max(1, p // 4), replace=False)
+        lik[tied], motion[tied], prev[tied] = f32(50.0), f32(0.0), f32(1.0 / p)
+        lik[np.isneginf(lik)] = -1.0
+    u01 = (f32(0.0) if seed % 6 == 0 else np.nextafter(f32(1), f32(0))
+           if seed % 6 == 1 else f32(rng.random()))
+    poses = (rng.standard_normal((p, 3)) * 2.0).astype(f32)
+    frac = (0.05, 1.0, 0.5)[seed // 3 % 3]
+    cuda = [torch.from_numpy(np.ascontiguousarray(a)).cuda()
+            for a in (prev, lik, motion, np.array([u01], f32), poses)]
+    return (*cuda, frac)
+
+
+def select_pair(torch, case, gather=True):
+    """The kernel and the plain version of ``slam_select`` on the same
+    inputs, the kernel's launch counted: ``(kernel, plain)``."""
+    from slamrs_tpu_torch.ops import select
+
+    before = select.slam_select.launches
+    got = select.slam_select(*case, gather=gather)
+    if select.slam_select.launches != before + 1:
+        raise AssertionError("the slam_select launch counter did not count")
+    return got, select.slam_select_reference(*case, gather=gather)
+
+
+def select_same(torch, got, want) -> list:
+    """The fields of two selections that differ in any bit (floats as
+    their int32 words, so -0.0 is not 0.0 and NaNs compare by payload)."""
+    def words(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    bad = []
+    for name, a, b in zip(got._fields, got, want):
+        if a is None or b is None:
+            if (a is None) != (b is None):
+                bad.append(name)
+        elif a.dtype != b.dtype or a.shape != b.shape \
+                or not torch.equal(words(a), words(b)):
+            bad.append(name)
+    return bad
+
+
+def check_slam_select(torch):
+    """The selection kernel against its plain version
+    (``ops/select.slam_select_reference``) on the card: every output
+    bitwise at :data:`SELECT_PARTICLES`, :data:`SELECT_SEEDS` cases each
+    (:func:`select_case`), with and without the pose gather; ATen's sum
+    and cumsum orders (:func:`select_order_mismatches`); then the kernel's
+    device time beside the plain chain's and a one-element fill at both
+    shapes.  Returns the kernels-line numbers by shape."""
+    from slamrs_tpu_torch.ops import select
+
+    cases = mismatched = 0
+    for label, p in SELECT_PARTICLES.items():
+        for seed in range(SELECT_SEEDS):
+            case = select_case(torch, p, seed)
+            for gather in (True, False):
+                diff = select_same(torch, *select_pair(torch, case, gather))
+                cases += 1
+                if diff:
+                    mismatched += 1
+                    emit({"phase": "kernel_vs_plain_slam_select",
+                          "shape": label, "seed": seed, "gather": gather,
+                          "differs": diff})
+    orders = select_order_mismatches(torch)
+    times = {}
+    for label, p in SELECT_PARTICLES.items():
+        case = select_case(torch, p, 2)
+        ms = time_call(torch, lambda: select.slam_select(*case))
+        plain_ms = time_call(torch,
+                             lambda: select.slam_select_reference(*case))
+        floor_ms = time_call(torch, lambda: torch.zeros(1, device="cuda"))
+        t_bytes = p * SELECT_PARTICLE_BYTES / PEAK_BYTES_PER_S * 1e3
+        t_ops = (p * SELECT_PARTICLE_OPS + p * p) / PEAK_F32_PER_S * 1e3
+        bound, by = ((t_bytes, "bytes") if t_bytes >= t_ops
+                     else (t_ops, "operations"))
+        times[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                            bound_by=by, launch_floor_ms=floor_ms)
+        emit({"phase": "kernel_time_slam_select", "case": label,
+              "particles": p, "kernel_us": ms * 1e3,
+              "plain_us": plain_ms * 1e3, "bound_us": bound * 1e3,
+              "bound_by": by, "launch_floor_us": floor_ms * 1e3})
+    proven = (not orders["sum"] and not orders["cumsum"]
+              and orders["sum_other"] and orders["cumsum_other"])
+    emit({"phase": "kernel_vs_plain_slam_select", "cases": cases,
+          "mismatched_cases": mismatched, "orders": orders,
+          "bitwise_equal": mismatched == 0, "orders_proven": bool(proven)})
+    if mismatched or not proven:
+        raise AssertionError(f"slam_select disagrees with its plain "
+                             f"version: {mismatched} of {cases} cases, "
+                             f"orders {orders}")
+    return times
+
 # the dda integrate kernel (csrc/dda_integrate.cu); (map geometry,
 # particles, worlds) of the shapes it is checked at: the dda.rollout
 # cell's maps, grid_slam.yaml's App maps (10 particles at 0.02 m) and a
@@ -2561,20 +2835,26 @@ def check_grid_ops(torch):
 
 
 def recording_ancestors(gs):
-    """Wrap ``gs._weigh_and_select`` so each update's ancestors are kept;
-    returns the list and a function that restores the original."""
-    orig = gs._weigh_and_select
+    """Wrap ``gs.slam_select`` (a single-world update's selection) and
+    ``gs.weigh_and_select`` (a fleet's) so each update's ancestors are
+    kept; returns the list and a function that restores the originals."""
+    orig = gs.slam_select, gs.weigh_and_select
     kept = []
 
-    def wrapped(*args):
-        result = orig(*args)
+    def select(*args, **kw):
+        result = orig[0](*args, **kw)
+        kept.append(result.ancestors)
+        return result
+
+    def weigh(*args):
+        result = orig[1](*args)
         kept.append(result[1])
         return result
 
-    gs._weigh_and_select = wrapped
+    gs.slam_select, gs.weigh_and_select = select, weigh
 
     def restore():
-        gs._weigh_and_select = orig
+        gs.slam_select, gs.weigh_and_select = orig
 
     return kept, restore
 
@@ -2643,7 +2923,8 @@ def check_grid_slam_yaml(torch):
           "card_vs_cpu_best_pose_rmse_m": gap,
           "frames_where_ancestors_differ": differ, "weights_sum": wsum,
           "finite": finite, "seconds": seconds})
-    if slam_counts(counts) != dict(DDA_KERNELS, grid_integrate=frames) \
+    if slam_counts(counts) != dict(DDA_KERNELS, grid_integrate=frames,
+                                   slam_select=frames) \
             or counts["sim_frame"] != sim_launches(fw, 300):
         raise AssertionError(f"the dda path launched {counts}, expected one "
                              f"dda integrate kernel in each of {frames} "
@@ -2661,9 +2942,13 @@ def check_grid_slam_yaml(torch):
 
 NO_KERNELS = {"fused_update": 0, "fused_update_tiled": 0, "cow_copy": 0,
               "nn_argmin": 0, "icp_solve": 0, "slam_propose": 0,
+              "slam_select": 0,
               "grid_integrate": 0}
-# the dda path: the dda integrate kernel once an update, no other
-DDA_KERNELS = dict(NO_KERNELS, fused_update_in_place=0, grid_integrate=1)
+# the dda path: the dda integrate kernel once an update and, in a
+# single-world update, the selection kernel (a fleet's or a mesh block's
+# update keeps the ATen selection: callers set slam_select 0 there)
+DDA_KERNELS = dict(NO_KERNELS, fused_update_in_place=0, grid_integrate=1,
+                   slam_select=1)
 
 
 def check_path_deviation(torch):
@@ -3043,13 +3328,14 @@ def check_other_fleets(torch, icp_single_outs):
     tiled_counts, _, state = check_fleet_rollout(
         torch, tiled, 4, 60, "tiled_4x64_60", rmse_gate=RMSE_GATE_M,
         expect={"fused_update_tiled": "world_frames", "fused_update": 0,
-                "cow_copy": 0})
+                "cow_copy": 0, "slam_select": "world_frames"})
     if state.grid.tile_table is None or state.grid.tile_table.dim() != 3:
         raise AssertionError("the tiled fleet holds no per-world tables")
     check_fleet_rollout(torch, preset_world(torch, "grid_slam.yaml"), 16, 300,
                         "grid_slam_yaml_16_300",
                         rmse_gate=GRID_SLAM_RMSE_GATE_M,
-                        expect=dict(DDA_KERNELS, grid_integrate="frames"))
+                        expect=dict(DDA_KERNELS, grid_integrate="frames",
+                                    slam_select=0))
     icp_fw = preset_world(torch, "icp_test.yaml")
     icp_counts, outs, _ = check_fleet_rollout(
         torch, icp_fw, 8, 300, "icp_8_300", est="icp_pose",
@@ -3421,7 +3707,8 @@ def check_mesh_other_filters(torch):
                frames=sharded.frames)
     blocks = 8  # 4 x 2: each grid block integrates its scans at once
     require(equal and slam_counts(sharded.counts) == dict(
-                DDA_KERNELS, grid_integrate=blocks * sharded.frames)
+                DDA_KERNELS, grid_integrate=blocks * sharded.frames,
+                slam_select=0)
             and sharded.counts["sim_frame"] == sim_launches(fw, 300, rows=4),
             "grid_slam.yaml on 4 x 2 differs from the one-device fleet or "
             "launched other than one dda integrate kernel a block a frame")
@@ -3726,7 +4013,8 @@ def check_app_grid_slam_fused(torch):
     want = {"fused_update": node.updates, "fused_update_in_place": 0,
             "cow_copy": 0, "fused_update_tiled": 0, "nn_argmin": 0,
             "icp_solve": 0, "sim_frame": sim_ticks(app),
-            "slam_propose": node.updates, "grid_integrate": 0}
+            "slam_propose": node.updates, "slam_select": node.updates,
+            "grid_integrate": 0}
     if counts != want or node.updates < 45 or len(spans.ms) != node.updates:
         raise AssertionError(f"app headline launches {counts}, expected "
                              f"{want} ({len(spans.ms)} spans)")
@@ -3791,7 +4079,8 @@ def check_app_grid_slam_yaml(torch):
           "grid_pose_rmse_xy_m": rmse, "card_vs_cpu_best_pose_rmse_m": gap,
           "seconds": seconds, "frames_per_s": 300 / seconds,
           "cpu_seconds": cpu_s})
-    if slam_counts(counts) != dict(DDA_KERNELS, grid_integrate=node.updates) \
+    if slam_counts(counts) != dict(DDA_KERNELS, grid_integrate=node.updates,
+                                   slam_select=node.updates) \
             or node.updates != len(cpu_est) \
             or counts["sim_frame"] != sim_ticks(app):
         raise AssertionError(f"app dda launches {counts}")
@@ -4316,7 +4605,7 @@ def check_app_neato_replay(torch, log_path, truth):
     want = {"fused_update": 0, "fused_update_in_place": 0, "cow_copy": 0,
             "fused_update_tiled": 0, "nn_argmin": iters * n_frames,
             "icp_solve": (iters + 1) * n_frames, "sim_frame": 0,
-            "slam_propose": 0, "grid_integrate": 0}
+            "slam_propose": 0, "slam_select": 0, "grid_integrate": 0}
     if node.updates != n_frames or len(est) != n_frames or counts != want:
         raise AssertionError(f"replay: {node.updates} updates of "
                              f"{n_frames} frames, launches {counts}")
@@ -4442,7 +4731,7 @@ def check_robot_link_card(torch):
     if (received < LINK_MIN_MESSAGES or slam.updates < LINK_MIN_MESSAGES
             or slam.updates > received
             or counts != dict(DDA_KERNELS, grid_integrate=slam.updates,
-                              sim_frame=0)
+                              slam_select=slam.updates, sim_frame=0)
             or not np.isfinite(est).all() or not moved > 0.05
             or state != "running" or link.state != "idle"
             or ended != 0):
@@ -4462,7 +4751,8 @@ PROFILED_KERNELS = {"fused_update": "fused_update_kernel",
                     "fused_update_tiled": "fused_update_tiled_kernel",
                     "nn_argmin": "nn_argmin_kernel",
                     "icp_solve": "icp_solve_kernel",
-                    "grid_integrate": "dda_integrate_kernel"}
+                    "grid_integrate": "dda_integrate_kernel",
+                    "slam_select": "slam_select_kernel"}
 # runtime calls by which the host puts work on the card
 HOST_LAUNCH_CALLS = ("LaunchKernel", "GraphLaunch", "Memcpy", "Memset")
 
@@ -4472,7 +4762,7 @@ def capture_routes(torch):
     route the captured rollout covers."""
     k1 = {"fused_update": 1, "fused_update_in_place": 0,
           "fused_update_tiled": 0, "cow_copy": 0, "nn_argmin": 0,
-          "slam_propose": 1}
+          "slam_propose": 1, "slam_select": 1}
     in_place = dict(k1, fused_update_in_place=1)
     return [
         ("headline_0.05m", lambda: headline_world(torch, 0.05), (), 300, k1),
@@ -4488,7 +4778,7 @@ def capture_routes(torch):
          (), 300, DDA_KERNELS),
         ("dense_grid_slam_yaml", lambda: with_grid(
             preset_world(torch, "grid_slam.yaml"), integrate="dense"), (),
-         300, NO_KERNELS),
+         300, dict(NO_KERNELS, slam_select=1)),
         ("dda_0.05m", lambda: headline_world(torch, 0.05, "dda", "float32"),
          (), 300, DDA_KERNELS),
         ("icp_test_yaml", lambda: preset_world(torch, "icp_test.yaml"), (),
@@ -4496,7 +4786,7 @@ def capture_routes(torch):
         ("landmarks_yaml", lambda: preset_world(torch, "landmarks.yaml"), (),
          300, NO_KERNELS),
         ("fleet_256x10_0.02m", lambda: fleet_world(torch), (FLEET_WORLDS,),
-         300, dict(in_place, cow_copy=1, slam_propose=0)),
+         300, dict(in_place, cow_copy=1, slam_propose=0, slam_select=0)),
     ]
 
 
@@ -4752,11 +5042,11 @@ def check_captures(torch):
 # held every launch; the 10-update windows missed none
 APP_CAPTURES = [
     ("grid_slam_fused", "grid_slam_fused.yaml", 300, 30, 60,
-     {"fused_update": 1}),
+     {"fused_update": 1, "slam_select": 1}),
     ("icp_test", "icp_test.yaml", 900, 30, 60,
      {"nn_argmin": 10, "icp_solve": 11}),
     ("grid_slam_yaml", "grid_slam.yaml", 300, 60, 120,
-     {"grid_integrate": 1}),
+     {"grid_integrate": 1, "slam_select": 1}),
     ("landmarks", "landmarks.yaml", 300, 30, 60, {}),
 ]
 APP_TOPICS = ("robot/pose", "slam/pose", "slam/map",
@@ -5055,6 +5345,7 @@ def check_longrun(torch):
     require(counts == dict(NO_KERNELS, fused_update=torch_longrun.UPDATES,
                            fused_update_in_place=0, sim_frame=0,
                            slam_propose=torch_longrun.UPDATES,
+                           slam_select=2 * torch_longrun.UPDATES,
                            grid_integrate=torch_longrun.UPDATES),
             f"longrun launches {counts}")
     for k, s in stats.items():
@@ -5093,7 +5384,8 @@ def mesh_capture_routes(torch):
         ("config3_tiled_2x1", lambda: on_mesh(config3_world(torch),
                                               cuda_mesh(torch, 1, n=2)),
          MESH_CONFIG3_WORLDS, MESH_CONFIG3_TICKS,
-         kernels(fused_update_tiled=2, slam_propose=2), {}, False),
+         kernels(fused_update_tiled=2, slam_propose=2, slam_select=2), {},
+         False),
         ("grid_slam_yaml_4x2", lambda: on_mesh(
             preset_world(torch, "grid_slam.yaml"), cuda_mesh(torch, 2)), 16,
          300, kernels(grid_integrate=8), {}, False),
@@ -5404,7 +5696,7 @@ def check_tick_capture(torch, label, make, n_steps, exact):
 
 
 def check_tick_captures(torch):
-    k1 = dict(NO_KERNELS, fused_update=1, slam_propose=1)
+    k1 = dict(NO_KERNELS, fused_update=1, slam_propose=1, slam_select=1)
     return {label: check_tick_capture(torch, label, make, n, exact)
             for label, make, n, exact in (
                 ("headline_0.05m", lambda: headline_world(torch, 0.05), 300,
@@ -5453,6 +5745,7 @@ def main() -> int:
     nn_launched = check_nn_launches(torch)
     t_sim = check_sim_frame(torch)
     t_propose = check_slam_propose(torch)
+    t_select = check_slam_select(torch)
     t_dda = check_dda_integrate(torch)
     spec05 = GridSpec2D(-2.0, -2.0, 4.0, 4.0, 0.05)
     spec02 = GridSpec2D(-2.0, -2.0, 4.0, 4.0, 0.02)
@@ -5555,8 +5848,9 @@ def main() -> int:
     grid_slam_world = check_grid_slam_yaml(torch)
     dda_counts = {}
     for integrate, expect in (
-            ("dda", dict(DDA_KERNELS, grid_integrate="frames")),
-            ("dense", NO_KERNELS)):
+            ("dda", dict(DDA_KERNELS, grid_integrate="frames",
+                         slam_select="frames")),
+            ("dense", dict(NO_KERNELS, slam_select="frames"))):
         dda_counts[integrate], _, _ = check_rollout(
             torch, headline_world(torch, 0.05, integrate, "float32"), 300,
             f"{integrate}_0.05m_300", RMSE_GATE_M, expect=expect)
@@ -5727,6 +6021,19 @@ def main() -> int:
                                                     "slam_propose"),
          "tick_capture_launches": captured_launches(tick_cap,
                                                     "slam_propose")},
+        {"name": "slam_select", "route": "cuda",
+         "source": "slamrs_tpu_torch/csrc/slam_select.cu",
+         "replaces": "slamrs_tpu/models/gridslam.py:252 (XLA: the weight "
+                     "carry, normalization, argmax, N_eff, the gated "
+                     "systematic resample, the pose gathers)",
+         "max_abs_err": 0, "library_ms": None, **t_select["cells_1024"],
+         **{f"{label}_{k}": v for label, t in t_select.items()
+            if label != "cells_1024" for k, v in t.items()},
+         "captured_launches": captured_launches(cap, "slam_select"),
+         "app_capture_launches": captured_launches(app_cap, "slam_select"),
+         "mesh_capture_launches": captured_launches(mesh_cap, "slam_select"),
+         "tick_capture_launches": captured_launches(tick_cap,
+                                                    "slam_select")},
         {"name": "dda_integrate", "route": "cuda",
          "source": "slamrs_tpu_torch/csrc/dda_integrate.cu",
          "replaces": "slamrs_tpu/ops/grid.py:215 (XLA: the DDA walk, the "

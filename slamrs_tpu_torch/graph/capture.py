@@ -126,7 +126,7 @@ def _counter_table() -> dict:
     if _COUNTERS is None:
         from slamrs_tpu_torch.models import simulator
         from slamrs_tpu_torch.ops import (cow, fused, grid, icp, propose,
-                                          tiles)
+                                          select, tiles)
 
         _COUNTERS = {
             "fused_update": (fused.fused_update, "launches"),
@@ -138,6 +138,7 @@ def _counter_table() -> dict:
             "icp_solve": (icp.icp_solve, "launches"),
             "sim_frame": (simulator.sim_frame, "launches"),
             "slam_propose": (propose.slam_propose, "launches"),
+            "slam_select": (select.slam_select, "launches"),
             "grid_integrate": (grid.grid_integrate, "launches")}
     return _COUNTERS
 

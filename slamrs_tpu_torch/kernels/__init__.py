@@ -138,6 +138,14 @@ def library() -> ctypes.CDLL:
                    vp, vp, vp, vp, vp,  # poses, log_motion, pp, r0, table
                    vp]  # stream
     fn.restype = ci
+    fn = lib.slamrs_slam_select
+    fn.argtypes = [vp, vp, vp, vp, vp,  # prev weights, log_lik, log_motion,
+                   # u01, poses
+                   vp,  # the host scalars (SlamSelectParams)
+                   vp, vp, vp, vp, vp, vp, vp,  # weights, ancestors,
+                   # best_idx, n_eff, do_resample, best_pose, poses
+                   vp]  # stream
+    fn.restype = ci
     fn = lib.slamrs_dda_integrate
     fn.argtypes = [vp, vp, vp, vp, vp,  # maps, start x and y, ends x and y
                    vp, vp, vp,  # measured, valid, present

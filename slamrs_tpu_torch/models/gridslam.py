@@ -22,6 +22,11 @@ and N_eff, and resample systematically when N_eff falls to
   whatever ``grid_dtype`` says.  Plain PyTorch: the JAX package computes
   these in plain ``jnp``.
 
+A single-world update on any integrator then weighs and selects in one
+more launch (:func:`slamrs_tpu_torch.ops.select.slam_select`: the weight
+carry, normalization, argmax, N_eff, the gated systematic resample and
+the pose gathers); fleets keep that chain in ATen over ``[W, P]``.
+
 The resample is applied by one of four mechanisms, picked exactly as the
 JAX package picks them (:func:`resample_mechanism`):
 
@@ -77,7 +82,6 @@ import torch
 
 from slamrs_tpu_torch.core import motion
 from slamrs_tpu_torch.core.types import OdometryReading, Scan
-from slamrs_tpu_torch.ops import resample as _resample
 from slamrs_tpu_torch.ops.cow import cow_resample
 from slamrs_tpu_torch.ops.fused import (fits_vmem_resident, fused_update,
                                         supports_deferred_hbm)
@@ -85,6 +89,7 @@ from slamrs_tpu_torch.ops.grid import (GridSpec2D, dense_window_for,
                                        grid_integrate, grid_integrate_dense,
                                        grid_log_likelihood)
 from slamrs_tpu_torch.ops.propose import Proposal, slam_propose
+from slamrs_tpu_torch.ops.select import slam_select, weigh_and_select
 from slamrs_tpu_torch.ops.tiles import (fused_update_tiled, init_tiled,
                                         materialize_one)
 from slamrs_tpu_torch.parallel import fleet as pf
@@ -260,25 +265,6 @@ def draw_noise(generator: torch.Generator, p: int, device,
     return UpdateNoise(eps_c, eps_t, u01)
 
 
-def _weigh_and_select(log_lik: Tensor, log_motion: Tensor,
-                      prev_weights: Tensor, frac: float, p: int,
-                      u01: Tensor):
-    """Weight carry, normalization, argmax, N_eff, and the N_eff-gated
-    systematic resample (identity ancestors when it does not fire), per
-    world over any leading worlds axes."""
-    log_w = torch.log(prev_weights) + log_lik + log_motion
-    weights = _resample.normalize_log_weights(log_w)
-    best_idx = torch.argmax(weights, dim=-1).to(torch.int32)
-    n_eff = _resample.effective_particles(weights)
-    do_resample = n_eff <= frac * p
-    ancestors = _resample.systematic_resample(weights, u01=u01)
-    identity = torch.arange(p, dtype=torch.int32, device=weights.device)
-    fire = do_resample[..., None]
-    ancestors = torch.where(fire, ancestors, identity)
-    weights = torch.where(fire, torch.full_like(weights, 1.0 / p), weights)
-    return weights, ancestors, best_idx, n_eff, do_resample
-
-
 def resample_mechanism(config: GridSlamConfig, state: GridSlamState) -> str:
     """``"tiled"``, ``"deferred"``, ``"cow"`` or ``"gather"``: the JAX
     package's choice for this config and state (``gridslam.py:320-385``,
@@ -394,29 +380,29 @@ def update(state: GridSlamState, scan: Scan, odometry: OdometryReading,
                                      odometry.distance_right,
                                      odometry.wheel_base)
 
-    weights, ancestors, best_idx, n_eff, do_resample = _weigh_and_select(
-        log_lik, log_motion, state.weights, config.resample_neff_frac, p,
-        torch.as_tensor(noise.u01, device=dev))
-    # index_select: indexing by a 0-dim tensor would read it on the host
-    best_pose = new_poses.index_select(0, best_idx.reshape(1))[0]
-    pending = ancestors
+    # one launch on the card (ops/select.py); cow takes the poses ungathered
+    sel = slam_select(state.weights, log_lik, log_motion, noise.u01,
+                      new_poses, config.resample_neff_frac,
+                      gather=mechanism != "cow")
+    pending = sel.ancestors
     if mechanism == "cow":
         # slot-preserving copy on write: only duplicated maps move
-        new_poses, grids = cow_resample(grids, new_poses, ancestors)
+        new_poses, grids = cow_resample(grids, new_poses, sel.ancestors)
         pending = torch.arange(p, dtype=torch.int32, device=dev)
     elif mechanism == "gather":
         # always gathered: identity ancestors give the same values, and a
         # host branch on do_resample would wait for the device
-        new_poses = new_poses[ancestors.long()]
-        grids = grids.index_select(0, ancestors.long())
+        new_poses = sel.poses
+        grids = grids.index_select(0, sel.ancestors.long())
         pending = torch.arange(p, dtype=torch.int32, device=dev)
     else:  # tiled, deferred: applied by the next update's kernel
-        new_poses = new_poses[ancestors.long()]
+        new_poses = sel.poses
     new_state = GridSlamState(
-        poses=new_poses, grids=grids, weights=weights, best_pose=best_pose,
-        best_idx=best_idx, ancestors=pending, tile_table=tile_table)
-    return new_state, GridSlamOutputs(pose=best_pose, n_eff=n_eff,
-                                      resampled=do_resample)
+        poses=new_poses, grids=grids, weights=sel.weights,
+        best_pose=sel.best_pose, best_idx=sel.best_idx, ancestors=pending,
+        tile_table=tile_table)
+    return new_state, GridSlamOutputs(pose=sel.best_pose, n_eff=sel.n_eff,
+                                      resampled=sel.do_resample)
 
 
 def _per_world(v):
@@ -559,7 +545,7 @@ def update_fleet(state: GridSlamState, scan: Scan,
         state.poses, new_poses, _per_world(odometry.distance_left),
         _per_world(odometry.distance_right), _per_world(odometry.wheel_base))
 
-    weights, ancestors, best_idx, n_eff, do_resample = _weigh_and_select(
+    weights, ancestors, best_idx, n_eff, do_resample = weigh_and_select(
         log_lik.reshape(w, p), log_motion, state.weights,
         config.resample_neff_frac, p, noise.u01)
     best_pose = _take_particles(new_poses, best_idx[:, None])[:, 0]
@@ -720,7 +706,7 @@ def _update_fleet_blocks(state: GridSlamState, scan: Scan,
             return torch.cat([b.to(dev0, non_blocking=True)
                               for b in x.blocks[r]], dim=1)
 
-        w_r, anc, idx, n_eff, fired = _weigh_and_select(
+        w_r, anc, idx, n_eff, fired = weigh_and_select(
             joined(log_lik), joined(log_motion), joined(state.weights),
             config.resample_neff_frac, p,
             pf.world_part(noise.u01, mesh, r))

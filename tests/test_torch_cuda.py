@@ -55,6 +55,15 @@ log-probability and fused-kernel inputs) bitwise its plain version on the
 card at the headline's, the fleet's map geometry's and config 3's tile
 pool's shapes, ``torch.remainder`` in the form it repeats, one kernel a
 single-world fused update, and the same bits eager and replayed.
+The selection kernel (a single-world update's weight carry,
+normalization, argmax, N_eff, gated systematic resample and pose
+gathers) bitwise its plain version on the card at 1 to 1,024 particles
+(zero, subnormal and -inf weights, argmax ties, ``u01`` at 0 and just
+below 1, N_eff exactly at the gate, a count clamped to P - 1), ATen's
+row-sum and cumsum orders it repeats proven against another order, the
+deferred, copy-on-write, gather and tiled updates bitwise the plain
+selection's, one kernel a single-world update and none a fleet update,
+and the same bits eager and replayed.
 The dda integrate kernel (the walk, the inverse sensor model and each
 cell's sum) bitwise the plain chain's ``index_put_(accumulate=True)`` and
 the benchmark's reference on the card at the ``dda.rollout`` cell's, the
@@ -1526,6 +1535,251 @@ def test_slam_propose_is_the_same_eager_and_replayed(dev):
         graph.replay()
         torch.cuda.synchronize()
         assert smoke.propose_same(torch, replayed, eager) == []
+
+
+# --- the selection kernel (csrc/slam_select.cu) against its plain version ---
+
+def _select_ps():
+    """The particle counts the kernel is held at: fixed ones (one, the
+    App's ten, the cells' 1,024 and two between) and five drawn from a
+    fixed seed."""
+    import numpy as np
+
+    drawn = np.random.default_rng(29).integers(1, 1025, 5)
+    return sorted({1, 10, 100, 1000, 1024, *map(int, drawn)})
+
+
+@pytest.mark.parametrize("p", _select_ps())
+def test_slam_select_matches_plain_bitwise(dev, p):
+    """``slam_select_kernel`` against ``slam_select_reference`` on the
+    card: every output bit for bit (weights, ancestors, best index,
+    N_eff, the gate, best pose, gathered poses), one launch a call, with
+    and without the gather, over ``chip_smoke.select_case``'s cases:
+    zero and underflowing weights, -inf log-likelihoods, ties at the
+    maximum, ``u01`` at 0 and at the largest float below 1, three gates."""
+    smoke = _smoke()
+    for seed in range(smoke.SELECT_SEEDS):
+        case = smoke.select_case(torch, p, seed)
+        for gather in (True, False):
+            got, want = smoke.select_pair(torch, case, gather)
+            assert smoke.select_same(torch, got, want) == [], (seed, gather)
+
+
+def test_select_cases_reach_the_edges(dev):
+    """The cases hold what they claim: exact zero and subnormal weights,
+    -inf log-likelihoods, a tie at the maximum, both gate outcomes."""
+    from slamrs_tpu_torch.ops import select
+
+    smoke = _smoke()
+    seen = set()
+    for seed in range(smoke.SELECT_SEEDS):
+        prev, lik, motion, u01, poses, frac = smoke.select_case(torch, 1024,
+                                                                seed)
+        raw = select.weigh_and_select(lik, motion, prev, 0.0, 1024, u01)[0]
+        fired = bool(smoke.select_pair(torch, (prev, lik, motion, u01, poses,
+                                               frac))[0].do_resample)
+        seen.update(k for k, hit in (
+            ("zero", bool((prev == 0).any() and (raw == 0).any())),
+            ("subnormal", bool(((raw > 0) & (raw < 1.1754944e-38)).any())),
+            ("-inf", bool(torch.isneginf(lik).any())),
+            ("tie", int((raw == raw.max()).sum()) > 1),
+            ("fires", fired), ("holds", not fired)) if hit)
+    assert seen == {"zero", "subnormal", "-inf", "tie", "fires", "holds"}
+
+
+@pytest.mark.parametrize("p", [10, 1024])
+@pytest.mark.parametrize("on", [True, False], ids=["gate_on", "gate_off"])
+def test_slam_select_gate_at_n_eff_exactly(dev, p, on):
+    """N_eff exactly at the gate fires (``n_eff <= frac * P``); one float32
+    below it holds: the kernel gives the plain version's bits either way."""
+    import numpy as np
+
+    from slamrs_tpu_torch.ops import select
+
+    smoke = _smoke()
+    prev, lik, motion, u01, poses, _ = smoke.select_case(torch, p, 5)
+    n_eff = np.float32(select.slam_select_reference(
+        prev, lik, motion, u01, poses, 1.0).n_eff.item())
+    gate = n_eff if on else np.nextafter(n_eff, np.float32(0))
+    frac = float(gate) / p
+    assert np.float32(frac * p) == gate
+    got, want = smoke.select_pair(torch, (prev, lik, motion, u01, poses,
+                                          frac))
+    assert bool(want.do_resample) is on
+    assert smoke.select_same(torch, got, want) == []
+
+
+def test_slam_select_argmax_ties_take_the_lowest_index(dev):
+    """Equal maximal weights at scattered particles: the kernel's and
+    ATen's argmax both take the lowest index."""
+    smoke = _smoke()
+    prev, lik, motion, u01, poses, frac = smoke.select_case(torch, 1024, 1)
+    tied = torch.tensor([900, 17, 513, 1023], device="cuda")
+    lik[tied], motion[tied] = 1000.0, 0.0
+    prev[tied] = prev.max()
+    got, want = smoke.select_pair(torch, (prev, lik, motion, u01, poses,
+                                          frac))
+    assert int(got.best_idx) == int(want.best_idx) == 17
+    assert smoke.select_same(torch, got, want) == []
+
+
+def test_slam_select_clamps_a_count_past_the_last_particle(dev):
+    """Weights whose float32 cumsum ends below the last offset ``u_m``
+    (``u01`` the largest float below 1): the count reaches P, and the
+    kernel clamps it to P - 1 as the plain version does."""
+    from slamrs_tpu_torch.ops import select
+
+    smoke = _smoke()
+    p = 1024
+    g = torch.Generator(device="cuda").manual_seed(5)
+    arange = torch.arange(p, dtype=torch.float32, device="cuda")
+    for k in range(64):
+        prev, lik, motion, u01, poses, _ = smoke.select_case(torch, p, 1)
+        lik = lik + torch.randn(p, generator=g, device="cuda")
+        w = select.weigh_and_select(lik, motion, prev, 0.0, p, u01)[0]
+        u = u01 / p + arange / p
+        if int((torch.cumsum(w, 0) < u[-1]).sum()) == p:
+            break
+    else:
+        pytest.fail("no case put the cumsum's total below the last u_m")
+    got, want = smoke.select_pair(torch, (prev, lik, motion, u01, poses,
+                                          1.0))
+    assert bool(want.do_resample) and int(want.ancestors[-1]) == p - 1
+    assert smoke.select_same(torch, got, want) == []
+
+
+def test_aten_row_sum_and_cumsum_orders_are_the_kernels(dev):
+    """The orders the kernel repeats: ``torch.sum`` over one row and
+    ``torch.cumsum`` on the card give ``chip_smoke.aten_row_sum_model``'s
+    and ``cub_scan_model``'s bits at every length from 1 to 1,024 tried,
+    on rows whose sums differ under another order; and another order
+    (the warp tree's offsets up; 16 items a thread) fails on them."""
+    orders = _smoke().select_order_mismatches(torch)
+    assert orders["sum"] == [] and orders["cumsum"] == []
+    assert len(orders["sum_other"]) > 10 and len(orders["cumsum_other"]) > 10
+
+
+def _select_worlds():
+    """(config, state) of each single-world mechanism at 64 particles."""
+    import dataclasses
+
+    from slamrs_tpu_torch.models import gridslam as gs
+
+    config, _ = _headline_grid()
+    configs = {
+        "deferred": config,
+        "cow": dataclasses.replace(config, resample_cow=True,
+                                   fused_resident=False),
+        "gather": dataclasses.replace(config, resample_cow=False,
+                                      fused_resident=False),
+        "tiled": dataclasses.replace(config, resample_cow="tiled"),
+        "dda": dataclasses.replace(config, integrate="dda",
+                                   grid_dtype="float32")}
+    return {name: (cfg, gs.GridSlamState.init(cfg, "cuda"))
+            for name, cfg in configs.items()}
+
+
+def test_update_selects_bitwise_under_every_mechanism(dev, monkeypatch):
+    """Three single-world updates on the card under the deferred lineage,
+    copy on write, the whole-set gather (fused and dda) and the tile
+    pool: the kernel's route gives the bits of the same updates through
+    the plain selection, every state field and output."""
+    from slamrs_tpu_torch.models import gridslam as gs
+    from slamrs_tpu_torch.ops import select
+
+    smoke = _smoke()
+    for name, (config, state) in _select_worlds().items():
+        assert gs.resample_mechanism(config, state) == (
+            "gather" if name == "dda" else name)
+        plain = gs.GridSlamState(*(None if t is None else t.clone()
+                                   for t in state))
+        for step in range(3):
+            _, odometry, _, scan, _ = smoke.propose_case(
+                torch, config.grid_spec, 64, step)
+            gen = torch.Generator(device="cuda").manual_seed(step)
+            noise = gs.draw_noise(gen, 64, "cuda")
+            before = select.slam_select.launches
+            state, out = gs.update(state, scan, odometry, config,
+                                   noise=noise)
+            assert select.slam_select.launches - before == 1, name
+            monkeypatch.setattr(gs, "slam_select",
+                                select.slam_select_reference)
+            plain, want = gs.update(plain, scan, odometry, config,
+                                    noise=noise)
+            monkeypatch.undo()
+            for field in gs.GridSlamState._fields:
+                a, b = getattr(state, field), getattr(plain, field)
+                assert (a is None and b is None) or torch.equal(
+                    a.view(torch.int16) if a.dtype == torch.bfloat16 else a,
+                    b.view(torch.int16) if b.dtype == torch.bfloat16 else b
+                ), (name, step, field)
+            for a, b in zip(out, want):
+                assert torch.equal(a, b), (name, step)
+
+
+def test_slam_select_is_the_same_eager_and_replayed(dev):
+    """The kernel captured in a CUDA graph and replayed gives the eager
+    launch's bits, every output, twice over."""
+    from slamrs_tpu_torch.ops import select
+
+    smoke = _smoke()
+    case = smoke.select_case(torch, 1024, 2)
+    eager = select.slam_select(*case)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        select.slam_select(*case)  # warm on the capture stream
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = select.slam_select(*case)
+    for _ in range(2):
+        for out in replayed:
+            out.fill_(7)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert smoke.select_same(torch, replayed, eager) == []
+
+
+def test_a_grid_update_is_one_slam_select_kernel(dev):
+    """One single-world update (fused or dda) launches
+    ``slam_select_kernel`` once (the profiler's kernel names and the
+    counter); a fleet update never."""
+    from slamrs_tpu_torch.core.types import OdometryReading, Scan
+    from slamrs_tpu_torch.models import gridslam as gs
+    from slamrs_tpu_torch.ops import select
+
+    smoke = _smoke()
+    worlds = _select_worlds()
+    for name, worlds_axis, want in (("deferred", (), 1), ("dda", (), 1),
+                                    ("cow", (2,), 0)):
+        config = worlds[name][0]
+        state = gs.GridSlamState.init(config, "cuda", worlds_axis)
+        _, odometry, _, scan, _ = smoke.propose_case(
+            torch, config.grid_spec, 64, 1)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        if worlds_axis:
+            w = worlds_axis[0]
+            scan = Scan(*(x.expand(w, -1).contiguous() for x in scan))
+            odometry = OdometryReading(
+                odometry.distance_left.expand(w).contiguous(),
+                odometry.distance_right.expand(w).contiguous(),
+                odometry.wheel_base)
+            step = gs.update_fleet
+        else:
+            step = gs.update
+        state, _ = step(state, scan, odometry, config, generator=gen)
+        noise = gs.draw_noise(gen, 64, "cuda", worlds_axis)
+        before = select.slam_select.launches
+        prof = smoke.started_profile(torch)
+        step(state, scan, odometry, config, noise=noise)
+        torch.cuda.synchronize()
+        prof.stop()
+        names = [e.key for e in prof.key_averages()
+                 if e.device_type.name == "CUDA"
+                 for _ in range(e.count) if "slam_select_kernel" in e.key]
+        assert len(names) == want, name
+        assert select.slam_select.launches - before == want, name
 
 
 # --- the dda integrate kernel (csrc/dda_integrate.cu) against its plain

@@ -24,7 +24,7 @@ torch.set_num_threads(1)
 from slamrs_tpu_torch.core import motion  # noqa: E402
 from slamrs_tpu_torch.core.types import OdometryReading, Scan  # noqa: E402
 from slamrs_tpu_torch.models import gridslam as gs  # noqa: E402
-from slamrs_tpu_torch.ops import fused, propose, tiles  # noqa: E402
+from slamrs_tpu_torch.ops import fused, propose, select, tiles  # noqa: E402
 
 P = 8
 MECHANISMS = {"deferred": {}, "cow": dict(resample_cow=True,
@@ -92,7 +92,7 @@ def _chain_update(state, scan, odo, config, noise):
         grids, log_lik = fused.fused_update(state.grids, *args, dphi=dphi,
                                             in_place=True)
     log_motion = motion.log_prob(state.poses, new_poses, *odo)
-    weights, ancestors, best_idx, n_eff, fired = gs._weigh_and_select(
+    weights, ancestors, best_idx, n_eff, fired = select.weigh_and_select(
         log_lik, log_motion, state.weights, config.resample_neff_frac, P,
         noise.u01)
     best_pose = new_poses.index_select(0, best_idx.reshape(1))[0]
