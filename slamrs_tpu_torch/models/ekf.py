@@ -26,6 +26,11 @@ observations: the lanes are still taken one at a time, each lane's
 correction over every world at once (batched products), as the JAX
 package's ``vmap(update)``.  Landmark rows are gathered and scattered
 along the last axis, per world.
+
+Each update adds the observation lanes it corrects (the valid ones,
+summed over the worlds) on the device to the counter ``ekf.corrections``
+(``utils/trace.device_counter``): one integer sum and one add, replayed
+in captured graphs.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ import torch
 
 from slamrs_tpu_torch.core import math as m
 from slamrs_tpu_torch.core.types import LandmarkScan, OdometryReading
+from slamrs_tpu_torch.utils import trace
 
 Tensor = torch.Tensor
 
@@ -170,6 +176,8 @@ def update(state: EkfState, observation: LandmarkScan,
                _var_deg(config.obs_std_angle_deg))
 
     # ---- correction: one observation lane at a time
+    trace.device_counter("ekf.corrections", dev).add_(
+        observation.valid.sum(dtype=torch.int32))
     seen = state.seen
     for lane in range(observation.num_lanes):
         angle = observation.angles[..., lane]
